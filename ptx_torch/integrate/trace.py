@@ -1,0 +1,412 @@
+"""The integrator: scene compilation + the wavefront bounce loop.
+
+Port of the forward of ``ptx/integrate/trace.py``.  The reference's
+per-ray recursion (``path-trace.h:59-165``) becomes a loop over bounces
+carrying a wavefront ``(origin, dir, throughput, strength, alive)``; at
+each hit exactly one continuation is sampled — transmit with probability
+``refract_factor``, else scatter — which has the reference's expectation
+(see the JAX module's docstring).  ``strength`` threads through as the
+reference's termination heuristic, including the virtual fan-out
+division.
+
+Emission never feeds the continuation, so each bounce only records
+``(pos, throughput, mat_id, live)`` and the radiance of a whole phase is
+summed after its bounces: constant emitters by a per-material sum
+("mat-sum"), terminal image chains such as the sky on the one lane per
+path that reaches them ("sky-select").
+
+Every bounce goes through ``scene.bounce_fn``.  On a CUDA device that is
+one launch of the fused bounce kernel (:mod:`ptx_torch.ops.bounce_kernel`);
+on the CPU it is the kernel's plain PyTorch version, built on
+:func:`_bounce_live`.  Gradients (the manual bounce VJP, kernels K2/K3)
+are the next slice (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Any, Callable
+
+import torch
+
+from ptx_torch.core import linalg, rng
+from ptx_torch.core.constants import DEFAULT_RAY_DEPTH, EPS
+from ptx_torch.geom import tape
+from ptx_torch.geom.fasthit import collect_leaves, compile_fast_hit
+from ptx_torch.shade import materials as mats
+from ptx_torch.shade import textures as tx
+
+# The fused bounce kernel's limits: at most 24 leaves (48 candidates fit
+# one 64-bit mask), and every non-emissive slot Constant (the kernel
+# reads material scalars from its scene buffer; emission is evaluated
+# after the bounces).  The same eligibility as the JAX package's fused
+# bounce (ptx/integrate/trace.py:187-190).
+KERNEL_MAX_LEAVES = 24
+_KERNEL_CONST_SLOTS = ("reflect", "scatter", "transmit", "transmit_reflect")
+
+
+@dataclasses.dataclass(eq=False)
+class CompiledScene:
+    """A scene lowered to tensors + callables on one device.
+
+    ``bounce_fn`` is the one bounce every wavefront step calls: the fused
+    bounce (:class:`ptx_torch.ops.bounce_kernel.BounceKernel`) for
+    kernel-eligible scenes, else (CPU only) the plain
+    :func:`ptx_torch.ops.bounce_kernel.bounce_reference`."""
+    params: dict
+    plan: Any
+    material_fn: mats.MaterialTable
+    hit_fn: Callable            # (params, origin, dir) -> first-hit dict
+    device: torch.device
+    bounce_fn: Callable = None
+
+
+def compile_scene(root, device) -> CompiledScene:
+    """Compile a scene tree for ``device``.
+
+    On a CUDA device only kernel-eligible scenes compile: any other scene
+    raises ``NotImplementedError`` (no quiet fallback to a plain path)."""
+    from ptx_torch.ops.bounce_kernel import BounceKernel, bounce_reference
+
+    device = torch.device(device)
+    cpu = torch.device("cpu")
+    ordered, mat_ids = mats.assign_material_ids(root)
+    geo_params, plan = tape.compile_geometry(root, mat_ids, cpu)
+    compiler = tx.TextureCompiler()
+    mat_params, table = mats.compile_material_table(ordered, compiler, cpu)
+    n_leaves = len(collect_leaves(plan))
+    eligible = n_leaves <= KERNEL_MAX_LEAVES and not any(
+        table.dynamic_slots[s] for s in _KERNEL_CONST_SLOTS)
+    if device.type == "cuda" and not eligible:
+        raise NotImplementedError(
+            f"scene with {n_leaves} leaves and dynamic slots "
+            f"{ {s: v for s, v in table.dynamic_slots.items() if v} }: on CUDA "
+            "only the fused bounce kernel K1 is ported (L <= "
+            f"{KERNEL_MAX_LEAVES}, Constant non-emissive slots); the hit-only "
+            "kernel K4 with the unfused bounce, and the large-scene kernels "
+            "K5/K6, are ROADMAP Queue 2")
+    params = dict(geo_params)
+    params.update(mat_params)
+    params.update(compiler.finalize(cpu))
+    params = {k: ([x.to(device) for x in v] if isinstance(v, list)
+                  else v.to(device)) for k, v in params.items()}
+    scene = CompiledScene(params=params, plan=plan, material_fn=table,
+                          hit_fn=compile_fast_hit(plan), device=device)
+    scene.bounce_fn = (BounceKernel(scene) if eligible
+                       else functools.partial(bounce_reference, scene))
+    return scene
+
+
+# ---------------------------------------------------------------------------
+# scatter direction sampling
+# ---------------------------------------------------------------------------
+
+_ONE_THIRD = 1.0 / 3.0
+_G1 = 2.0 / 3.0                 # g(1) of the cap-height CDF below
+_TWO_PI_THIRDS = 2.0 * math.pi / 3.0
+_TWO_PI = 2.0 * math.pi
+
+
+def sample_scatter_dir(direction, normal, scatter_c, u3):
+    """Exact (zero-rejection) reference scatter sampling, driven by three
+    uniforms ``u3`` (..., 3) per lane.
+
+    The reference rejection-samples the unit ball until ``u + bias``
+    leaves the surface (path-trace.h:138-158); the accepted ``u`` is
+    uniform over the ball cap ``{|u| ≤ 1, n̂·u > c}``, drawn here directly:
+    the cap height by inverting ``g(z) = z − z³/3`` with the trigonometric
+    cubic root, a uniform point on that disk, mapped through the Duff et
+    al. 2017 orthonormal frame around ``n̂``.  For ``sc <= EPS`` the mirror
+    direction is used.  Returns ``(dir, ok, u)``: ``ok`` is False where the
+    cap is empty (the path is abandoned), ``u`` the accepted in-ball draw.
+    """
+    reflected = linalg.reflect(direction, normal)
+    sc = torch.clamp(scatter_c, 0.0, 1.0)
+    specular = sc <= EPS
+    safe_sc = torch.where(specular, 1.0, sc)
+    bias = (1.0 / safe_sc - 1.0)[..., None] * reflected
+
+    m2 = linalg.dot(normal, normal)
+    m = torch.sqrt(torch.where(m2 == 0.0, 1.0, m2))
+    nhat = normal / m[..., None]
+    c = (EPS - linalg.dot(normal, bias)) / m
+    feasible = c < 1.0
+    cc = torch.clamp(c, -1.0, 1.0)
+
+    g_cc = cc - cc * cc * cc * _ONE_THIRD
+    G = g_cc + u3[..., 0] * (_G1 - g_cc)
+    arg = torch.clamp(-1.5 * G, -1.0, 1.0)
+    z = 2.0 * torch.cos(torch.acos(arg) * _ONE_THIRD - _TWO_PI_THIRDS)
+    z = torch.minimum(torch.maximum(z, cc), torch.ones_like(z))
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0) * u3[..., 1])
+    phi = _TWO_PI * u3[..., 2]
+    x, y = r * torch.cos(phi), r * torch.sin(phi)
+
+    nx, ny, nz = nhat.unbind(-1)
+    s = torch.where(nz >= 0.0, 1.0, -1.0)
+    a = -1.0 / (s + nz)
+    b = nx * ny * a
+    e1 = torch.stack([1.0 + s * nx * nx * a, s * b, -s * nx], dim=-1)
+    e2 = torch.stack([b, s + ny * ny * a, -ny], dim=-1)
+    u = x[..., None] * e1 + y[..., None] * e2 + z[..., None] * nhat
+
+    out = torch.where(specular[..., None], reflected, linalg.normalize(u + bias))
+    return out, specular | feasible, u
+
+
+# ---------------------------------------------------------------------------
+# one bounce
+# ---------------------------------------------------------------------------
+
+def _virtual_fanout(strength, add_factor, sc):
+    """The reference's scatter-child count ``int(10000·strength·addFactor·
+    sc)``, clamped to ≥ 1 and 1 for specular (path-trace.h:130-136).  Each
+    child's strength is divided by it, which ends diffuse chains the way
+    the reference does (see the JAX function's docstring)."""
+    vcount = torch.floor(10000.0 * strength * add_factor * sc)
+    return torch.where((sc <= EPS) | (vcount < 1.0), 1.0, vcount)
+
+
+def _bounce_live(hit_fn, material_fn, params, o, d, throughput, strength,
+                 alive, in_depth: bool, u_coin, u3):
+    """One wavefront bounce, plain PyTorch: first hit, material, the
+    stochastic branch pick, the scatter draw, carry update.
+
+    ``u_coin`` (B,) and ``u3`` (B, 3) are this bounce's uniforms.  Returns
+    ``(carry, decisions)`` with ``carry = (o2, d2, thr2, strength2,
+    alive2)`` and the decisions ``evt, hit, entering, mat_id,
+    take_transmit, scatter_alive, u_sel, t``.
+    """
+    hit = hit_fn(params, o, d)
+    pos = o + hit["t"][..., None] * d
+    m = material_fn(params, pos, hit["mat_id"])
+
+    # continuation gate (path-trace.h:105); the last bounce (in_depth
+    # False) only records its hit for emission
+    cont = alive & hit["hit"] & in_depth & (strength >= EPS)
+
+    normal = hit["normal"]
+    rel_ior = torch.where(hit["entering"], 1.0 / m["ior"], m["ior"])
+    trc = torch.clamp(m["transmit_reflect_f"], 0.0, 1.0)
+    refract_factor = trc * linalg.refract_strength(d, rel_ior, normal)
+    refr_dir = linalg.refract(d, rel_ior, normal)
+    refr_ok = (refract_factor > EPS) & (refr_dir != 0.0).any(dim=-1)
+    p_transmit = torch.where(refr_ok, refract_factor, 0.0)
+
+    take_transmit = (u_coin < p_transmit) & cont
+    add_factor = 1.0 - p_transmit
+    # reference: the scatter branch is skipped when addFactor < eps
+    scatter_alive = cont & ~take_transmit & (add_factor >= EPS)
+
+    scat_dir, scat_ok, u_sel = sample_scatter_dir(d, normal, m["scatter_f"], u3)
+    sc = torch.clamp(m["scatter_f"], 0.0, 1.0)
+    factor = 1.0 - (1.0 - linalg.dot(scat_dir, normal)) * sc
+    scatter_alive = scatter_alive & scat_ok
+
+    new_alive = take_transmit | scatter_alive
+    tt = take_transmit[..., None]
+    new_dir = torch.where(tt, refr_dir, scat_dir)
+    branch_tint = torch.where(tt, m["transmit"], factor[..., None] * m["reflect"])
+    new_throughput = throughput * branch_tint
+
+    # strength: the reference's termination heuristic (path-trace.h:118,162)
+    tr_strength = strength * refract_factor * linalg.norm(m["transmit"])
+    sc_strength = (strength / _virtual_fanout(strength, add_factor, sc)
+                   * add_factor * factor * linalg.norm(m["reflect"]))
+    new_strength = torch.where(take_transmit, tr_strength, sc_strength)
+
+    na = new_alive[..., None]
+    carry = (torch.where(na, pos, o), torch.where(na, new_dir, d),
+             torch.where(na, new_throughput, throughput),
+             torch.where(new_alive, new_strength, strength), new_alive)
+    decisions = {
+        "evt": hit["_evt"],
+        "hit": hit["hit"],
+        "entering": hit["entering"],
+        "mat_id": hit["mat_id"],
+        "take_transmit": take_transmit,
+        "scatter_alive": scatter_alive,
+        "u_sel": u_sel,
+        "t": hit["t"],
+    }
+    return carry, decisions
+
+
+def _bounce(scene: CompiledScene, params, carry, in_depth, u_coin, u3):
+    kb = scene.bounce_fn(params, *carry, u_coin, u3, in_depth)
+    return (kb["o2"], kb["d2"], kb["thr2"], kb["strength2"], kb["alive2"]), kb
+
+
+# ---------------------------------------------------------------------------
+# dead-lane compaction
+# ---------------------------------------------------------------------------
+
+def _compact_wavefront(carry, orig, cap: int, key=None):
+    """Pack live lanes into a ``cap``-wide wavefront.
+
+    Live lanes go to the front in lane order.  If more than ``cap`` are
+    alive, systematic resampling keeps exactly ``cap`` of them, evenly
+    spaced with a random phase offset drawn from ``key``, and boosts their
+    throughput by ``n/cap`` (unbiased; the offset keeps it unbiased per
+    pixel — see the JAX function's docstring for the stripes it fixed).
+    Tail rows past the kept count are dead fillers with ``orig`` set to a
+    sentinel ≥ the original width.  ``orig`` maps lanes to the original
+    wavefront (int64; the JAX version bitcasts it through f32)."""
+    o, d, throughput, strength, alive = carry
+    alive_i = alive.to(torch.int64)
+    n = alive_i.sum()
+    n_safe = torch.clamp(n, min=1)
+    ncap = torch.clamp(n_safe, max=cap)
+    ranks = torch.cumsum(alive_i, dim=0)             # 1-based among alive
+    if key is not None:
+        u = rng.uniform(key, (), o.device)
+        off = torch.floor(u * n_safe.to(torch.float32)).to(torch.int64)
+        off = torch.minimum(torch.clamp(off, min=0), n_safe - 1)
+    else:
+        off = torch.zeros((), dtype=torch.int64, device=o.device)
+    lo = torch.div((ranks - 1) * ncap + off, n_safe, rounding_mode="floor")
+    hi = torch.div(ranks * ncap + off, n_safe, rounding_mode="floor")
+    keep = alive & (hi > lo)                         # exactly min(n, cap)
+    w = torch.where(n > cap, n_safe.to(torch.float32) / cap, 1.0)
+
+    # kept lanes first, in lane order; the tail holds dropped lanes
+    src = torch.argsort((~keep).to(torch.uint8), stable=True)[:cap]
+    new_alive = (torch.arange(cap, device=o.device) < ncap) & alive[src]
+    dz = torch.where(new_alive, 0.0, -1.0)           # fillers get a safe dir
+    d2 = d[src]
+    new_carry = (
+        o[src],
+        torch.stack([d2[:, 0], d2[:, 1], d2[:, 2] + dz], dim=-1),
+        torch.where(new_alive[:, None], (throughput * w)[src], 0.0),
+        torch.where(new_alive, strength[src], 0.0),
+        new_alive,
+    )
+    sentinel = torch.iinfo(torch.int64).max
+    return new_carry, torch.where(new_alive, orig[src], sentinel)
+
+
+# Compaction schedule (start_bounce, width_divisor) and the batch size
+# from which it is on: the JAX package's tuned defaults
+# (ptx/integrate/trace.py:864-874).
+_COMPACT_SCHEDULE = ((2, 3), (6, 16))
+_COMPACT_MIN_BATCH = 16384
+
+
+# ---------------------------------------------------------------------------
+# trace_rays (forward)
+# ---------------------------------------------------------------------------
+
+def _phase_uniforms(key, start, end, width, device):
+    """All of a phase's bounce uniforms in two batched draws — the values
+    each bounce b would draw itself: ``u_coin = uniform(fold(key, b, 1),
+    (width,))`` and ``u3 = uniform(fold(key, b, 2), (width, 3))``."""
+    kbs = [rng.fold(key, b) for b in range(start, end)]
+    u_coins = rng.uniform_many([rng.fold(k, 1) for k in kbs], (width,), device)
+    u3s = rng.uniform_many([rng.fold(k, 2) for k in kbs], (width, 3), device)
+    return u_coins, u3s
+
+
+def trace_rays(scene: CompiledScene, params, origin, direction, key,
+               depth: int = DEFAULT_RAY_DEPTH, compact: bool | None = None,
+               skysel: bool = True):
+    """Trace a wavefront of rays to radiance estimates ``(..., 3)``.
+
+    One stochastic path per ray, up to ``depth`` bounces plus the primary
+    hit.  ``key`` is a :mod:`ptx_torch.core.rng` key; draws match the JAX
+    package's ``trace_rays`` bit for bit.
+
+    ``compact``: dead-lane compaction between bounce phases; default on
+    for flat batches of at least 16384 rays at depth ≥ 8.  ``skysel``:
+    evaluate terminal dynamic-emissive chains (the sky) on one selected
+    lane per path (exact; see the module docstring).
+    """
+    batch_shape = origin.shape[:-1]
+    origin = origin.reshape(-1, 3)
+    direction = direction.reshape(-1, 3)
+    B = origin.shape[0]
+    device = origin.device
+    carry = (origin, direction,
+             torch.ones((B, 3), dtype=torch.float32, device=device),
+             torch.ones((B,), dtype=torch.float32, device=device),
+             torch.ones((B,), dtype=torch.bool, device=device))
+
+    if compact is None:
+        compact = B >= _COMPACT_MIN_BATCH and depth >= 8
+    phases = [(0, 1)]
+    if compact:
+        phases += [(s, dv) for s, dv in _COMPACT_SCHEDULE
+                   if s <= depth and B // dv >= 1]
+
+    orig = torch.arange(B, dtype=torch.int64, device=device)
+    saved = []                  # per phase: (pos, thr, mat_id, live, orig)
+    for pi, (start, div) in enumerate(phases):
+        end = phases[pi + 1][0] if pi + 1 < len(phases) else depth + 1
+        if pi > 0:
+            carry, orig = _compact_wavefront(carry, orig, B // div,
+                                             key=rng.fold(key, 0x00C0, pi))
+        u_coins, u3s = _phase_uniforms(key, start, end, B // div, device)
+        rows = []
+        for b in range(start, end):
+            o, d, thr, _, alive = carry
+            carry, dec = _bounce(scene, params, carry, b < depth,
+                                 u_coins[b - start], u3s[b - start])
+            # the emission record: hit position, the throughput that
+            # reaches it, its material, and whether the lane hit live
+            rows.append((o + dec["t"][:, None] * d, thr, dec["mat_id"],
+                         alive & dec["hit"]))
+        pos, thr, mid, live = (torch.stack(x) for x in zip(*rows))
+        saved.append((pos, thr, mid, live, orig))
+
+    radiance = torch.zeros((B, 3), dtype=torch.float32, device=device)
+    for pi, (pos, thr, mid, live, orig) in enumerate(saved):
+        contrib = _phase_emission(scene, params, pos, thr, mid, live, skysel)
+        if pi == 0:
+            radiance = radiance + contrib
+        else:
+            # kept lanes have distinct orig; filler rows add exact zeros
+            valid = orig < B
+            radiance.index_add_(0, torch.where(valid, orig, B - 1),
+                                torch.where(valid[:, None], contrib, 0.0))
+    return radiance.reshape(batch_shape + (3,))
+
+
+def _phase_emission(scene, params, pos, thr, mid, live, skysel):
+    """Radiance one phase banks per lane, from its (nb, Bp) bounce records.
+
+    - mat-sum (every dynamic emitter is terminal): emission is a constant
+      per material, so sum the live throughput per material and multiply
+      by that material's emissive row once;
+    - otherwise evaluate the emissive slot on every record;
+    - sky-select: a terminal material zeroes throughput, so at most one
+      record per lane has (terminal material ∧ throughput ≠ 0); its chain
+      is evaluated on that record only (first such bounce).
+    """
+    table = scene.material_fn
+    term_chains = table.terminal_dynamic_emissive if skysel else []
+    term_mis = {mi for mi, _ in term_chains}
+    if term_chains and set(table.dynamic_slots["emissive"]) <= term_mis:
+        em_rows = params["const"][torch.as_tensor(
+            table.const_idx["emissive"], device=thr.device)]
+        contrib = torch.zeros(thr.shape[1:], dtype=torch.float32,
+                              device=thr.device)
+        for m in range(table.n_materials):
+            if m in term_mis:
+                continue
+            wsum = torch.where((live & (mid == m))[..., None], thr, 0.0).sum(dim=0)
+            contrib = contrib + wsum * em_rows[m]
+    else:
+        em_eval = table.eval_emissive_base if term_chains else table.eval_emissive
+        em = em_eval(params, pos.reshape(-1, 3), mid.reshape(-1)).reshape(thr.shape)
+        contrib = torch.where(live[..., None], thr * em, 0.0).sum(dim=0)
+
+    thr_nz = thr.abs().sum(dim=-1) > 0.0
+    for mi, fn in term_chains:
+        is_sel = live & (mid == mi) & thr_nz                    # (nb, Bp)
+        first = torch.argmax(is_sel.to(torch.uint8), dim=0)    # first True
+        pick = lambda a: a.gather(0, first[None, :, None].expand(1, -1, 3))[0]
+        em = fn(params, pick(pos))
+        contrib = contrib + torch.where(is_sel.any(dim=0)[:, None],
+                                        pick(thr) * em, 0.0)
+    return contrib

@@ -1,0 +1,109 @@
+"""The port's entry point and its routing rules.
+
+- ``python -m ptx_torch render`` runs on the CPU when asked and never
+  imports jax (the card's machine has none);
+- on CUDA a scene the fused bounce kernel cannot take raises
+  ``NotImplementedError`` at compile time — before touching the device,
+  so this holds on a host without a card too; no quiet fallback.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from ptx_torch.geom.tape import Plane, Sphere, Union
+from ptx_torch.integrate import trace
+from ptx_torch.ops import bounce_kernel
+from ptx_torch.scenes import builders
+from ptx_torch.shade import textures as tx
+from ptx_torch.shade.materials import Material
+
+torch.set_num_threads(1)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import sys
+from ptx_torch.cli import main
+frame = main(sys.argv[1:])
+print("JAX_IMPORTED", "jax" in sys.modules)
+import numpy as np
+from ptx_torch import io
+assert frame.shape == (8, 8, 3) and np.isfinite(frame).all() and frame.mean() > 0
+assert io.bmp.read(sys.argv[-1] + ".bmp").shape == (8, 8, 3)
+# (hdr.read probes the native codec through ptx.runtime, so it comes last)
+assert io.hdr.read(sys.argv[-1] + ".hdr").shape[:2] == (8, 8)
+"""
+
+
+def _run(args, tmp_path):
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get(
+        "PYTHONPATH", ""))
+    return subprocess.run([sys.executable, "-c", _PROBE, *args], cwd=tmp_path,
+                          env=env, capture_output=True, text=True, timeout=120)
+
+
+def test_cli_cpu_render_without_jax(tmp_path):
+    out = str(tmp_path / "img")
+    proc = _run(["render", "--demo", "demo", "--device", "cpu", "--width", "8",
+                 "--height", "8", "--spp", "1", "--depth", "2", "--out", out],
+                tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    assert "rays/s" in proc.stdout
+    assert "JAX_IMPORTED False" in proc.stdout
+
+
+def test_cli_module_entry_point(tmp_path):
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get(
+        "PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-m", "ptx_torch", "render", "--device", "cpu",
+         "--width", "8", "--height", "8", "--spp", "1", "--depth", "2",
+         "--out", str(tmp_path / "m")],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert (tmp_path / "m.bmp").exists() and (tmp_path / "m.hdr").exists()
+
+
+def test_cli_cuda_default_needs_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device renders")
+    proc = _run(["render", "--width", "8", "--height", "8", "--spp", "1",
+                 "--depth", "2", "--out", str(tmp_path / "x")], tmp_path)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+
+
+def _textured_world():
+    checker = np.ones((4, 4, 4), np.float32)
+    textured = Material(reflect=tx.TransformedTex(
+        np.eye(3, 4, dtype=np.float32), tx.ImageTex(checker)), scatter=1.0)
+    sky = Material(reflect=0.0, scatter=0.0, emissive=(0.7, 0.8, 1.0))
+    return Union(Sphere((0.0, 0.0, -4.0), 1.0, textured),
+                 *builders.sky_planes(sky))
+
+
+def _big_world():
+    mat = Material(reflect=0.5, scatter=1.0)
+    sky = Material(reflect=0.0, scatter=0.0, emissive=1.0)
+    return Union(*(Sphere((0.1 * i, 0.0, -4.0), 0.05, mat) for i in range(20)),
+                 *builders.sky_planes(sky))
+
+
+@pytest.mark.parametrize("world", [_textured_world, _big_world],
+                         ids=["dynamic-reflect", "26-leaves"])
+def test_cuda_compile_rejects_ineligible_scene(world):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        trace.compile_scene(world(), "cuda")
+    # the CPU keeps the plain bounce for such scenes
+    bounce = trace.compile_scene(world(), "cpu").bounce_fn
+    assert bounce.func is bounce_kernel.bounce_reference
+
+
+def test_cuda_compile_accepts_the_demo_routing():
+    scene = trace.compile_scene(builders.make_world(), "cpu")
+    # K1-eligible: 13 leaves
+    assert isinstance(scene.bounce_fn, bounce_kernel.BounceKernel)
