@@ -8,34 +8,72 @@ gives it, renders the demo at full size through the CLI entry point, and
 checks the render.  Any failed phase raises: the exit code is nonzero and
 no result line is printed.  Without CUDA it exits 1 before doing anything.
 
-Phases:
+Phases (each raises on failure; none is caught):
 1. device: name, and power limit as ``nvidia-smi`` reports it;
-2. build: nvcc, timed;
-3. kernel vs plain, at every shape the main path gives K1: (a) three
+2. build: nvcc on every source in parallel, timed;
+3. K1 vs plain, at every shape the main paths give K1: (a) three
    chained bounces of 65,536 primary rays (a 128-row band of the 512×512
    demo camera), each on the kernel's own carry; (b) the first chunk of
    the render's bands at rows 0 and 256 as the render runs them
    (``render_rows``, 65,536 rays at depth 16, compacted to 21,845 lanes
    from bounce 2 and to 4,096 from bounce 6), each of the 17 recorded
-   kernel inputs of each fed to ``bounce_reference``.  Decisions must be equal except flips a float64
-   recompute puts at a near-tie; floats must agree within ``rtol 1e-5,
-   atol 5e-6`` on agreeing lanes;
-4. slice: ``python -m ptx_torch render --demo demo --width 512 --height
-   512 --spp 16 --depth 16`` through ``ptx_torch.cli.main``, with the
-   launch counters zeroed just before; then a 16-row band at spp 2
+   kernel inputs fed to ``bounce_reference``.  Decisions must be equal
+   except flips a float64 recompute puts at a near-tie; floats must agree
+   within ``rtol 1e-5, atol 5e-6`` on agreeing lanes;
+4. render slice: ``python -m ptx_torch render --demo demo --width 512
+   --height 512 --spp 16 --depth 16`` through ``ptx_torch.cli.main``, with
+   the launch counters zeroed just before; then a 16-row band at spp 2
    rendered with the kernel and with the plain bounce on the card, equal
    within ``rtol 1e-4, atol 1e-5`` except pixels whose paths hold an
    adjudicated flip;
-5. timing: one bounce at B = 65,536, the K1 wrapper as the main path
-   calls it against the plain bounce, each the median of 20 single calls
-   between CUDA events; the bare launch, back to back, beside them;
-6. the JSON lines: the kernels, then the device.
+5. K2 and K3 vs plain, on the inputs a render chunk gives them: forward +
+   backward of ``radiance.sum()`` over the first 65,536-ray chunk of band
+   256 (widths 65,536, 21,845 and 4,096, filler lanes included), every
+   backward bounce's carry, decisions and cotangents recorded and fed to
+   K2 and to its plain versions, every sky-select histogram's inputs to K3
+   and ``hist_reference``; then K3 on a 512×1024×4 image (the
+   global-atomic path).  Tolerances: K2 per lane within ``rtol 1e-5, atol
+   1e-6`` of the plain value, or within twice the plain value's error
+   against a float64 recompute plus 1e-4 relative (the hand adjoint orders
+   its float32 operations unlike autograd, and near-grazing lanes are
+   ill-conditioned); per-leaf sums at the scale of their terms' |sum|; two
+   launches the same bits; ``d_params`` within 1e-4 of each tensor's
+   largest entry, or within twice the plain value's error against the
+   float64 sums mapped to the params.  K3 within the reordered-sum bound
+   ``2·n·2⁻²⁴·Σ|ct|`` per texel (float atomics add in a varying order);
+6. gradients, kernel path against plain path on the card: a 32-row band at
+   spp 2 (32,768 rays, compaction on), depth 16, the gradient of the mean
+   radiance with respect to every param tensor, the sky image included,
+   within 1e-4 of each tensor's largest entry;
+7. training slice: ``make_train_step`` on the demo at 512×512, spp 16,
+   depth 16 (one 4,194,304-ray wavefront per step), target the port's
+   render of the true params under another key, start from sphere radii
+   ×1.05 and const row 0 lowered by 0.1; 3 steps with the counters zeroed
+   just before; loss and grad norm finite; exact launch counts (K1 17 and
+   K2 16 per step: the last bounce's carry feeds nothing, so autograd runs
+   no backward for it; K3 3 per step, one per phase's sky-select
+   evaluation) and no plain call; peak memory and seconds per step;
+8. kernels at the training step's widths: one more step from the true
+   params with every K1, K2 and K3 call's inputs recorded (4,194,304,
+   1,398,101 and 262,144 lanes; the K2 grid's tile loop runs only here),
+   each held against its plain version as in phases 3 and 5; K2's bare
+   launch timed at 4,194,304 lanes beside its bound;
+9. a forward + backward chunk at the bench's shape (128 rows × 512, spp 1,
+   depth 16, ``loss = radiance.mean()``): rays/s over the median of 10
+   chunks between CUDA events, beside the forward alone;
+10. timing per kernel at the render's width (65,536 lanes): the wrapper
+    as the main path calls it and the plain version, each the median of 20 single
+    calls between CUDA events; for K3 also the library call
+    ``index_put_(accumulate=True)``; the least time the card could take
+    (``bound_ms``) from this run's inputs;
+11. the JSON lines: the kernels, then the device.
 
 Outputs (the rendered image, the nvcc report) go to ``build/chip_smoke/``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -275,16 +313,15 @@ def phase_slice(scene):
     from ptx_torch.ops import bounce_kernel
 
     out = os.path.join(OUT, "smoke_demo")
-    bounce_kernel.LAUNCHES = 0
-    bounce_kernel.REFERENCE_CALLS = 0
+    _reset_counters()
     t0 = time.perf_counter()
     frame = cli.main(["render", "--demo", "demo", "--width", str(W), "--height",
                       str(H), "--spp", str(SPP), "--depth", str(DEPTH),
                       "--device", "cuda", "--out", out])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = bounce_kernel.LAUNCHES
-    plain = bounce_kernel.REFERENCE_CALLS
+    c = _counters()
+    launches, plain = c["K1"], c["plain"]
     bands = -(-H // min(H, 2 ** 16 // W))     # the CLI's 65,536-ray bands
     expected = bands * SPP * (DEPTH + 1)
     rays = W * H * SPP * (DEPTH + 1)
@@ -296,15 +333,15 @@ def phase_slice(scene):
         raise AssertionError("render is not a finite (H, W, 3) image")
     if not frame.mean() > 0:
         raise AssertionError("render is black")
-    if launches != expected or plain != 0:
-        raise AssertionError(f"main path launches: K1 {launches} (expected "
-                             f"{expected}), plain {plain} (expected 0)")
+    if launches != expected or plain != 0 or c["K2"] or c["K3"]:
+        raise AssertionError(f"render launches {c}: expected K1 {expected}, no "
+                             "backward kernel, no plain call")
     return launches, wall, rays / wall
 
 
 def _recording(fn, log_list):
-    def call(params, *inputs):
-        out = fn(params, *inputs)
+    def call(params, *inputs, packed=None):
+        out = fn(params, *inputs, packed=packed)
         log_list.append((inputs, out))
         return out
     return call
@@ -404,20 +441,535 @@ def phase_timing(scene, inputs):
     decode) is reported beside them under its own name."""
     from ptx_torch.ops import bounce_kernel
 
-    wrapped = lambda: scene.bounce_fn(scene.params, *inputs)
+    buf = scene.bounce_fn.pack(scene.params)     # once per trace_rays call
+    wrapped = lambda: scene.bounce_fn(scene.params, *inputs, packed=buf)
     plain = lambda: bounce_kernel.bounce_reference(scene, scene.params, *inputs)
-    raw = lambda: scene.bounce_fn.launch(*inputs)
+    raw = lambda: scene.bounce_fn.launch(buf, *inputs)
     # plain, kernel, kernel, plain: two readings of each on one card
     p1 = _time_ms(plain)
     w1, d1 = _time_ms(wrapped), _time_back_to_back_ms(raw)
     w2, d2 = _time_ms(wrapped), _time_back_to_back_ms(raw)
     p2 = _time_ms(plain)
-    log(f"[5 timing] one bounce at B={inputs[0].shape[0]}: K1 wrapper (launch "
+    log(f"[10 timing] K1: one bounce at B={inputs[0].shape[0]}: K1 wrapper (launch "
         f"+ flag decode, as the render calls it) {w1:.4f} / {w2:.4f} ms; plain "
         f"PyTorch {p1:.4f} / {p2:.4f} ms (each the median of 20 single calls "
         f"between CUDA events, 3 warm-up); K1 bare launch {d1:.4f} / "
         f"{d2:.4f} ms (mean of 20 launches back to back)")
     return min(w1, w2), min(p1, p2), min(d1, d2)
+
+
+# ---------------------------------------------------------------------------
+# the backward slice: K2, K3, gradients, the training step
+# ---------------------------------------------------------------------------
+
+U32 = 2.0 ** -24                # float32 unit roundoff
+# SGD on every param, the sky image and its factor included: at the
+# default 1e-2 (and at 1e-3) the loss grew from step to step on a small
+# CPU rehearsal; 3e-4 keeps it near the start over three steps.
+LR = 3e-4
+
+
+def _leaf_params(params):
+    """Fresh leaf copies of every param tensor, requiring grad."""
+    return {k: ([x.detach().clone().requires_grad_(True) for x in v]
+                if isinstance(v, list) else v.detach().clone().requires_grad_(True))
+            for k, v in params.items()}
+
+
+def _flat_grads(params):
+    import torch
+
+    out = {}
+    for k, v in params.items():
+        for i, x in enumerate(v if isinstance(v, list) else [v]):
+            out[f"{k}[{i}]" if isinstance(v, list) else k] = (
+                torch.zeros_like(x) if x.grad is None else x.grad)
+    return out
+
+
+def _close_f64(name, got, want, truth, scale=None):
+    """Kernel ``got`` vs plain ``want``: within rtol 1e-5, atol 1e-6, or
+    within twice the plain value's error against the float64 ``truth``
+    plus 1e-4 of ``scale``; finite.  The default scale of an (n, 3) array
+    is each row's largest |truth|: a direction or position cotangent's
+    components mix through normalisations, so one that cancels to near 0
+    carries the rounding of its row.  Returns (max|got − want|, a list of
+    the elements off)."""
+    import torch
+
+    got, want, truth = (x.double() for x in (got, want, truth))
+    if scale is None:
+        scale = truth.abs().amax(dim=-1, keepdim=True).expand_as(truth)
+    scale = scale.double()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: NaN or Inf")
+    ok = torch.isclose(got, want, rtol=1e-5, atol=1e-6) | (
+        (got - truth).abs() <= 2 * (want - truth).abs() + 1e-4 * scale + 1e-6)
+    bad = [f"{name} at {tuple(i)}: kernel {float(got[tuple(i)]):.8g} plain "
+           f"{float(want[tuple(i)]):.8g} float64 {float(truth[tuple(i)]):.8g} scale "
+           f"{float(scale[tuple(i)]):.4g}" for i in (~ok).nonzero()[:4].tolist()]
+    if bad:
+        bad.insert(0, f"{name}: {int((~ok).sum())} elements off")
+    return (float((got - want).abs().max()) if got.numel() else 0.0), bad
+
+
+def _close_per_tensor(name, got, want, rel=1e-4, atol=1e-7):
+    """Per param tensor: |got - want| <= rel · max|want| + atol, finite.
+    Returns a list of the tensors off."""
+    import torch
+
+    offs = []
+    for k in want:
+        a, b = got[k], want[k]
+        tol = rel * (float(b.abs().max()) if b.numel() else 0.0) + atol
+        err = float((a - b).abs().max()) if b.numel() else 0.0
+        if not bool(torch.isfinite(a).all()) or err > tol:
+            offs.append(f"{name} {k}: max err {err:.4g} > {tol:.4g} (or not finite)")
+    return offs
+
+
+@contextlib.contextmanager
+def _recording_hists(log_list):
+    """While active, ``imagegrad.hist`` (K3's wrapper, as the image
+    gather's backward calls it) logs each call's inputs."""
+    from ptx_torch.ops import imagegrad
+
+    fn = imagegrad.hist
+
+    def call(yi, xi, inb, ct, shape):
+        log_list.append((yi, xi, inb, ct, shape))
+        return fn(yi, xi, inb, ct, shape)
+
+    imagegrad.hist = call
+    try:
+        yield
+    finally:
+        imagegrad.hist = fn
+
+
+def _recording_bwd(scene, log_list):
+    """``scene`` with a K2 wrapper that logs each call's inputs."""
+    def call(params, o, d, thr, dec, *cts):
+        log_list.append((o, d, thr, dec, cts))
+        return scene.bounce_bwd_fn(params, o, d, thr, dec, *cts)
+    return dataclasses.replace(scene, bounce_bwd_fn=call)
+
+
+def _hist_bound_ok(name, got, yi, xi, inb, ct, shape):
+    """K3 vs ``hist_reference``: within the reordered-sum bound
+    ``2·n·u·Σ|ct|`` per texel (n lanes in the texel, u = 2⁻²⁴)."""
+    import torch
+    from ptx_torch.ops import imagegrad
+
+    want = imagegrad.hist_reference(yi, xi, inb, ct, shape)
+    mag = imagegrad.hist_reference(yi, xi, inb, ct.abs(), shape)
+    n = imagegrad.hist_reference(yi, xi, inb, torch.ones_like(ct), shape)
+    err = (got - want).abs()
+    if not bool(torch.isfinite(got).all()) or bool((err > 2 * n * U32 * mag).any()):
+        raise AssertionError(f"{name}: {int((err > 2 * n * U32 * mag).sum())} texels "
+                             "outside the reordered-sum bound")
+    return float(err.max())
+
+
+def _check_k2(scene, recorded, tag):
+    """K2 against its plain versions on each recorded backward bounce (the
+    same saved carry, decisions and cotangents): per lane and the per-leaf
+    sums by :func:`_close_f64` against ``bounce_bwd_lanes_reference`` and
+    its float64 recompute; ``d_params`` by :func:`_close_f64` against
+    ``bounce_bwd_reference`` (autograd through ``trace._bounce_replay``),
+    the float64 sums mapped to the params as truth, at each tensor's
+    largest entry; two launches the same bits.  Returns max|k − p|."""
+    import torch
+    from ptx_torch.ops import bounce_kernel as bk
+
+    kern = scene.bounce_bwd_fn
+    err2, offs = 0.0, []
+    for o_, d_, thr_, dec, cts in reversed(recorded):
+        packed, leaves = kern.pack_leaves(scene.params)
+        packed_d = packed.detach()
+        got = kern.launch(packed_d, o_, d_, thr_, dec, *cts)
+        again = kern.launch(packed_d, o_, d_, thr_, dec, *cts)
+        ref = bk.bounce_bwd_lanes_reference(packed_d, kern.aux, o_, d_, thr_, dec, *cts)
+        ref64 = bk.bounce_bwd_lanes_reference(
+            packed_d.double(), kern.aux.double(), o_.double(), d_.double(),
+            thr_.double(), dict(dec, u_sel=dec["u_sel"].double()),
+            *(c.double() for c in cts))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{tag}: two launches on the same inputs differ")
+        Bw = o_.shape[0]
+        checks = [_close_f64(f"K2 B={Bw} {n}", g, w, t) for n, g, w, t in
+                  zip(("d_o", "d_d", "d_thr"), got[:3], ref[:3], ref64[:3])]
+        checks.append(_close_f64(f"K2 B={Bw} per-leaf sums", got[3], ref[3], ref64[3],
+                                 ref64[4]))
+        got_p = kern.params_grad(packed, leaves, got[3])
+        want_p = bk.bounce_bwd_reference(scene, scene.params, o_, d_, thr_, dec, *cts)[3]
+        truth_p = kern.params_grad(*kern.pack_leaves(scene.params), ref64[3].float())
+        for k, t in truth_p.items():
+            if t.numel():
+                checks.append(_close_f64(f"K2 B={Bw} d_params {k}", got_p[k], want_p[k],
+                                         t, torch.full_like(t, float(t.abs().max()))))
+        e = max(c[0] for c in checks[:4])
+        for c in checks:
+            offs += c[1]
+        err2 = max(err2, e)
+        lane_e = max(float((g - w).abs().max()) for g, w in zip(got[:3], ref[:3]))
+        # relative to Σ|term|, floored at 1e-6 of the largest (entries whose
+        # terms all round to ~0 have no meaningful relative error)
+        floor = 1e-6 * float(ref64[4].max()) + 1e-30
+        sums_rel = float(((got[3] - ref[3]).abs() / ref64[4].clamp(min=floor)).max())
+        log(f"[{tag}] B={Bw} continuing="
+            f"{int((dec['take_transmit'] | dec['scatter_alive']).sum())} max_abs_err "
+            f"{e:.3g}: per lane {lane_e:.3g} (largest |d_o| "
+            f"{float(ref64[0].abs().max()):.4g}, |d_d| {float(ref64[1].abs().max()):.4g}), "
+            f"per-leaf sums {float((got[3] - ref[3]).abs().max()):.3g} (at most "
+            f"{sums_rel:.3g} of their Σ|term|), d_params max diff "
+            f"{max(c[0] for c in checks[4:]):.3g}; two launches bit-identical; "
+            "no NaN/Inf")
+    if offs:
+        raise AssertionError(f"{tag}: K2 outside tolerance:\n" + "\n".join(offs))
+    return err2
+
+
+def _check_k3(hists, tag):
+    """K3 against ``hist_reference`` on each recorded sky-select histogram
+    (the demo's sky: the shared-memory path).  Returns max|k − p|."""
+    from ptx_torch.ops import imagegrad
+
+    if len(hists) != 3:
+        raise AssertionError(f"{tag}: {len(hists)} sky-select histograms, expected 3")
+    err3 = 0.0
+    for yi, xi, inb, ct, shape in hists:
+        got = imagegrad.hist(yi, xi, inb, ct, shape)
+        if not imagegrad.HistKernel.used_shared:
+            raise AssertionError(f"{tag}: K3 on the demo sky did not take the shared path")
+        e = _hist_bound_ok(f"K3 N={yi.numel()}", got, yi, xi, inb, ct, shape)
+        err3 = max(err3, e)
+        log(f"[{tag}] {tuple(shape)} N={yi.numel()} in bounds "
+            f"{int(inb.sum())} (shared path) max_abs_err {e:.3g}")
+    return err3
+
+
+def _wavefront_widths(B, depth):
+    """The widths ``trace_rays`` gives the bounces of a compacted B-ray
+    wavefront: B for bounces 0-1, B // 3 for 2-5, B // 16 from 6 on."""
+    return [B] * 2 + [B // 3] * 4 + [B // 16] * (depth + 1 - 6)
+
+
+def phase_backward_kernels(scene):
+    """K2 and K3 against their plain versions on the inputs the render's
+    chunk gives them: the first 65,536-ray chunk of band 256 (the key
+    ``render_rows`` gives it), forward + backward of the radiance sum."""
+    import torch
+    from ptx_torch.core import rng
+    from ptx_torch.integrate.camera import Camera, sample_rays
+    from ptx_torch.integrate.trace import trace_rays
+    from ptx_torch.ops import imagegrad
+
+    recorded, hists = [], []
+    sk = _recording_bwd(scene, recorded)
+    key = rng.fold(rng.PRNGKey(0), 0, 256)
+    o, d = sample_rays(Camera.reference_demo(W, H), key, range(256, 256 + BAND_ROWS),
+                       range(W), 1, scene.device)
+    with _recording_hists(hists):
+        trace_rays(sk, _leaf_params(scene.params), o, d, key, DEPTH).sum().backward()
+        torch.cuda.synchronize()
+    B = BAND_ROWS * W
+    widths = sorted((r[0].shape[0] for r in recorded), reverse=True)
+    if widths != _wavefront_widths(B, DEPTH - 1):
+        raise AssertionError(f"K2 widths {widths}, expected "
+                             f"{_wavefront_widths(B, DEPTH - 1)}")
+    err2 = _check_k2(scene, recorded, "5 K2 vs plain")
+    err3 = _check_k3(hists, "5 K3 vs plain")
+    g = torch.Generator(device=scene.device).manual_seed(0)
+    big = (512, 1024, 4)
+    N = 1 << 20
+    yi = torch.randint(0, big[0], (N,), device=scene.device, generator=g)
+    xi = torch.randint(0, big[1], (N,), device=scene.device, generator=g)
+    inb = torch.rand(N, device=scene.device, generator=g) < 0.95
+    ct = torch.randn((N, 4), device=scene.device, generator=g)
+    got = imagegrad.hist(yi, xi, inb, ct, big)
+    if imagegrad.HistKernel.used_shared:
+        raise AssertionError("K3 on a 512x1024x4 image took the shared path")
+    e = _hist_bound_ok("K3 512x1024x4", got, yi, xi, inb, ct, big)
+    log(f"[5 K3 vs plain] {big} N={N} (global-atomic path) max_abs_err {e:.3g}")
+    k2_in = next(r for r in recorded if r[0].shape[0] == B)
+    k3_in = max(hists, key=lambda h: h[0].numel())      # phase 0's sky-select
+    return err2, max(err3, e), k2_in, k3_in
+
+
+def _plain_scene(scene):
+    from ptx_torch.ops.bounce_kernel import bounce_bwd_reference, bounce_reference
+
+    return dataclasses.replace(
+        scene, bounce_fn=functools.partial(bounce_reference, scene),
+        bounce_bwd_fn=functools.partial(bounce_bwd_reference, scene))
+
+
+def phase_gradients(scene):
+    """Kernel path vs plain path on a compacted 32-row band at spp 2."""
+    import torch
+    from ptx_torch.core import rng
+    from ptx_torch.integrate.camera import Camera, sample_rays
+    from ptx_torch.integrate.trace import trace_rays
+    from ptx_torch.ops import imagegrad
+
+    key = rng.fold(rng.PRNGKey(0), 0, 240)
+    o, d = sample_rays(Camera.reference_demo(W, H), key, range(240, 272), range(W), 2,
+                       scene.device)
+
+    def grads(sc):
+        p = _leaf_params(scene.params)
+        trace_rays(sc, p, o, d, key, DEPTH).mean().backward()
+        torch.cuda.synchronize()
+        return _flat_grads(p)
+
+    g_k = grads(scene)
+    plain_hist = imagegrad.hist
+    imagegrad.hist = imagegrad.hist_reference
+    try:
+        g_p = grads(_plain_scene(scene))
+    finally:
+        imagegrad.hist = plain_hist
+    offs = _close_per_tensor("gradients kernel vs plain", g_k, g_p)
+    if offs:
+        raise AssertionError("\n".join(offs))
+    worst = max(float((g_k[k] - g_p[k]).abs().max()) if g_p[k].numel() else 0.0
+                for k in g_p)
+    log(f"[6 gradients] 32x{W} spp 2 depth {DEPTH} (32,768 rays, compacted): kernel "
+        f"path vs plain path, {len(g_p)} param tensors incl. the sky image, max abs "
+        f"diff {worst:.3g}; |d sphere_radius| {float(g_k['sphere_radius'].abs().sum()):.4g}"
+        f", |d images[0]| {float(g_k['images[0]'].abs().sum()):.4g}")
+
+
+def _reset_counters():
+    from ptx_torch.ops import bounce_kernel as bk, imagegrad
+
+    bk.LAUNCHES = bk.REFERENCE_CALLS = bk.BWD_REFERENCE_CALLS = 0
+    bk.BounceBwdKernel.LAUNCHES = 0
+    imagegrad.LAUNCHES = imagegrad.REFERENCE_CALLS = 0
+
+
+def _counters():
+    from ptx_torch.ops import bounce_kernel as bk, imagegrad
+
+    return {"K1": bk.LAUNCHES, "K2": bk.BounceBwdKernel.LAUNCHES,
+            "K3": imagegrad.LAUNCHES,
+            "plain": bk.REFERENCE_CALLS + bk.BWD_REFERENCE_CALLS + imagegrad.REFERENCE_CALLS}
+
+
+def phase_train(scene):
+    """The training slice: 3 ``make_train_step`` steps at full size."""
+    import math
+
+    import torch
+    from ptx_torch.core import rng
+    from ptx_torch.integrate.camera import Camera
+    from ptx_torch.parallel.render import _local_render, make_train_step
+
+    cam = Camera.reference_demo(W, H)
+    with torch.no_grad():
+        target = _local_render(scene, cam, DEPTH, SPP, scene.params, rng.PRNGKey(1), 0, H)
+    params = dict(scene.params)
+    params["sphere_radius"] = scene.params["sphere_radius"] * 1.05
+    const = scene.params["const"].clone()
+    const[0] -= 0.1
+    params["const"] = const
+    step = make_train_step(scene, cam, spp=SPP, depth=DEPTH, learning_rate=LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    secs = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        new, loss = step(params, target, rng.fold(rng.PRNGKey(2), i))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        sq = 0.0
+        for k in params:
+            for a, b in zip(*(x if isinstance(x, list) else [x] for x in (params[k], new[k]))):
+                sq += float((((a - b) / LR) ** 2).sum())
+        gnorm = math.sqrt(sq)
+        log(f"[7 train] step {i}: loss {float(loss):.6g} grad norm {gnorm:.6g} "
+            f"{secs[-1]:.3f} s")
+        if not (math.isfinite(float(loss)) and math.isfinite(gnorm) and gnorm > 0):
+            raise AssertionError("train step: loss or gradient not finite")
+        params = new
+    c = _counters()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expect = {"K1": 3 * (DEPTH + 1), "K2": 3 * DEPTH, "K3": 3 * 3, "plain": 0}
+    log(f"[7 train] {W}x{H} spp {SPP} depth {DEPTH} ({W * H * SPP:,} rays per step): "
+        f"launches {c} (expected {expect}); peak memory {peak:.3f} GiB; "
+        f"seconds per step {[round(x, 4) for x in secs]}")
+    if c != expect:
+        raise AssertionError(f"train launches {c}, expected {expect}")
+    return c, secs, peak, target
+
+
+def phase_train_kernels(scene, target):
+    """K1, K2 and K3 against their plain versions on the inputs one
+    ``make_train_step`` step gives them at full size: a step from the true
+    params with every kernel call's inputs recorded.  K1 and K2 run there
+    at 4,194,304, 1,398,101 and 262,144 lanes, where each K2 block walks
+    many 128-lane tiles (its grid is capped at 1,024 blocks), and K3 on
+    the sky-select rows of each phase.  The checks and tolerances are
+    phase 3's for K1 and phase 5's for K2 and K3."""
+    import torch
+    from ptx_torch.core import rng
+    from ptx_torch.integrate.camera import Camera
+    from ptx_torch.ops.bounce_kernel import bounce_reference
+    from ptx_torch.parallel.render import make_train_step
+
+    fwd, bwd, hists = [], [], []
+    sk = _recording_bwd(scene, bwd)
+    sk = dataclasses.replace(sk, bounce_fn=_recording(scene.bounce_fn, fwd))
+    step = make_train_step(sk, Camera.reference_demo(W, H), spp=SPP, depth=DEPTH,
+                           learning_rate=LR)
+    with _recording_hists(hists):
+        step(scene.params, target, rng.PRNGKey(2))
+        torch.cuda.synchronize()
+    N = W * H * SPP
+    widths = [inputs[0].shape[0] for inputs, _ in fwd]
+    if widths != _wavefront_widths(N, DEPTH):
+        raise AssertionError(f"train step: K1 widths {widths}, expected "
+                             f"{_wavefront_widths(N, DEPTH)}")
+    widths = sorted((r[0].shape[0] for r in bwd), reverse=True)
+    if widths != _wavefront_widths(N, DEPTH - 1):
+        raise AssertionError(f"train step: K2 widths {widths}, expected "
+                             f"{_wavefront_widths(N, DEPTH - 1)}")
+    flips, err1 = 0, 0.0
+    while fwd:
+        inputs, out_k = fwd.pop(0)
+        with torch.no_grad():
+            out_p = bounce_reference(scene, scene.params, *inputs)
+        torch.cuda.synchronize()
+        f, e = compare_bounce(scene, inputs, out_k, out_p)
+        flips, err1 = flips + f, max(err1, e)
+        log(f"[8 train-width K1 vs plain] bounce {DEPTH - len(fwd)}: B={inputs[0].shape[0]} "
+            f"alive={int(inputs[4].sum())} flips={f} max_abs_err={e:.3g}")
+        del inputs, out_k, out_p
+    err2 = _check_k2(scene, bwd, "8 train-width K2 vs plain")
+    err3 = _check_k3(hists, "8 train-width K3 vs plain")
+    o, d, thr, dec, cts = next(r for r in bwd if r[0].shape[0] == N)
+    kern = scene.bounce_bwd_fn
+    packed = kern.pack(scene.params).detach()
+    bare = [_time_back_to_back_ms(lambda: kern.launch(packed, o, d, thr, dec, *cts))
+            for _ in range(2)]
+    continuing = int((dec["take_transmit"] | dec["scatter_alive"]).sum())
+    bound = bound_k2(N, continuing, kern.aux.shape[0])
+    log(f"[8 train-width timing] K2 bare launch at B={N} (continuing {continuing}): "
+        f"{bare[0]:.4f} / {bare[1]:.4f} ms (mean of 20 back to back); bound "
+        f"{bound[0]:.4g} ms ({bound[1]})")
+    return flips, err1, err2, err3
+
+
+def phase_fwd_bwd(scene):
+    """Forward + backward of one bench-shaped chunk (128 rows × 512, spp 1,
+    depth 16), and the forward alone: median seconds of 10 chunks."""
+    import torch
+    from ptx_torch.core import rng
+    from ptx_torch.integrate.camera import Camera, sample_rays
+    from ptx_torch.integrate.trace import trace_rays
+
+    cam = Camera.reference_demo(W, H)
+    rays = BAND_ROWS * W * (DEPTH + 1)
+
+    def run(grad):
+        times = []
+        for i in range(12):
+            key = rng.fold(rng.PRNGKey(0), i, 128)
+            o, d = sample_rays(cam, key, range(128, 256), range(W), 1, scene.device)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            if grad:
+                p = _leaf_params(scene.params)
+                trace_rays(scene, p, o, d, key, DEPTH).mean().backward()
+            else:
+                with torch.no_grad():
+                    trace_rays(scene, scene.params, o, d, key, DEPTH)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / 1e3)
+        return statistics.median(times[2:])
+
+    f1, fb1, fb2, f2 = run(False), run(True), run(True), run(False)
+    log(f"[9 fwd+bwd] chunk 128x{W} spp 1 depth {DEPTH}: fwd+bwd {fb1:.4f} / "
+        f"{fb2:.4f} s = {rays / fb1:.4g} / {rays / fb2:.4g} rays/s; forward alone "
+        f"{f1:.4f} / {f2:.4f} s = {rays / f1:.4g} / {rays / f2:.4g} rays/s (median "
+        f"of 10 chunks between CUDA events)")
+    return rays / min(fb1, fb2), rays / min(f1, f2)
+
+
+# The card's peaks (NVIDIA's data sheet, H100 SXM at 700 W): HBM bytes/s
+# and float32 operations/s outside the tensor cores.
+HBM_BPS = 3.35e12
+F32_OPS = 67e12
+
+
+def _bound(nbytes, ops):
+    t_b, t_o = nbytes / HBM_BPS * 1e3, ops / F32_OPS * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def bound_k1(B, L):
+    """K1 at B lanes: reads o, d, thr, strength, alive, u_coin, u3 (57 B),
+    writes t, o2, d2, thr2, strength2, flags, evt, u_sel (64 B); operations
+    (estimate, every lane): ~25 per leaf interval, 2 compares per (event,
+    leaf) pair of the membership fold, ~250 for shading and the scatter."""
+    return _bound(121 * B, B * (25 * L + 4 * L * L + 250))
+
+
+def bound_k2(B, continuing, L):
+    """K2: reads o, d, thr, u_sel and three cotangents (21 floats, 84 B),
+    evt and four flags (8 B), writes d(o, d, thr) (36 B), plus the (L, 34)
+    sums; operations: ~450 per continuing lane (replay and reverse sweep)
+    and its 34 adds into the per-leaf sums; other lanes copy."""
+    return _bound(128 * B + 4 * 34 * L, continuing * (450 + 34))
+
+
+def bound_k3(yi, inb, ct, shape):
+    """K3: reads yi, xi (int64), inb and C floats per lane, writes the
+    image once; one add per channel of each in-bounds lane."""
+    N, C = ct.shape
+    texels = shape[0] * shape[1] * shape[2]
+    return _bound((17 + 4 * C) * N + 4 * texels, C * int(inb.sum()))
+
+
+def phase_timing_backward(scene, k2_in, k3_in):
+    """K2 and K3 as the main path calls them against their plain versions
+    (and K3 against ``index_put_``), in turns: plain, kernel, kernel, plain."""
+    import torch
+    from ptx_torch.ops import bounce_kernel as bk, imagegrad
+
+    o, d, thr, dec, cts = k2_in
+    k2 = lambda: scene.bounce_bwd_fn(scene.params, o, d, thr, dec, *cts)
+    k2p = lambda: bk.bounce_bwd_reference(scene, scene.params, o, d, thr, dec, *cts)
+    packed = scene.bounce_bwd_fn.pack(scene.params).detach()
+    k2_bare = lambda: scene.bounce_bwd_fn.launch(packed, o, d, thr, dec, *cts)
+    p1 = _time_ms(k2p)
+    w1, w2 = _time_ms(k2), _time_ms(k2)
+    b1, b2 = _time_back_to_back_ms(k2_bare), _time_back_to_back_ms(k2_bare)
+    p2 = _time_ms(k2p)
+    yi, xi, inb, ct, shape = k3_in
+    ct_m = torch.where(inb[:, None], ct, 0.0)
+    k3 = lambda: imagegrad.hist(yi, xi, inb, ct, shape)
+    k3p = lambda: imagegrad.hist_reference(yi, xi, inb, ct, shape)
+    lib = lambda: torch.zeros(shape, device=ct.device).index_put_((yi, xi), ct_m,
+                                                                  accumulate=True)
+    q1, l1 = _time_ms(k3p), _time_ms(lib)
+    h1, h2 = _time_ms(k3), _time_ms(k3)
+    l2, q2 = _time_ms(lib), _time_ms(k3p)
+    log(f"[10 timing] K2 at B={o.shape[0]} (wrapper: pack_bwd, launch, params "
+        f"mapping) {w1:.4f} / {w2:.4f} ms; plain {p1:.4f} / {p2:.4f} ms; K2 bare "
+        f"launch {b1:.4f} / {b2:.4f} ms (mean of 20 back to back)")
+    log(f"[10 timing] K3 at N={yi.numel()} on {tuple(shape)}: wrapper {h1:.4f} / "
+        f"{h2:.4f} ms; plain {q1:.4f} / {q2:.4f} ms; index_put_(accumulate=True) "
+        f"{l1:.4f} / {l2:.4f} ms (each the median of 20 single calls)")
+    continuing = int((dec["take_transmit"] | dec["scatter_alive"]).sum())
+    return ((min(w1, w2), min(p1, p2), bound_k2(o.shape[0], continuing,
+                                                scene.bounce_bwd_fn.aux.shape[0])),
+            (min(h1, h2), min(q1, q2), min(l1, l2), bound_k3(yi, inb, ct, shape)))
 
 
 def main():
@@ -438,23 +990,42 @@ def main():
     scene = compile_scene(make_world(), torch.device("cuda", 0))
     flips3, err3, inputs = phase_kernel_vs_plain(scene)
     flips3c, err3c = phase_compacted_chunks(scene)
-    launches, wall, rays_s = phase_slice(scene)
+    render_launches, wall, rays_s = phase_slice(scene)
     flips4 = phase_band_vs_plain(scene)
+    err_k2, err_k3, k2_in, k3_in = phase_backward_kernels(scene)
+    phase_gradients(scene)
+    train, secs, peak, target = phase_train(scene)
+    flips8, err8_1, err8_2, err8_3 = phase_train_kernels(scene, target)
+    del target
+    fb_rays, f_rays = phase_fwd_bwd(scene)
     w_ms, p_ms, dev_ms = phase_timing(scene, inputs)
+    (k2_ms, k2p_ms, k2_bound), (k3_ms, k3p_ms, k3_lib, k3_bound) = \
+        phase_timing_backward(scene, k2_in, k3_in)
+    k1_bound = bound_k1(inputs[0].shape[0], scene.bounce_fn.layout[0])
     log(f"summary: build {build_s:.2f} s; flips {flips3} (primary bounces) + "
-        f"{flips3c} (render chunks) + {flips4} (band); render {rays_s:.4g} "
-        f"rays/s; per bounce at B=65536: K1 wrapper {w_ms:.4f} ms vs plain "
-        f"{p_ms:.4f} ms (K1 bare launch {dev_ms:.4f} ms); {smi}")
-    print(json.dumps({"kernels": [{
-        "name": "bounce_forward (K1: fused hit + shade + scatter)",
-        "route": "cuda",
-        "source": "ptx_torch/csrc/bounce_kernel.cu",
-        "replaces": "ptx/ops/bounce_kernel.py:236",
-        "launches": launches,
-        "max_abs_err": max(err3, err3c),
-        "ms": w_ms,
-        "plain_ms": p_ms,
-    }]}))
+        f"{flips3c} (render chunks) + {flips4} (band) + {flips8} (train step); render {rays_s:.4g} rays/s "
+        f"(K1 launches {render_launches}); train step {min(secs):.3f} s, peak "
+        f"{peak:.3f} GiB, launches {train}; fwd+bwd chunk {fb_rays:.4g} rays/s, fwd "
+        f"{f_rays:.4g} rays/s; K1 {w_ms:.4f} ms vs plain {p_ms:.4f} ms (bound "
+        f"{k1_bound[0]:.4g} ms, {k1_bound[1]}); K2 {k2_ms:.4f} vs {k2p_ms:.4f} ms "
+        f"(bound {k2_bound[0]:.4g} ms); K3 {k3_ms:.4f} vs {k3p_ms:.4f} ms, "
+        f"index_put_ {k3_lib:.4f} ms (bound {k3_bound[0]:.4g} ms); {smi}")
+    entry = lambda name_, source, replaces, launches, err, ms, plain, bound, lib: {
+        "name": name_, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib}
+    print(smi)
+    print(json.dumps({"kernels": [
+        entry("bounce_forward (K1: fused hit + shade + scatter)",
+              "ptx_torch/csrc/bounce_kernel.cu", "ptx/ops/bounce_kernel.py:236",
+              train["K1"], max(err3, err3c, err8_1), w_ms, p_ms, k1_bound, None),
+        entry("bounce_backward (K2: decision-frozen replay VJP)",
+              "ptx_torch/csrc/bounce_bwd_kernel.cu", "ptx/ops/bounce_kernel.py:578",
+              train["K2"], max(err_k2, err8_2), k2_ms, k2p_ms, k2_bound, None),
+        entry("image_hist (K3: image-gather transpose)",
+              "ptx_torch/csrc/image_hist_kernel.cu", "ptx/ops/imagegrad.py:91",
+              train["K3"], max(err_k3, err8_3), k3_ms, k3p_ms, k3_bound, k3_lib),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -72,7 +72,7 @@ def cmd_render(args):
     print()
     dt = time.time() - t0
     out_base = args.out or f"image{int(time.time()):08X}"
-    io.bmp.write(out_base + ".bmp", frame)
+    io.write_bmp(out_base + ".bmp", frame)
     io.write_hdr(out_base + ".hdr", frame)
     rays = cam.width * cam.height * spp * (depth + 1)
     print(f"wrote {out_base}.bmp/.hdr  ({rays / max(dt, 1e-9):.3g} rays/s on "

@@ -61,3 +61,14 @@ def params_from_jax(np_params: dict, device) -> dict:
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
     return {k: ([conv(x) for x in v] if isinstance(v, (list, tuple)) else conv(v))
             for k, v in np_params.items()}
+
+
+def grads_to_numpy(params: dict) -> dict:
+    """The ``.grad`` of each param tensor as float32 numpy, in the JAX
+    pytree's layout (``images`` a list); zeros where no gradient reached
+    a tensor, as ``jax.grad`` gives them."""
+    def conv(x):
+        g = x.grad if x.grad is not None else torch.zeros_like(x)
+        return g.detach().cpu().numpy().astype(np.float32)
+    return {k: ([conv(x) for x in v] if isinstance(v, (list, tuple)) else conv(v))
+            for k, v in params.items()}

@@ -1,13 +1,17 @@
-"""The JAX package's numeric constants (``ptx/core/constants.py``), shared
-by path so both packages read one source (see :mod:`ptx_torch._reuse`)."""
+"""Framework-wide numeric constants (the port's copy of ``ptx/core/constants.py``).
 
-from ptx_torch._reuse import load
+``EPS`` is the geometric tolerance for self-intersection offsets and
+degenerate-ray tests; ``MAX_VALUE`` the finite "infinity" of half-infinite
+plane spans: a ray whose nearest boundary is at ``t >= MAX_VALUE`` has
+escaped the scene (the reference's ``misc.h:7-8``, ``path-trace.h:68-71``).
+"""
 
-_c = load("core/constants.py")
+EPS = 1e-3
+MAX_VALUE = 1e20
 
-EPS = _c.EPS
-MAX_VALUE = _c.MAX_VALUE
-DEFAULT_RAY_DEPTH = _c.DEFAULT_RAY_DEPTH
-DEFAULT_SCREEN_WIDTH = _c.DEFAULT_SCREEN_WIDTH
-DEFAULT_SCREEN_HEIGHT = _c.DEFAULT_SCREEN_HEIGHT
-DEFAULT_SCREEN_DISTANCE = _c.DEFAULT_SCREEN_DISTANCE
+# Default integrator settings (reference: path-trace.h:57,167-170).
+DEFAULT_RAY_DEPTH = 16
+DEFAULT_SAMPLE_COUNT = 200
+DEFAULT_SCREEN_WIDTH = 4.0 / 3.0
+DEFAULT_SCREEN_HEIGHT = 1.0
+DEFAULT_SCREEN_DISTANCE = 2.0

@@ -49,6 +49,13 @@ def reflect(d, n):
     return d - (2.0 * dot(d, n))[..., None] * n
 
 
+def clip01(x):
+    """``jnp.clip(x, 0, 1)`` with JAX's gradient: half of it at exactly 0
+    or 1, as ``minimum`` / ``maximum`` split ties (``torch.clamp`` passes
+    all of it there, and material scalars sit at 0 and 1)."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
+
+
 def _refract_terms(d, eta, n):
     n_unit = normalize(n)
     i = normalize(d)

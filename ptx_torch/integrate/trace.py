@@ -15,11 +15,15 @@ summed after its bounces: constant emitters by a per-material sum
 ("mat-sum"), terminal image chains such as the sky on the one lane per
 path that reaches them ("sky-select").
 
-Every bounce goes through ``scene.bounce_fn``.  On a CUDA device that is
-one launch of the fused bounce kernel (:mod:`ptx_torch.ops.bounce_kernel`);
-on the CPU it is the kernel's plain PyTorch version, built on
-:func:`_bounce_live`.  Gradients (the manual bounce VJP, kernels K2/K3)
-are the next slice (ROADMAP).
+Every bounce is one :class:`ManualBounce`, the port of the JAX package's
+manual bounce VJP (``_make_manual_bounce``): its forward is
+``scene.bounce_fn`` and its backward ``scene.bounce_bwd_fn``, the
+decision-frozen replay.  On a CUDA device those are one launch each of
+the fused bounce kernels K1 and K2 (:mod:`ptx_torch.ops.bounce_kernel`);
+on the CPU their plain PyTorch versions, built on :func:`_bounce_live`
+and :func:`_bounce_replay`.  Compaction and emission are plain PyTorch,
+differentiated by autograd; the sky image's gradient goes through the
+image-gather transpose kernel K3 (:mod:`ptx_torch.ops.imagegrad`).
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ import torch
 
 from ptx_torch.core import linalg, rng
 from ptx_torch.core.constants import DEFAULT_RAY_DEPTH, EPS
-from ptx_torch.geom import tape
+from ptx_torch.geom import hitreplay, tape
 from ptx_torch.geom.fasthit import collect_leaves, compile_fast_hit
 from ptx_torch.shade import materials as mats
 from ptx_torch.shade import textures as tx
@@ -46,21 +50,30 @@ from ptx_torch.shade import textures as tx
 KERNEL_MAX_LEAVES = 24
 _KERNEL_CONST_SLOTS = ("reflect", "scatter", "transmit", "transmit_reflect")
 
+# The params a bounce is differentiable in: geometry, transforms, constant
+# slots and ior.  Texture factors, transforms and images reach the
+# radiance only through emission, which autograd differentiates.
+DIFF_KEYS = ("sphere_center", "sphere_radius", "plane_normal", "plane_d",
+             "xform", "const", "ior")
+
 
 @dataclasses.dataclass(eq=False)
 class CompiledScene:
     """A scene lowered to tensors + callables on one device.
 
-    ``bounce_fn`` is the one bounce every wavefront step calls: the fused
-    bounce (:class:`ptx_torch.ops.bounce_kernel.BounceKernel`) for
-    kernel-eligible scenes, else (CPU only) the plain
-    :func:`ptx_torch.ops.bounce_kernel.bounce_reference`."""
+    ``bounce_fn`` is the one bounce every wavefront step calls and
+    ``bounce_bwd_fn`` its replay backward: the fused kernels
+    (:class:`ptx_torch.ops.bounce_kernel.BounceKernel`, ``BounceBwdKernel``)
+    for kernel-eligible scenes, else (CPU only) their plain versions
+    ``bounce_reference`` and ``bounce_bwd_reference``."""
     params: dict
     plan: Any
     material_fn: mats.MaterialTable
     hit_fn: Callable            # (params, origin, dir) -> first-hit dict
+    hit_replay_fn: Callable     # (params, o, d, evt, entering, hit) -> (t, normal)
     device: torch.device
     bounce_fn: Callable = None
+    bounce_bwd_fn: Callable = None
 
 
 def compile_scene(root, device) -> CompiledScene:
@@ -68,7 +81,9 @@ def compile_scene(root, device) -> CompiledScene:
 
     On a CUDA device only kernel-eligible scenes compile: any other scene
     raises ``NotImplementedError`` (no quiet fallback to a plain path)."""
-    from ptx_torch.ops.bounce_kernel import BounceKernel, bounce_reference
+    from ptx_torch.ops.bounce_kernel import (BounceBwdKernel, BounceKernel,
+                                             bounce_bwd_reference,
+                                             bounce_reference)
 
     device = torch.device(device)
     cpu = torch.device("cpu")
@@ -92,10 +107,17 @@ def compile_scene(root, device) -> CompiledScene:
     params.update(compiler.finalize(cpu))
     params = {k: ([x.to(device) for x in v] if isinstance(v, list)
                   else v.to(device)) for k, v in params.items()}
-    scene = CompiledScene(params=params, plan=plan, material_fn=table,
-                          hit_fn=compile_fast_hit(plan), device=device)
-    scene.bounce_fn = (BounceKernel(scene) if eligible
-                       else functools.partial(bounce_reference, scene))
+    scene = CompiledScene(
+        params=params, plan=plan, material_fn=table,
+        hit_fn=compile_fast_hit(plan),
+        hit_replay_fn=hitreplay.build_hit_replay(collect_leaves(plan)),
+        device=device)
+    if eligible:
+        scene.bounce_fn, scene.bounce_bwd_fn = (BounceKernel(scene),
+                                                BounceBwdKernel(scene))
+    else:
+        scene.bounce_fn = functools.partial(bounce_reference, scene)
+        scene.bounce_bwd_fn = functools.partial(bounce_bwd_reference, scene)
     return scene
 
 
@@ -234,9 +256,90 @@ def _bounce_live(hit_fn, material_fn, params, o, d, throughput, strength,
     return carry, decisions
 
 
-def _bounce(scene: CompiledScene, params, carry, in_depth, u_coin, u3):
-    kb = scene.bounce_fn(params, *carry, u_coin, u3, in_depth)
-    return (kb["o2"], kb["d2"], kb["thr2"], kb["strength2"], kb["alive2"]), kb
+def _bounce_replay(scene: CompiledScene, params, o, d, throughput, dec):
+    """Differentiable bounce replay: the math of :func:`_bounce_live` with
+    every stochastic draw and discrete selection taken from ``dec``, and
+    the first hit collapsed to the selected-boundary recompute
+    (``scene.hit_replay_fn``), so no 2L·L candidate fold enters the
+    backward.  Returns ``(o2, d2, throughput2)``.  Port of
+    ``ptx/integrate/trace.py:594`` without its strength2 output: the
+    termination heuristic is comparison-only, so it carries no gradient,
+    and the forward carry comes from ``scene.bounce_fn``."""
+    t, normal = scene.hit_replay_fn(params, o, d, dec["evt"], dec["entering"],
+                                    dec["hit"])
+    pos = o + t[..., None] * d
+    m = scene.material_fn(params, pos, dec["mat_id"])
+
+    rel_ior = torch.where(dec["entering"], 1.0 / m["ior"], m["ior"])
+    refr_dir = linalg.refract(d, rel_ior, normal)
+    take_transmit = dec["take_transmit"]
+
+    # the scatter direction from the saved accepted draw u_sel
+    reflected = linalg.reflect(d, normal)
+    sc = linalg.clip01(m["scatter_f"])
+    specular = sc <= EPS
+    bias = (1.0 / torch.where(specular, 1.0, sc) - 1.0)[..., None] * reflected
+    scat_dir = torch.where(specular[..., None], reflected,
+                           linalg.normalize(dec["u_sel"] + bias))
+    factor = 1.0 - (1.0 - linalg.dot(scat_dir, normal)) * sc
+
+    new_alive = take_transmit | dec["scatter_alive"]
+    tt = take_transmit[..., None]
+    new_dir = torch.where(tt, refr_dir, scat_dir)
+    branch_tint = torch.where(tt, m["transmit"], factor[..., None] * m["reflect"])
+    new_throughput = throughput * branch_tint
+    na = new_alive[..., None]
+    return (torch.where(na, pos, o), torch.where(na, new_dir, d),
+            torch.where(na, new_throughput, throughput))
+
+
+_DEC_KEYS = ("t", "evt", "hit", "entering", "take_transmit", "scatter_alive",
+             "u_sel", "mat_id")
+
+
+class ManualBounce(torch.autograd.Function):
+    """One bounce with a decision-frozen replay backward (port of
+    ``_make_manual_bounce``, ``ptx/integrate/trace.py:660``).
+
+    ``apply(scene, params, packed, in_depth, o, d, thr, strength, alive,
+    u_coin, u3, *[params[k] for k in DIFF_KEYS])`` returns ``(o2, d2, thr2,
+    strength2, alive2)`` and then the decisions ``_DEC_KEYS``.  The
+    forward is ``scene.bounce_fn`` (K1 on CUDA, with the scene buffer
+    ``packed``); it saves the carry and the decisions, not the uniforms
+    (the replay reads the accepted draw ``u_sel``).  The backward is
+    ``scene.bounce_bwd_fn`` (K2 on CUDA) on the cotangents of o2, d2 and
+    thr2.  strength2, alive2 and the decisions are not differentiable; the
+    param tensors are explicit inputs so that autograd reaches them."""
+
+    @staticmethod
+    def forward(ctx, scene, params, packed, in_depth, o, d, thr, strength, alive,
+                u_coin, u3, *diff):
+        kb = scene.bounce_fn(params, o, d, thr, strength, alive, u_coin, u3,
+                             in_depth, packed=packed)
+        dec = tuple(kb[k] for k in _DEC_KEYS)
+        ctx.scene, ctx.params = scene, params
+        ctx.save_for_backward(o, d, thr, *dec[1:], *diff)
+        outs = (kb["o2"], kb["d2"], kb["thr2"], kb["strength2"], kb["alive2"]) + dec
+        ctx.mark_non_differentiable(*outs[3:])
+        return outs
+
+    @staticmethod
+    def backward(ctx, ct_o2, ct_d2, ct_thr2, *_):
+        o, d, thr, *rest = ctx.saved_tensors
+        n_dec = len(_DEC_KEYS) - 1
+        dec = dict(zip(_DEC_KEYS[1:], rest[:n_dec]))
+        params = dict(ctx.params, **dict(zip(DIFF_KEYS, rest[n_dec:])))
+        d_o, d_d, d_thr, d_params = ctx.scene.bounce_bwd_fn(
+            params, o, d, thr, dec, ct_o2.contiguous(), ct_d2.contiguous(),
+            ct_thr2.contiguous())
+        return ((None,) * 4 + (d_o, d_d, d_thr) + (None,) * 4
+                + tuple(d_params[k] for k in DIFF_KEYS))
+
+
+def _bounce(scene: CompiledScene, params, packed, carry, in_depth, u_coin, u3):
+    outs = ManualBounce.apply(scene, params, packed, in_depth, *carry, u_coin, u3,
+                              *(params[k] for k in DIFF_KEYS))
+    return outs[:5], dict(zip(_DEC_KEYS, outs[5:]))
 
 
 # ---------------------------------------------------------------------------
@@ -339,6 +442,10 @@ def trace_rays(scene: CompiledScene, params, origin, direction, key,
         phases += [(s, dv) for s, dv in _COMPACT_SCHEDULE
                    if s <= depth and B // dv >= 1]
 
+    # K1's scene buffer, packed once for all bounces of this call (the
+    # plain bounce on the CPU reads params itself)
+    pack = getattr(scene.bounce_fn, "pack", None)
+    packed = pack(params) if pack is not None and device.type == "cuda" else None
     orig = torch.arange(B, dtype=torch.int64, device=device)
     saved = []                  # per phase: (pos, thr, mat_id, live, orig)
     for pi, (start, div) in enumerate(phases):
@@ -350,12 +457,14 @@ def trace_rays(scene: CompiledScene, params, origin, direction, key,
         rows = []
         for b in range(start, end):
             o, d, thr, _, alive = carry
-            carry, dec = _bounce(scene, params, carry, b < depth,
+            carry, dec = _bounce(scene, params, packed, carry, b < depth,
                                  u_coins[b - start], u3s[b - start])
-            # the emission record: hit position, the throughput that
-            # reaches it, its material, and whether the lane hit live
-            rows.append((o + dec["t"][:, None] * d, thr, dec["mat_id"],
-                         alive & dec["hit"]))
+            # the emission record: hit position (no gradient: emission is
+            # piecewise constant in it through nearest-texel gathers), the
+            # bounce's input throughput (its cotangent reaches thr
+            # directly), its material, and whether the lane hit live
+            rows.append(((o + dec["t"][:, None] * d).detach(), thr,
+                         dec["mat_id"], alive & dec["hit"]))
         pos, thr, mid, live = (torch.stack(x) for x in zip(*rows))
         saved.append((pos, thr, mid, live, orig))
 

@@ -1,6 +1,6 @@
 """Where a render's time goes, layer by layer, on one device.
 
-    python -m ptx_torch.layer_profile [--chunks 4] [--device cuda]
+    python -m ptx_torch.layer_profile [--chunks 4] [--device cuda] [--grad]
 
 Renders the demo at 512×512 and depth 16 the way the CLI does (128-row
 bands of 65,536 rays, one sample per chunk): one warm-up band, then
@@ -15,7 +15,17 @@ Chrome trace goes to ``--out`` and is parsed here (:func:`summarize`):
 - per layer: the kernels whose launch call (matched by correlation id)
   lies inside the layer's host range, their device time, and the
   range's share of the profiled host wall;
-- K1: launches and mean device time of ``bounce_forward_kernel``.
+- K1, K2, K3: calls and mean device time per call, over all of a
+  kernel's launches: ``bounce_forward_kernel``; ``bounce_bwd_kernel`` and
+  the ``reduce_partials_kernel`` launched after it; the ``hist_*_kernel``s.
+
+``--grad`` runs each chunk forward and backward (``radiance.mean()``,
+then ``backward()``) and adds one range per backward layer: the replay
+backward (``bounce_bwd``: K2 and its params mapping), the compaction
+transpose (``compaction_bwd``), the emission backward (``emission_bwd``)
+and the sky image's histogram (``sky_hist``: K3).  The backward runs in
+autograd's engine, so those ranges open and close in hooks on the
+autograd nodes each forward layer created (:func:`_backward_ranges`).
 
 It prints the card's name and power limit, the figures, and last a JSON
 object with the same numbers.
@@ -40,7 +50,17 @@ LAYERS = (                      # (range name, module, function)
     ("compaction", "ptx_torch.integrate.trace", "_compact_wavefront"),
     ("emission", "ptx_torch.integrate.trace", "_phase_emission"),
 )
-K1_NAME = "bounce_forward_kernel"
+GRAD_LAYERS = (                 # (range name, module, function, its backward range)
+    ("bounce", "ptx_torch.integrate.trace", "_bounce", "bounce_bwd"),
+    ("compaction", "ptx_torch.integrate.trace", "_compact_wavefront", "compaction_bwd"),
+    ("emission", "ptx_torch.integrate.trace", "_phase_emission", "emission_bwd"),
+)
+SKY_HIST = "sky_hist"           # the image gather's backward node, inside emission
+# per kernel, the names of its launches; one call launches each once, and
+# the first name counts the calls
+KERNELS = {"k1": ("bounce_forward_kernel",),
+           "k2": ("bounce_bwd_kernel", "reduce_partials_kernel"),
+           "k3": ("hist_",)}
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -58,7 +78,8 @@ def summarize(events, layers=tuple(n for n, _, _ in LAYERS)):
 
     Returns a dict: ``kernels`` (launches), ``busy_ms`` (device),
     ``host_ms`` (profiled host wall, first to last host event),
-    ``k1_launches``, ``k1_mean_us`` and ``layers``: per layer
+    ``k1_calls``, ``k1_mean_us`` (device time per call; also for k2, k3)
+    and ``layers``: per layer
     ``kernels``, ``device_ms`` and ``host_share``."""
     kernels = [e for e in events if e.get("cat") == "kernel"]
     device = [e for e in events if e.get("cat") in _DEVICE_CATS]
@@ -81,13 +102,16 @@ def summarize(events, layers=tuple(n for n, _, _ in LAYERS)):
         if i >= 0 and ts <= ranges[i][1]:
             per[ranges[i][2]]["kernels"] += 1
             per[ranges[i][2]]["device_ms"] += k["dur"] / 1e3
-    k1 = [k["dur"] for k in kernels if K1_NAME in k["name"]]
-    return {"kernels": len(kernels),
-            "busy_ms": _union_us((e["ts"], e["ts"] + e["dur"]) for e in device) / 1e3,
-            "host_ms": host_us / 1e3,
-            "k1_launches": len(k1),
-            "k1_mean_us": sum(k1) / len(k1) if k1 else 0.0,
-            "layers": per}
+    out = {"kernels": len(kernels),
+           "busy_ms": _union_us((e["ts"], e["ts"] + e["dur"]) for e in device) / 1e3,
+           "host_ms": host_us / 1e3}
+    for tag, names in KERNELS.items():
+        calls = sum(names[0] in k["name"] for k in kernels)
+        dur = sum(k["dur"] for k in kernels if any(n in k["name"] for n in names))
+        out[f"{tag}_calls"] = calls
+        out[f"{tag}_mean_us"] = dur / calls if calls else 0.0
+    out["layers"] = per
+    return out
 
 
 @contextlib.contextmanager
@@ -115,6 +139,73 @@ def _layer_ranges():
             setattr(mod, fn_name, fn)
 
 
+def _sequence_nr():
+    """The autograd node counter's current value (a throwaway node's)."""
+    import torch
+
+    return (torch.zeros((), requires_grad=True) * 1.0).grad_fn._sequence_nr()
+
+
+@contextlib.contextmanager
+def _backward_ranges():
+    """While active, each GRAD_LAYERS function tags the autograd nodes its
+    call creates, so that their backward runs inside a range named after
+    the layer (the image gather's node, inside emission, gets
+    ``SKY_HIST``)."""
+    import importlib
+
+    import torch
+    from torch.profiler import record_function
+
+    open_ranges = {}
+
+    def tag(node, label):
+        def pre(_grads):
+            rf = record_function(label)
+            rf.__enter__()
+            open_ranges[node] = rf
+
+        def post(_gin, _gout):
+            open_ranges.pop(node).__exit__(None, None, None)
+
+        node.register_prehook(pre)
+        node.register_hook(post)
+
+    def tag_between(outputs, lo, hi, label):
+        stack = [t.grad_fn for t in outputs
+                 if isinstance(t, torch.Tensor) and t.grad_fn is not None]
+        seen = set()
+        while stack:
+            node = stack.pop()
+            if node is None or node in seen or not lo < node._sequence_nr() < hi:
+                continue
+            seen.add(node)
+            tag(node, SKY_HIST if "ImageGather" in type(node).__name__ else label)
+            stack += [n for n, _ in node.next_functions]
+
+    saved = []
+    for _, mod_name, fn_name, label in GRAD_LAYERS:
+        mod = importlib.import_module(mod_name)
+        fn = getattr(mod, fn_name)
+
+        def tagged(*a, _fn=fn, _label=label, **k):
+            lo = _sequence_nr()
+            out = _fn(*a, **k)
+            flat = []
+            for x in (out if isinstance(out, tuple) else (out,)):
+                flat += list(x) if isinstance(x, (tuple, list)) else (
+                    list(x.values()) if isinstance(x, dict) else [x])
+            tag_between(flat, lo, _sequence_nr(), _label)
+            return out
+        saved.append((mod, fn_name, fn))
+        setattr(mod, fn_name, functools.wraps(fn)(tagged))
+    try:
+        yield
+    finally:
+        for mod, fn_name, fn in saved:
+            setattr(mod, fn_name, fn)
+
+
 def main(argv=None):
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -130,6 +221,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--size", type=int, default=512)
     ap.add_argument("--out", default=os.path.join("build", "layer_profile"))
+    ap.add_argument("--grad", action="store_true",
+                    help="forward and backward of each chunk's mean radiance")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     cuda = device.type == "cuda"
@@ -147,8 +240,20 @@ def main(argv=None):
     rows = max(1, min(args.size, 2 ** 16 // args.size))
 
     def run(y0, n):
-        render.render_rows(scene, scene.params, cam, rng.PRNGKey(0), y0, rows,
-                           1, n, 16)
+        if not args.grad:
+            with torch.no_grad():
+                render.render_rows(scene, scene.params, cam, rng.PRNGKey(0), y0,
+                                   rows, 1, n, 16)
+            sync()
+            return
+        for i in range(n):      # render_rows's chunks, each forward + backward
+            k = rng.fold(rng.PRNGKey(0), i, y0)
+            o, d = render.sample_rays(cam, k, range(y0, y0 + rows), range(cam.width),
+                                      1, device)
+            params = {key: ([x.detach().requires_grad_(True) for x in v]
+                            if isinstance(v, list) else v.detach().requires_grad_(True))
+                      for key, v in scene.params.items()}
+            render.trace_rays(scene, params, o, d, k, 16).mean().backward()
         sync()
 
     run(0, 2)
@@ -158,25 +263,31 @@ def main(argv=None):
         run(rows, args.chunks)
         walls.append(time.perf_counter() - t0)
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    with _layer_ranges(), profile(activities=activities) as prof:
+    grad_ranges = _backward_ranges() if args.grad else contextlib.nullcontext()
+    with _layer_ranges(), grad_ranges, profile(activities=activities) as prof:
         run(rows, args.chunks)
     os.makedirs(args.out, exist_ok=True)
-    path = os.path.join(args.out, "trace.json")
+    path = os.path.join(args.out, "trace_grad.json" if args.grad else "trace.json")
     prof.export_chrome_trace(path)
+    names = [n for n, _, _ in LAYERS]
+    if args.grad:
+        names += [g for *_, g in GRAD_LAYERS] + [SKY_HIST]
     with open(path) as f:
-        s = summarize(json.load(f)["traceEvents"])
+        s = summarize(json.load(f)["traceEvents"], tuple(names))
 
     wall_ms = min(walls) * 1e3
     s.update(chunks=args.chunks, rays_per_chunk=rows * args.size,
              wall_ms=wall_ms, walls_ms=[w * 1e3 for w in walls],
              idle_share=1.0 - s["busy_ms"] / wall_ms)
-    print(f"{args.chunks} chunks of {rows * args.size} rays, depth 16: unprofiled "
+    print(f"{args.chunks} chunks of {rows * args.size} rays, depth 16"
+          f"{', forward + backward' if args.grad else ''}: unprofiled "
           f"wall {wall_ms:.3f} ms (best of {[round(w * 1e3, 3) for w in walls]}); "
           f"profiled host wall {s['host_ms']:.3f} ms")
     print(f"kernels launched {s['kernels']}; device busy {s['busy_ms']:.3f} ms; "
           f"idle share {s['idle_share']:.4f} (1 - busy / unprofiled wall)")
-    print(f"K1 ({K1_NAME}): {s['k1_launches']} launches, mean "
-          f"{s['k1_mean_us']:.2f} us")
+    for tag, names in KERNELS.items():
+        print(f"{tag.upper()} ({' + '.join(names)}): {s[f'{tag}_calls']} calls, mean "
+              f"{s[f'{tag}_mean_us']:.2f} us per call")
     print("layer            kernels  device_ms  share of profiled host wall")
     for name, v in s["layers"].items():
         print(f"{name:<16} {v['kernels']:>7}  {v['device_ms']:>9.3f}  "

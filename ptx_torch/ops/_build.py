@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels and load them with ctypes.
 
-``nvcc`` compiles every ``ptx_torch/csrc/*.cu`` into one shared library
-with a plain C interface, ``build/ptx_torch/libptx_torch_kernels-<hash>.so``
-under the repository root, keyed by a hash of the sources and flags; a
-library already built from the same sources is reused.  Nothing here
-includes PyTorch's headers, so a build takes seconds, not minutes.
+``nvcc`` compiles each ``ptx_torch/csrc/<name>.cu`` into a shared library
+with a plain C interface, ``build/ptx_torch/<name>-<hash>.so`` under the
+repository root, keyed by a hash of the sources and flags; libraries
+already built from the same sources are reused.  The
+sources compile in parallel, one ``nvcc`` each, all started together.
+Nothing here includes PyTorch's headers, so a build takes seconds, not
+minutes.  :func:`library` returns the C entry points of all of them.
 
 Imported only when a CUDA tensor reaches a kernel wrapper.
 """
@@ -18,6 +20,7 @@ import pathlib
 import shutil
 import subprocess
 import threading
+import types
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -42,20 +45,27 @@ def _nvcc() -> str:
                        "ptx_torch/csrc at first use and need the CUDA toolkit")
 
 
-def _declare(lib):
+def _entry_points():
+    """(name, argtypes, restype) of every C entry point."""
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.ptx_bounce_forward.argtypes = (
-        [vp, i, i, i, i, i]             # scene buffer, words, layout
-        + [vp] * 7 + [i, i]             # inputs, in_depth, B
-        + [vp] * 8 + [vp])              # outputs, stream
-    lib.ptx_bounce_forward.restype = i
-    lib.ptx_cuda_error_name.argtypes = [i]
-    lib.ptx_cuda_error_name.restype = ctypes.c_char_p
-    return lib
+    return [
+        ("ptx_bounce_forward",
+         [vp, i, i, i, i, i]            # scene buffer, words, layout
+         + [vp] * 7 + [i, i]            # inputs, in_depth, B
+         + [vp] * 8 + [vp], i),         # outputs, stream
+        ("ptx_bounce_backward_smem", [i, i], i),
+        ("ptx_bounce_backward",
+         [vp, i, i, vp]                 # scene buffer, words, L, leaf aux
+         + [vp] * 12 + [i]              # inputs, cotangents, B
+         + [vp] * 4 + [i, vp, vp], i),  # d_o d_d d_thr partial, blocks, acc, stream
+        ("ptx_image_hist", [vp] * 4 + [i] * 4 + [vp, vp, vp], i),
+        ("ptx_cuda_error_name", [i], ctypes.c_char_p),
+    ]
 
 
 def library():
-    """The loaded kernel library, building it on first use."""
+    """The kernels' C entry points, as attributes, building the libraries
+    on first use."""
     global _lib, BUILD_LOG
     with _lock:
         if _lib is not None:
@@ -65,17 +75,23 @@ def library():
         for src in sources + sorted(_CSRC.glob("*.cuh")):
             h.update(src.name.encode())
             h.update(src.read_bytes())
-        out = _BUILD / f"libptx_torch_kernels-{h.hexdigest()[:16]}.so"
-        if not out.exists():
+        outs = [_BUILD / f"{src.stem}-{h.hexdigest()[:16]}.so" for src in sources]
+        if not all(out.exists() for out in outs):
             _BUILD.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-                capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, out)
-            BUILD_LOG = proc.stdout + proc.stderr
-        _lib = _declare(ctypes.CDLL(str(out)))
+            tmps = [out.with_suffix(f".{os.getpid()}.tmp") for out in outs]
+            procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True) for src, tmp in zip(sources, tmps)]
+            BUILD_LOG = "".join(p.communicate()[0] for p in procs)
+            failed = [str(src) for src, p in zip(sources, procs) if p.returncode]
+            if failed:
+                raise RuntimeError(f"nvcc failed on {failed}:\n{BUILD_LOG}")
+            for tmp, out in zip(tmps, outs):
+                os.replace(tmp, out)
+        libs = [ctypes.CDLL(str(out)) for out in outs]
+        _lib = types.SimpleNamespace()
+        for name, argtypes, restype in _entry_points():
+            fn = next(getattr(lib, name) for lib in libs if hasattr(lib, name))
+            fn.argtypes, fn.restype = argtypes, restype
+            setattr(_lib, name, fn)
         return _lib

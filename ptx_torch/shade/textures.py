@@ -181,11 +181,14 @@ class TextureCompiler:
 
 def _get_pixel(img, xi, yi, alpha: bool):
     """Bounds-checked nearest lookup; outside → black / alpha 0
-    (image.cpp:366-396).  Returns (..., 3); alpha broadcast to grey."""
+    (image.cpp:366-396).  Returns (..., 3); alpha broadcast to grey.  The
+    gather is :func:`ptx_torch.ops.imagegrad.image_gather`, whose backward
+    is the histogram kernel K3 on the card."""
+    from ptx_torch.ops.imagegrad import image_gather
+
     h, w = img.shape[0], img.shape[1]
     inb = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
-    texel = img[yi.clamp(0, h - 1), xi.clamp(0, w - 1)]
-    texel = torch.where(inb[..., None], texel, 0.0)
+    texel = image_gather(img, xi.clamp(0, w - 1), yi.clamp(0, h - 1), inb)
     val = texel[..., 3:4] if alpha else texel[..., :3]
     return val.expand(val.shape[:-1] + (3,))
 

@@ -36,6 +36,7 @@ from ptx.integrate import trace as jtr
 from ptx.scenes import builders as jbuilders
 from ptx_torch.convert import params_from_jax, scene_from_jax
 from ptx_torch.integrate import trace as ttr
+from ptx_torch.geom.fasthit import collect_leaves
 from ptx_torch.ops import bounce_kernel
 
 torch.set_num_threads(1)
@@ -209,3 +210,32 @@ def test_wrapper_rejects_non_cuda_launch(pair):
     with pytest.raises(ValueError):
         ts.bounce_fn(ts.params, meta, meta, meta, meta[:, 0], meta[:, 0].bool(),
                      meta[:, 0], meta, True)
+
+
+def test_k1_follows_the_params_of_the_call():
+    """A changed radius reaches both the plain bounce and the kernel's
+    scene buffer, which ``trace_rays`` packs from the params of each call
+    (the card-only test runs the kernel itself on it)."""
+    from ptx_torch.scenes.builders import make_world
+
+    ts = ttr.compile_scene(make_world(), "cpu")
+    kern = ts.bounce_fn
+    lf_i = next(i for i, (lf, _) in enumerate(collect_leaves(ts.plan))
+                if lf.kind == "sphere" and lf.index == 1)
+    lf = collect_leaves(ts.plan)[lf_i][0]
+    grown = dict(ts.params, sphere_radius=ts.params["sphere_radius"] * 1.1)
+    geo = lambda buf: int(buf[bounce_kernel._LEAF_STRIDE * lf_i + 1])
+    old, new = kern.pack(ts.params), kern.pack(grown)
+    assert float(old[geo(old) + 3]) == float(ts.params["sphere_radius"][lf.index])
+    assert float(new[geo(new) + 3]) == float(grown["sphere_radius"][lf.index])
+
+    o, d, us = _inputs(2)
+    carry = (torch.from_numpy(o), torch.from_numpy(d), torch.ones((B, 3)),
+             torch.ones(B), torch.ones(B, dtype=torch.bool))
+    uc, u3 = (torch.from_numpy(u) for u in us[0])
+    before = kern(ts.params, *carry, uc, u3, True)
+    after = kern(grown, *carry, uc, u3, True)
+    want = bounce_kernel.bounce_reference(ts, grown, *carry, uc, u3, True)
+    assert not torch.equal(before["t"], after["t"])
+    for k in ("t", "evt", "o2", "d2"):
+        assert torch.equal(after[k], want[k]), k

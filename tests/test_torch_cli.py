@@ -30,12 +30,11 @@ import sys
 from ptx_torch.cli import main
 frame = main(sys.argv[1:])
 print("JAX_IMPORTED", "jax" in sys.modules)
+print("PTX_FILES", [m for m, mod in sys.modules.items()
+                    if "/ptx/" in (getattr(mod, "__file__", None) or "")])
 import numpy as np
-from ptx_torch import io
 assert frame.shape == (8, 8, 3) and np.isfinite(frame).all() and frame.mean() > 0
-assert io.bmp.read(sys.argv[-1] + ".bmp").shape == (8, 8, 3)
-# (hdr.read probes the native codec through ptx.runtime, so it comes last)
-assert io.hdr.read(sys.argv[-1] + ".hdr").shape[:2] == (8, 8)
+np.save(sys.argv[-1] + ".npy", frame)
 """
 
 
@@ -54,6 +53,17 @@ def test_cli_cpu_render_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert "rays/s" in proc.stdout
     assert "JAX_IMPORTED False" in proc.stdout
+    assert "PTX_FILES []" in proc.stdout
+    # the port's writers: same bytes as the JAX package's, read back by it
+    from ptx.io import bmp, hdr
+    frame = np.load(out + ".npy")
+    assert bmp.read(out + ".bmp").shape == (8, 8, 3)
+    assert hdr.read(out + ".hdr").shape[:2] == (8, 8)
+    bmp.write(str(tmp_path / "ref.bmp"), frame)
+    hdr.write(str(tmp_path / "ref.hdr"), frame)
+    for ext in ("bmp", "hdr"):
+        assert (tmp_path / f"ref.{ext}").read_bytes() == open(
+            f"{out}.{ext}", "rb").read(), ext
 
 
 def test_cli_module_entry_point(tmp_path):

@@ -1,4 +1,5 @@
-"""The CUDA bounce kernel (K1) on the card, against its plain PyTorch version.
+"""The CUDA kernels on the card against their plain PyTorch versions: K1
+(bounce), K2 (replay backward) and K3 (image-gather transpose).
 
 This file imports no jax, so it runs on a machine with a card and no jax:
 
@@ -9,6 +10,11 @@ device every test here skips.  Decisions must be identical and floats
 within ``rtol 1e-5, atol 5e-6``: the kernel follows the plain version's
 operation order and is built without multiply-add contraction, so the
 two round alike; chip_smoke.py adjudicates near-tie flips at full size.
+K2's hand adjoint orders its float32 operations unlike autograd: an
+element passes within ``rtol 1e-5, atol 1e-6`` or within twice the plain
+value's error against a float64 recompute plus 1e-4 relative (near-grazing
+lanes are ill-conditioned).  K3 adds with atomics in a varying order:
+``1e-5`` of each texel's sum of |ct|.
 """
 
 import pytest
@@ -88,3 +94,94 @@ def test_trace_rays_on_cuda_uses_only_the_kernel(cuda_scene):
     assert bounce_kernel.REFERENCE_CALLS == p0
     assert rad.shape == (1, 128, 128, 3) and bool(torch.isfinite(rad).all())
     assert float(rad.mean()) > 0
+
+
+def _k2_inputs(scene, n=64):
+    """A primary bounce of n×n demo rays and its decisions, with random
+    cotangents."""
+    dev = scene.device
+    o, d = sample_rays(Camera.reference_demo(n, n), rng.PRNGKey(3), range(n),
+                       range(n), 1, dev)
+    B = n * n
+    carry = (o.reshape(-1, 3), d.reshape(-1, 3), torch.ones((B, 3), device=dev),
+             torch.ones(B, device=dev), torch.ones(B, dtype=torch.bool, device=dev))
+    uc = rng.uniform(rng.PRNGKey(4), (B,), dev)
+    u3 = rng.uniform(rng.PRNGKey(5), (B, 3), dev)
+    kb = scene.bounce_fn(scene.params, *carry, uc, u3, True)
+    dec = {k: kb[k] for k in ("evt", "hit", "entering", "take_transmit",
+                              "scatter_alive", "u_sel")}
+    g = torch.Generator(device=dev).manual_seed(0)
+    cts = [torch.randn((B, 3), device=dev, generator=g) for _ in range(3)]
+    return carry, dec, cts
+
+
+def _close(got, want, truth, scale=None):
+    got, want, truth = (x.double() for x in (got, want, truth))
+    scale = truth.abs() if scale is None else scale.double()
+    ok = torch.isclose(got, want, rtol=1e-5, atol=1e-6) | (
+        (got - truth).abs() <= 2 * (want - truth).abs() + 1e-4 * scale + 1e-6)
+    assert bool(torch.isfinite(got).all()) and bool(ok.all()), int((~ok).sum())
+
+
+@pytest.mark.cuda
+def test_k2_matches_its_plain_version(cuda_scene):
+    scene = cuda_scene
+    carry, dec, cts = _k2_inputs(scene)
+    kern = scene.bounce_bwd_fn
+    packed = kern.pack(scene.params).detach()
+    launches = bounce_kernel.BounceBwdKernel.LAUNCHES
+    got = kern.launch(packed, *carry[:3], dec, *cts)
+    again = kern.launch(packed, *carry[:3], dec, *cts)
+    ref = bounce_kernel.bounce_bwd_lanes_reference(packed, kern.aux, *carry[:3], dec, *cts)
+    ref64 = bounce_kernel.bounce_bwd_lanes_reference(
+        packed.double(), kern.aux.double(), *(x.double() for x in carry[:3]),
+        dict(dec, u_sel=dec["u_sel"].double()), *(c.double() for c in cts))
+    torch.cuda.synchronize()
+    assert bounce_kernel.BounceBwdKernel.LAUNCHES == launches + 2
+    for g, w, t in zip(got[:3], ref[:3], ref64[:3]):
+        _close(g, w, t)
+    _close(got[3], ref[3], ref64[3], ref64[4])
+    for a, b in zip(got, again):            # the two-pass reduction is deterministic
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_k1_follows_a_changed_radius_on_the_card(cuda_scene):
+    scene = cuda_scene
+    carry, _, _ = _k2_inputs(scene, 32)
+    B = carry[0].shape[0]
+    uc = rng.uniform(rng.PRNGKey(6), (B,), scene.device)
+    u3 = rng.uniform(rng.PRNGKey(7), (B, 3), scene.device)
+    grown = dict(scene.params, sphere_radius=scene.params["sphere_radius"] * 1.1)
+    kb = scene.bounce_fn(grown, *carry, uc, u3, True)
+    ref = bounce_kernel.bounce_reference(scene, grown, *carry, uc, u3, True)
+    before = scene.bounce_fn(scene.params, *carry, uc, u3, True)
+    torch.cuda.synchronize()
+    assert torch.equal(kb["evt"], ref["evt"])
+    torch.testing.assert_close(kb["t"], ref["t"], rtol=1e-5, atol=5e-6)
+    assert not torch.equal(kb["t"], before["t"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 128, 4), (512, 1024, 4)], ids=["shared", "global"])
+def test_k3_matches_its_plain_version(shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the histogram kernel has no CPU mode")
+    from ptx_torch.ops import imagegrad
+
+    H, W, C = shape
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    N = 100_000
+    yi = torch.randint(0, H, (N,), device=dev, generator=g)
+    xi = torch.randint(0, W, (N,), device=dev, generator=g)
+    inb = torch.rand(N, device=dev, generator=g) < 0.9
+    ct = torch.randn((N, C), device=dev, generator=g)
+    launches = imagegrad.LAUNCHES
+    got = imagegrad.hist(yi, xi, inb, ct, shape)
+    assert imagegrad.HistKernel.used_shared == (shape == (64, 128, 4))
+    want = imagegrad.hist_reference(yi, xi, inb, ct, shape)
+    scale = imagegrad.hist_reference(yi, xi, inb, ct.abs(), shape)
+    torch.cuda.synchronize()
+    assert imagegrad.LAUNCHES == launches + 1
+    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-7).all())

@@ -29,7 +29,7 @@ def test_summarize_attributes_kernels_to_layers():
     assert s["kernels"] == 4
     assert s["busy_ms"] == pytest.approx((15.0 + 6.0 + 4.0 + 1.0) / 1e3)
     assert s["host_ms"] == pytest.approx(100.0 / 1e3)
-    assert s["k1_launches"] == 1 and s["k1_mean_us"] == pytest.approx(6.0)
+    assert s["k1_calls"] == 1 and s["k1_mean_us"] == pytest.approx(6.0)
     assert s["layers"]["rng_draws"] == pytest.approx(
         {"kernels": 2, "device_ms": 0.02, "host_share": 0.3})
     assert s["layers"]["bounce"] == pytest.approx(
@@ -38,5 +38,64 @@ def test_summarize_attributes_kernels_to_layers():
 
 def test_summarize_empty_trace():
     s = summarize([], ("bounce",))
-    assert s["kernels"] == 0 and s["busy_ms"] == 0.0 and s["k1_launches"] == 0
+    assert s["kernels"] == 0 and s["busy_ms"] == 0.0 and s["k1_calls"] == 0
     assert s["layers"]["bounce"]["kernels"] == 0
+
+
+def test_summarize_backward_ranges_and_kernels():
+    """The --grad mode's ranges (opened in autograd hooks) attribute the
+    backward's launches, and K2 / K3 are counted by name: a K2 call is its
+    two launches."""
+    from ptx_torch.layer_profile import GRAD_LAYERS, SKY_HIST
+
+    names = tuple(g for *_, g in GRAD_LAYERS) + (SKY_HIST,)
+    assert names == ("bounce_bwd", "compaction_bwd", "emission_bwd", "sky_hist")
+    events = [
+        _x("user_annotation", "bounce_bwd", 0.0, 20.0),
+        _x("cuda_runtime", "cudaLaunchKernel", 5.0, 1.0, correlation=1),
+        _x("cuda_runtime", "cudaLaunchKernel", 8.0, 1.0, correlation=2),
+        _x("user_annotation", "sky_hist", 30.0, 10.0),
+        _x("cuda_runtime", "cudaLaunchKernel", 32.0, 1.0, correlation=3),
+        _x("user_annotation", "compaction_bwd", 50.0, 10.0),
+        _x("cuda_runtime", "cudaLaunchKernel", 52.0, 1.0, correlation=4),
+        _x("kernel", "bounce_bwd_kernel(float const*)", 100.0, 8.0, correlation=1),
+        _x("kernel", "reduce_partials_kernel(float const*)", 110.0, 2.0, correlation=2),
+        _x("kernel", "hist_shared_kernel(long const*)", 120.0, 4.0, correlation=3),
+        _x("kernel", "index_elementwise", 130.0, 1.0, correlation=4),
+    ]
+    s = summarize(events, names)
+    assert s["k2_calls"] == 1 and s["k2_mean_us"] == pytest.approx(10.0)
+    assert s["k3_calls"] == 1 and s["k3_mean_us"] == pytest.approx(4.0)
+    assert s["k1_calls"] == 0
+    assert s["layers"]["bounce_bwd"]["kernels"] == 2
+    assert s["layers"]["bounce_bwd"]["device_ms"] == pytest.approx(0.010)
+    assert s["layers"]["sky_hist"]["kernels"] == 1
+    assert s["layers"]["compaction_bwd"]["kernels"] == 1
+    assert s["layers"]["emission_bwd"] == {"kernels": 0, "device_ms": 0.0,
+                                           "host_share": 0.0}
+
+
+def test_backward_ranges_tag_the_layers_nodes():
+    """On the CPU: a forward + backward under the --grad hooks opens each
+    backward range, and removes its wrappers afterwards."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ptx_torch.core import rng
+    from ptx_torch.integrate import trace
+    from ptx_torch.integrate.camera import Camera, sample_rays
+    from ptx_torch.layer_profile import _backward_ranges
+    from ptx_torch.scenes.builders import make_world
+
+    torch.set_num_threads(1)
+    scene = trace.compile_scene(make_world(), "cpu")
+    o, d = sample_rays(Camera.reference_demo(8, 6), rng.PRNGKey(0), range(6),
+                       range(8), 1, "cpu")
+    params = {k: ([x.clone().requires_grad_(True) for x in v] if isinstance(v, list)
+                  else v.clone().requires_grad_(True)) for k, v in scene.params.items()}
+    before = trace._bounce
+    with _backward_ranges(), profile(activities=[ProfilerActivity.CPU]) as prof:
+        trace.trace_rays(scene, params, o, d, rng.PRNGKey(0), 3, compact=False).mean().backward()
+    assert trace._bounce is before
+    names = {e.name for e in prof.events()}
+    assert {"bounce_bwd", "emission_bwd", "sky_hist"} <= names
