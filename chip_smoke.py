@@ -3,12 +3,14 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It builds the port's CUDA kernels from ``ptx_torch/csrc``, holds each
-kernel against its plain PyTorch version at the shapes the main path
-gives it, renders the demo at full size through the CLI entry point, and
-checks the render.  Any failed phase raises: the exit code is nonzero and
+kernel against its plain PyTorch version at the shapes the main paths
+give it, drives every path through the entry points a user calls (the CLI
+render, ``make_train_step``) at full size with exact launch counts, and
+checks the results.  Any failed phase raises: the exit code is nonzero and
 no result line is printed.  Without CUDA it exits 1 before doing anything.
+Each phase prints its seconds.
 
-Phases (each raises on failure; none is caught):
+Phases on the demo (K1, K2, K3; each raises on failure, none is caught):
 1. device: name, and power limit as ``nvidia-smi`` reports it;
 2. build: nvcc on every source in parallel, timed;
 3. K1 vs plain, at every shape the main paths give K1: (a) three
@@ -31,16 +33,17 @@ Phases (each raises on failure; none is caught):
    256 (widths 65,536, 21,845 and 4,096, filler lanes included), every
    backward bounce's carry, decisions and cotangents recorded and fed to
    K2 and to its plain versions, every sky-select histogram's inputs to K3
-   and ``hist_reference``; then K3 on a 512×1024×4 image (the
-   global-atomic path).  Tolerances: K2 per lane within ``rtol 1e-5, atol
+   and ``hist_reference``; then K8 on a 512×1024×4 image (past K3's shared
+   memory).  Tolerances: K2 per lane within ``rtol 1e-5, atol
    1e-6`` of the plain value, or within twice the plain value's error
    against a float64 recompute plus 1e-4 relative (the hand adjoint orders
    its float32 operations unlike autograd, and near-grazing lanes are
    ill-conditioned); per-leaf sums at the scale of their terms' |sum|; two
    launches the same bits; ``d_params`` within 1e-4 of each tensor's
    largest entry, or within twice the plain value's error against the
-   float64 sums mapped to the params.  K3 within the reordered-sum bound
-   ``2·n·2⁻²⁴·Σ|ct|`` per texel (float atomics add in a varying order);
+   float64 sums mapped to the params.  K3 and K8 within the reordered-sum
+   bound ``2·n·2⁻²⁴·Σ|ct|`` per texel (float atomics add in a varying
+   order);
 6. gradients, kernel path against plain path on the card: a 32-row band at
    spp 2 (32,768 rays, compaction on), depth 16, the gradient of the mean
    radiance with respect to every param tensor, the sky image included,
@@ -57,16 +60,58 @@ Phases (each raises on failure; none is caught):
    params with every K1, K2 and K3 call's inputs recorded (4,194,304,
    1,398,101 and 262,144 lanes; the K2 grid's tile loop runs only here),
    each held against its plain version as in phases 3 and 5; K2's bare
-   launch timed at 4,194,304 lanes beside its bound;
+   launch timed at 4,194,304 lanes beside its bound.
+
+Path A, BASELINE config 4 (a checker-textured reflect slot: the unfused
+bounce, plain-PyTorch shading on the hit-only kernel K4, the full-param
+replay backward whose checker gather transposes through K3):
+A1. K4 vs the dense hit on every bounce input of the first 65,536-ray
+    chunk of band 256 (65,536 / 21,845 / 4,096 lanes, fillers included):
+    decisions equal except float64-adjudicated near-ties, ``t`` and the
+    normal (hit lanes) within ``rtol 1e-5, atol 5e-6``;
+A2. ``python -m ptx_torch render --demo config4`` at 512², spp 16, d16:
+    K4 1,088 (4 bands × 16 samples × 17 bounces), nothing else;
+A3. 3 train steps at 512², spp 16, d16: K4 17 and K3 19 per step (16
+    backward bounces each transpose the checker gather, 3 phases each
+    the sky-select's), K1 = K2 = 0, no plain call;
+A4. gradients, kernel path vs plain path as in phase 6, the checker image
+    and the sky included.
+
+Path B, the 1536×3072 probe (``make_world`` under
+``procedural_sky_image(1536, 3072)``, as ``bench.py --sky 1536x3072``):
+B1. 3 train steps: K1 17, K2 16, K8 3 per step (one per phase's
+    sky-select gradient: the 75.5 MB image is past K3's shared memory),
+    K3 = 0;
+B2. every K8 output of those steps against ``hist_reference`` within the
+    reordered-sum bound.
+
+Path C, the fused emission kernel K7 (``PTX_EMK=1`` around
+``compile_scene``, as tests/test_emission_kernel.py:26-30):
+C1. the demo: one 65,536-ray chunk, K1 17 and K7 1 (``trace_rays``
+    evaluates emission once, on all phases' records), nothing else; K7 vs
+    ``eval_emissive`` on its inputs within ``rtol 1e-5, atol 1e-6``
+    except lanes a float64 recompute puts within 1e-6 of a texel boundary;
+C2. 3 train steps: K1 17, K2 16, K7 1 and K3 1 per step (K7's backward is
+    one combined histogram of the sky image and the const rows); every K7
+    call and histogram held against its plain version;
+C3. gradients, kernel path vs plain path (``eval_emissive``);
+C4, C5. a mirror-ball sky world (tests/test_emission_kernel.py:87-115):
+    C1's chunk and C3's gradients.
+
+Then:
 9. a forward + backward chunk at the bench's shape (128 rows × 512, spp 1,
    depth 16, ``loss = radiance.mean()``): rays/s over the median of 10
    chunks between CUDA events, beside the forward alone;
-10. timing per kernel at the render's width (65,536 lanes): the wrapper
-    as the main path calls it and the plain version, each the median of 20 single
-    calls between CUDA events; for K3 also the library call
-    ``index_put_(accumulate=True)``; the least time the card could take
-    (``bound_ms``) from this run's inputs;
-11. the JSON lines: the kernels, then the device.
+10. timing per kernel at the main path's widths (65,536 lanes for K1-K4,
+    a chunk's ~263 k emission records for K7, the probe's 4,194,304
+    sky-select lanes for K8): the wrapper as the main path calls it and the
+    plain version, each the median of 20 single calls between CUDA events;
+    for K3 and K8 also the library call ``index_put_(accumulate=True)``;
+    the least time the card could take (``bound_ms``) from this run's
+    inputs;
+11. the JSON lines: the six kernels (launches from the paths' train
+    steps: the demo's for K1-K3, config 4's for K4, C2's for K7, the
+    probe's for K8), then the device.
 
 Outputs (the rendered image, the nvcc report) go to ``build/chip_smoke/``.
 """
@@ -118,8 +163,7 @@ def adjudicate(scene, inputs, out_k, out_p, lanes):
     the last-ulp class; anything else is a fault."""
     import torch
     from ptx_torch.core import linalg
-    from ptx_torch.core.constants import EPS, MAX_VALUE
-    from ptx_torch.geom import fasthit
+    from ptx_torch.core.constants import EPS
 
     if lanes.numel() == 0:
         return torch.zeros(0, dtype=torch.bool)
@@ -129,32 +173,15 @@ def adjudicate(scene, inputs, out_k, out_p, lanes):
     o, d = o.cpu()[lanes].double(), d.cpu()[lanes].double()
     st, uc = st.cpu()[lanes].double(), uc.cpu()[lanes].double()
 
-    # every boundary time, in float64: (2L, n), event order of the kernel
-    t0, t1, _, _ = fasthit._leaf_intervals(fasthit.collect_leaves(scene.plan),
-                                           p64, *o.unbind(-1), *d.unbind(-1))
-    t_evt = torch.cat([t0, t1])
+    winner_tied = _winner_tied(scene, p64, o, d, lanes)
     n = lanes.numel()
-    idx = torch.arange(n)
-
-    def winner_tied(evt):
-        """The winner sits within tol of EPS or of another finite boundary
-        — but not exactly on it: exactly equal boundaries (the demo's
-        coincident spheres) round identically in both versions, so a flip
-        there breaks the leaf-order tie-break and is a fault."""
-        e = evt.cpu()[lanes].long()
-        te = t_evt[e, idx]
-        tol = TIE_REL * torch.clamp(te.abs(), min=1.0)
-        gap = (t_evt - te[None]).abs()
-        near = (gap > 0) & (gap <= tol) & (t_evt.abs() < MAX_VALUE)
-        return (te.abs() < MAX_VALUE) & (near.any(dim=0) | ((te - EPS).abs() <= tol))
-
     hit_class = torch.zeros(n, dtype=torch.bool)
     for k in ("evt", "hit", "entering", "mat_id"):
         hit_class |= (out_k[k] != out_p[k]).cpu()[lanes]
     hit_ok = winner_tied(out_k["evt"]) | winner_tied(out_p["evt"])
 
     # same hit: the shading gates, recomputed in float64
-    hit = scene.hit_fn(p64, o, d)
+    hit = scene.plain_hit_fn(p64, o, d)
     m = scene.material_fn(p64, o + hit["t"][:, None] * d, hit["mat_id"])
     rel_ior = torch.where(hit["entering"], 1.0 / m["ior"], m["ior"])
     rf = (torch.clamp(m["transmit_reflect_f"], 0.0, 1.0)
@@ -170,6 +197,33 @@ def adjudicate(scene, inputs, out_k, out_p, lanes):
                            (c - 1.0).abs()])
     gate_ok = margins.min(dim=0).values <= TIE_REL
     return torch.where(hit_class, hit_ok, gate_ok)
+
+
+def _winner_tied(scene, p64, o, d, lanes):
+    """``tied(evt)``: per lane of ``lanes`` (rays ``o``, ``d`` already cut to
+    them, float64 on the CPU), whether the winning event ``evt`` sits
+    within ``TIE_REL·max(1, |t|)`` of EPS or of another finite boundary —
+    but not exactly on it: exactly equal boundaries (the demo's coincident
+    spheres) round identically in both versions, so a flip there breaks
+    the leaf-order tie-break and is a fault."""
+    import torch
+    from ptx_torch.core.constants import EPS, MAX_VALUE
+    from ptx_torch.geom import fasthit
+
+    # every boundary time, in float64: (2L, n), event order of the kernel
+    t0, t1, _, _ = fasthit._leaf_intervals(fasthit.collect_leaves(scene.plan),
+                                           p64, *o.unbind(-1), *d.unbind(-1))
+    t_evt = torch.cat([t0, t1])
+    idx = torch.arange(lanes.numel())
+
+    def tied(evt):
+        e = evt.cpu()[lanes].long()
+        te = t_evt[e, idx]
+        tol = TIE_REL * torch.clamp(te.abs(), min=1.0)
+        gap = (t_evt - te[None]).abs()
+        near = (gap > 0) & (gap <= tol) & (t_evt.abs() < MAX_VALUE)
+        return (te.abs() < MAX_VALUE) & (near.any(dim=0) | ((te - EPS).abs() <= tol))
+    return tied
 
 
 def compare_bounce(scene, inputs, out_k, out_p):
@@ -333,9 +387,9 @@ def phase_slice(scene):
         raise AssertionError("render is not a finite (H, W, 3) image")
     if not frame.mean() > 0:
         raise AssertionError("render is black")
-    if launches != expected or plain != 0 or c["K2"] or c["K3"]:
+    if c != _expect(K1=expected):
         raise AssertionError(f"render launches {c}: expected K1 {expected}, no "
-                             "backward kernel, no plain call")
+                             "other kernel, no plain call")
     return launches, wall, rays / wall
 
 
@@ -529,16 +583,20 @@ def _close_per_tensor(name, got, want, rel=1e-4, atol=1e-7):
 
 
 @contextlib.contextmanager
-def _recording_hists(log_list):
-    """While active, ``imagegrad.hist`` (K3's wrapper, as the image
-    gather's backward calls it) logs each call's inputs."""
+def _recording_hists(log_list, outputs=None):
+    """While active, ``imagegrad.hist`` (the histogram routing, as the
+    image gather's and K7's backward call it) logs each call's inputs, and
+    its output into ``outputs`` when that list is given."""
     from ptx_torch.ops import imagegrad
 
     fn = imagegrad.hist
 
     def call(yi, xi, inb, ct, shape):
         log_list.append((yi, xi, inb, ct, shape))
-        return fn(yi, xi, inb, ct, shape)
+        out = fn(yi, xi, inb, ct, shape)
+        if outputs is not None:
+            outputs.append(out)
+        return out
 
     imagegrad.hist = call
     try:
@@ -631,23 +689,24 @@ def _check_k2(scene, recorded, tag):
     return err2
 
 
-def _check_k3(hists, tag):
-    """K3 against ``hist_reference`` on each recorded sky-select histogram
-    (the demo's sky: the shared-memory path).  Returns max|k − p|."""
+def _check_hists(hists, tag, kernel="K3", n=3, outputs=None):
+    """K3 (or K8) against ``hist_reference`` on each of the ``n`` recorded
+    histograms: the recorded output where ``outputs`` is given, else a
+    fresh call of the routing.  Returns max|k − p|."""
     from ptx_torch.ops import imagegrad
 
-    if len(hists) != 3:
-        raise AssertionError(f"{tag}: {len(hists)} sky-select histograms, expected 3")
-    err3 = 0.0
-    for yi, xi, inb, ct, shape in hists:
-        got = imagegrad.hist(yi, xi, inb, ct, shape)
-        if not imagegrad.HistKernel.used_shared:
-            raise AssertionError(f"{tag}: K3 on the demo sky did not take the shared path")
-        e = _hist_bound_ok(f"K3 N={yi.numel()}", got, yi, xi, inb, ct, shape)
-        err3 = max(err3, e)
-        log(f"[{tag}] {tuple(shape)} N={yi.numel()} in bounds "
-            f"{int(inb.sum())} (shared path) max_abs_err {e:.3g}")
-    return err3
+    if len(hists) != n:
+        raise AssertionError(f"{tag}: {len(hists)} histograms, expected {n}")
+    err = 0.0
+    for i, (yi, xi, inb, ct, shape) in enumerate(hists):
+        if kernel != ("K3" if imagegrad.fits_k3(shape) else "K8"):
+            raise AssertionError(f"{tag}: a {tuple(shape)} image does not route to {kernel}")
+        got = outputs[i] if outputs is not None else imagegrad.hist(yi, xi, inb, ct, shape)
+        e = _hist_bound_ok(f"{kernel} N={yi.numel()}", got, yi, xi, inb, ct, shape)
+        err = max(err, e)
+        log(f"[{tag}] {tuple(shape)} N={yi.numel()} in bounds {int(inb.sum())} "
+            f"max_abs_err {e:.3g}")
+    return err
 
 
 def _wavefront_widths(B, depth):
@@ -680,7 +739,7 @@ def phase_backward_kernels(scene):
         raise AssertionError(f"K2 widths {widths}, expected "
                              f"{_wavefront_widths(B, DEPTH - 1)}")
     err2 = _check_k2(scene, recorded, "5 K2 vs plain")
-    err3 = _check_k3(hists, "5 K3 vs plain")
+    err3 = _check_hists(hists, "5 K3 vs plain")
     g = torch.Generator(device=scene.device).manual_seed(0)
     big = (512, 1024, 4)
     N = 1 << 20
@@ -688,26 +747,29 @@ def phase_backward_kernels(scene):
     xi = torch.randint(0, big[1], (N,), device=scene.device, generator=g)
     inb = torch.rand(N, device=scene.device, generator=g) < 0.95
     ct = torch.randn((N, 4), device=scene.device, generator=g)
-    got = imagegrad.hist(yi, xi, inb, ct, big)
-    if imagegrad.HistKernel.used_shared:
-        raise AssertionError("K3 on a 512x1024x4 image took the shared path")
-    e = _hist_bound_ok("K3 512x1024x4", got, yi, xi, inb, ct, big)
-    log(f"[5 K3 vs plain] {big} N={N} (global-atomic path) max_abs_err {e:.3g}")
+    e8 = _check_hists([(yi, xi, inb, ct, big)], "5 K8 vs plain", "K8", 1)
     k2_in = next(r for r in recorded if r[0].shape[0] == B)
     k3_in = max(hists, key=lambda h: h[0].numel())      # phase 0's sky-select
-    return err2, max(err3, e), k2_in, k3_in
+    return err2, err3, e8, k2_in, k3_in
 
 
 def _plain_scene(scene):
+    """``scene`` with every kernel's plain version: the dense hit, the
+    plain bounce and replay backward (K1's and K2's plain versions, the
+    unfused composition on the dense hit) and ``eval_emissive``."""
     from ptx_torch.ops.bounce_kernel import bounce_bwd_reference, bounce_reference
 
     return dataclasses.replace(
-        scene, bounce_fn=functools.partial(bounce_reference, scene),
-        bounce_bwd_fn=functools.partial(bounce_bwd_reference, scene))
+        scene, hit_fn=scene.plain_hit_fn,
+        bounce_fn=functools.partial(bounce_reference, scene),
+        bounce_bwd_fn=functools.partial(bounce_bwd_reference, scene),
+        emission_fn=scene.material_fn.eval_emissive if scene.emission_fn else None)
 
 
-def phase_gradients(scene):
-    """Kernel path vs plain path on a compacted 32-row band at spp 2."""
+def phase_gradients(scene, tag="6 gradients"):
+    """Kernel path vs plain path on a compacted 32-row band at spp 2; the
+    plain path runs every kernel's plain version, ``hist_reference`` for
+    the histograms."""
     import torch
     from ptx_torch.core import rng
     from ptx_torch.integrate.camera import Camera, sample_rays
@@ -731,35 +793,57 @@ def phase_gradients(scene):
         g_p = grads(_plain_scene(scene))
     finally:
         imagegrad.hist = plain_hist
-    offs = _close_per_tensor("gradients kernel vs plain", g_k, g_p)
+    offs = _close_per_tensor(f"{tag}: gradients kernel vs plain", g_k, g_p)
     if offs:
         raise AssertionError("\n".join(offs))
     worst = max(float((g_k[k] - g_p[k]).abs().max()) if g_p[k].numel() else 0.0
                 for k in g_p)
-    log(f"[6 gradients] 32x{W} spp 2 depth {DEPTH} (32,768 rays, compacted): kernel "
-        f"path vs plain path, {len(g_p)} param tensors incl. the sky image, max abs "
+    images = ", ".join(f"|d {k}| {float(v.abs().sum()):.4g}" for k, v in g_k.items()
+                       if k.startswith("images"))
+    log(f"[{tag}] 32x{W} spp 2 depth {DEPTH} (32,768 rays, compacted): kernel "
+        f"path vs plain path, {len(g_p)} param tensors incl. every image, max abs "
         f"diff {worst:.3g}; |d sphere_radius| {float(g_k['sphere_radius'].abs().sum()):.4g}"
-        f", |d images[0]| {float(g_k['images[0]'].abs().sum()):.4g}")
+        f", {images}")
+    if not all(float(v.abs().sum()) > 0 for k, v in g_k.items() if k.startswith("images")):
+        raise AssertionError(f"{tag}: an image got no gradient")
+    return worst
 
 
 def _reset_counters():
-    from ptx_torch.ops import bounce_kernel as bk, imagegrad
+    from ptx_torch.ops import bounce_kernel as bk, emission_kernel as ek
+    from ptx_torch.ops import fasthit_kernel as fk, imagegrad
 
     bk.LAUNCHES = bk.REFERENCE_CALLS = bk.BWD_REFERENCE_CALLS = 0
     bk.BounceBwdKernel.LAUNCHES = 0
     imagegrad.LAUNCHES = imagegrad.REFERENCE_CALLS = 0
+    imagegrad.BandedHistKernel.LAUNCHES = 0
+    fk.LAUNCHES = fk.REFERENCE_CALLS = 0
+    ek.LAUNCHES = ek.REFERENCE_CALLS = 0
 
 
 def _counters():
-    from ptx_torch.ops import bounce_kernel as bk, imagegrad
+    from ptx_torch.ops import bounce_kernel as bk, emission_kernel as ek
+    from ptx_torch.ops import fasthit_kernel as fk, imagegrad
 
     return {"K1": bk.LAUNCHES, "K2": bk.BounceBwdKernel.LAUNCHES,
-            "K3": imagegrad.LAUNCHES,
-            "plain": bk.REFERENCE_CALLS + bk.BWD_REFERENCE_CALLS + imagegrad.REFERENCE_CALLS}
+            "K3": imagegrad.LAUNCHES, "K4": fk.LAUNCHES, "K7": ek.LAUNCHES,
+            "K8": imagegrad.BandedHistKernel.LAUNCHES,
+            "plain": (bk.REFERENCE_CALLS + bk.BWD_REFERENCE_CALLS + imagegrad.REFERENCE_CALLS
+                      + fk.REFERENCE_CALLS + ek.REFERENCE_CALLS)}
 
 
-def phase_train(scene):
-    """The training slice: 3 ``make_train_step`` steps at full size."""
+def _expect(**per_kernel):
+    """Exact launch counts: the given kernels, every other kernel 0, and
+    no plain-version call."""
+    out = dict.fromkeys(("K1", "K2", "K3", "K4", "K7", "K8", "plain"), 0)
+    out.update(per_kernel)
+    return out
+
+
+def phase_train(scene, tag, expect, recorder=None):
+    """3 ``make_train_step`` steps at full size, the counters zeroed just
+    before; ``expect`` the exact launch counts of the 3 steps; ``recorder``
+    an optional context manager held around the steps."""
     import math
 
     import torch
@@ -778,27 +862,28 @@ def phase_train(scene):
     step = make_train_step(scene, cam, spp=SPP, depth=DEPTH, learning_rate=LR)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _reset_counters()
     secs = []
-    for i in range(3):
-        t0 = time.perf_counter()
-        new, loss = step(params, target, rng.fold(rng.PRNGKey(2), i))
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        sq = 0.0
-        for k in params:
-            for a, b in zip(*(x if isinstance(x, list) else [x] for x in (params[k], new[k]))):
-                sq += float((((a - b) / LR) ** 2).sum())
-        gnorm = math.sqrt(sq)
-        log(f"[7 train] step {i}: loss {float(loss):.6g} grad norm {gnorm:.6g} "
-            f"{secs[-1]:.3f} s")
-        if not (math.isfinite(float(loss)) and math.isfinite(gnorm) and gnorm > 0):
-            raise AssertionError("train step: loss or gradient not finite")
-        params = new
-    c = _counters()
+    with recorder or contextlib.nullcontext():
+        _reset_counters()
+        for i in range(3):
+            t0 = time.perf_counter()
+            new, loss = step(params, target, rng.fold(rng.PRNGKey(2), i))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            sq = 0.0
+            for k in params:
+                for a, b in zip(*(x if isinstance(x, list) else [x]
+                                  for x in (params[k], new[k]))):
+                    sq += float((((a - b) / LR) ** 2).sum())
+            gnorm = math.sqrt(sq)
+            log(f"[{tag}] step {i}: loss {float(loss):.6g} grad norm {gnorm:.6g} "
+                f"{secs[-1]:.3f} s")
+            if not (math.isfinite(float(loss)) and math.isfinite(gnorm) and gnorm > 0):
+                raise AssertionError("train step: loss or gradient not finite")
+            params = new
+        c = _counters()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    expect = {"K1": 3 * (DEPTH + 1), "K2": 3 * DEPTH, "K3": 3 * 3, "plain": 0}
-    log(f"[7 train] {W}x{H} spp {SPP} depth {DEPTH} ({W * H * SPP:,} rays per step): "
+    log(f"[{tag}] {W}x{H} spp {SPP} depth {DEPTH} ({W * H * SPP:,} rays per step): "
         f"launches {c} (expected {expect}); peak memory {peak:.3f} GiB; "
         f"seconds per step {[round(x, 4) for x in secs]}")
     if c != expect:
@@ -849,7 +934,7 @@ def phase_train_kernels(scene, target):
             f"alive={int(inputs[4].sum())} flips={f} max_abs_err={e:.3g}")
         del inputs, out_k, out_p
     err2 = _check_k2(scene, bwd, "8 train-width K2 vs plain")
-    err3 = _check_k3(hists, "8 train-width K3 vs plain")
+    err3 = _check_hists(hists, "8 train-width K3 vs plain")
     o, d, thr, dec, cts = next(r for r in bwd if r[0].shape[0] == N)
     kern = scene.bounce_bwd_fn
     packed = kern.pack(scene.params).detach()
@@ -972,6 +1057,334 @@ def phase_timing_backward(scene, k2_in, k3_in):
             (min(h1, h2), min(q1, q2), min(l1, l2), bound_k3(yi, inb, ct, shape)))
 
 
+# ---------------------------------------------------------------------------
+# the small-scene paths: config 4 (unfused bounce, K4), the probe (K8), K7
+# ---------------------------------------------------------------------------
+
+HIT_DECISIONS = ("_evt", "hit", "entering", "mat_id")
+PROBE = (1536, 3072)            # the reference-scale probe, bench.py --sky 1536x3072
+
+
+@contextlib.contextmanager
+def _swapped(obj, name, value):
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+@contextlib.contextmanager
+def _all(*cms):
+    with contextlib.ExitStack() as stack:
+        for cm in cms:
+            stack.enter_context(cm)
+        yield
+
+
+class _RecordingHit:
+    """K4's wrapper, logging each call's rays and output."""
+
+    def __init__(self, kern, log_list):
+        self.kern, self.log = kern, log_list
+
+    def pack(self, params):
+        return self.kern.pack(params)
+
+    def __call__(self, params, o, d, packed=None):
+        out = self.kern(params, o, d, packed=packed)
+        self.log.append((o, d, out))
+        return out
+
+
+def _recording_em(kern, log_list):
+    """K7's wrapper, logging each call's params, inputs and output."""
+    def call(params, pos, mid):
+        out = kern(params, pos, mid)
+        log_list.append((params, pos, mid, out))
+        return out
+    return call
+
+
+def compare_hit(scene, o, d, out_k, out_p):
+    """K4 vs the dense hit on one wavefront: (flips, max_abs_err); raises on
+    a flip a float64 recompute does not put at a near-tie, or a float
+    outside ``rtol 1e-5, atol 5e-6`` (the normal on hit lanes)."""
+    import torch
+
+    differ = torch.zeros_like(out_k["hit"])
+    for k in HIT_DECISIONS:
+        differ |= out_k[k] != out_p[k]
+    lanes = differ.nonzero().flatten().cpu()
+    if lanes.numel():
+        p64 = _f64_cpu(scene.params)
+        tied = _winner_tied(scene, p64, o.cpu()[lanes].double(), d.cpu()[lanes].double(),
+                            lanes)
+        ok = tied(out_k["_evt"]) | tied(out_p["_evt"])
+        if not bool(ok.all()):
+            raise AssertionError(f"K4: {int((~ok).sum())} unexplained decision flips, "
+                                 f"lanes {lanes[~ok][:8].tolist()}")
+    max_err = 0.0
+    for k, keep in (("t", ~differ), ("normal", ~differ & out_p["hit"])):
+        a, b = out_k[k][keep], out_p[k][keep]
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=5e-6, msg=lambda m: f"K4 {k}: {m}")
+        max_err = max(max_err, float((a - b).abs().max()) if a.numel() else 0.0)
+    return int(lanes.numel()), max_err
+
+
+def phase_k4_chunk(c4):
+    """K4 vs the dense hit on every bounce input of the first 65,536-ray
+    chunk of config 4's band 256 as ``render_rows`` runs it: widths 65,536,
+    21,845 and 4,096, fillers included."""
+    import torch
+    from ptx_torch.core import rng
+    from ptx_torch.integrate.camera import Camera
+    from ptx_torch.integrate.render import render_rows
+
+    rec = []
+    with _swapped(c4, "hit_fn", _RecordingHit(c4.hit_fn, rec)):
+        render_rows(c4, c4.params, Camera.reference_demo(W, H), rng.PRNGKey(0), 256,
+                    BAND_ROWS, 1, 1, DEPTH)
+    widths = [o.shape[0] for o, _, _ in rec]
+    if widths != _wavefront_widths(BAND_ROWS * W, DEPTH):
+        raise AssertionError(f"K4 widths {widths}")
+    flips, err = 0, 0.0
+    for b, (o, d, out_k) in enumerate(rec):
+        out_p = c4.plain_hit_fn(c4.params, o, d)
+        torch.cuda.synchronize()
+        f, e = compare_hit(c4, o, d, out_k, out_p)
+        flips, err = flips + f, max(err, e)
+        log(f"[A1 K4 vs plain] config4 band 256 chunk 0 bounce {b}: B={o.shape[0]} "
+            f"hit={int(out_k['hit'].sum())} flips={f} max_abs_err={e:.3g}")
+    return flips, err, rec[0][:2]
+
+
+def phase_render_cli(demo, tag, expect):
+    """``python -m ptx_torch render --demo <demo>`` at 512², spp 16, d16
+    through ``ptx_torch.cli.main``, the counters zeroed just before."""
+    import numpy as np
+    import torch
+    from ptx_torch import cli
+
+    _reset_counters()
+    t0 = time.perf_counter()
+    frame = cli.main(["render", "--demo", demo, "--width", str(W), "--height", str(H),
+                      "--spp", str(SPP), "--depth", str(DEPTH), "--device", "cuda",
+                      "--out", os.path.join(OUT, f"smoke_{demo}")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = _counters()
+    rays = W * H * SPP * (DEPTH + 1)
+    log(f"[{tag}] render --demo {demo} {W}x{H} spp {SPP} depth {DEPTH}: wall {wall:.3f} s "
+        f"incl. scene compile and image writes, {rays / wall:.4g} rays/s; launches {c} "
+        f"(expected {expect}); image mean {float(frame.mean()):.6g}")
+    if frame.shape != (H, W, 3) or not np.isfinite(frame).all() or not frame.mean() > 0:
+        raise AssertionError(f"{tag}: render is not a finite, non-black (H, W, 3) image")
+    if c != expect:
+        raise AssertionError(f"{tag}: render launches {c}, expected {expect}")
+    return rays / wall
+
+
+def _texel_boundary_lanes(kern, params, pos, tol=1e-6):
+    """Lanes whose chain coordinates, recomputed in float64, lie within
+    ``tol`` (in uv units) of a texel boundary: there a float32 rounding
+    picks either texel."""
+    import torch
+    from ptx_torch.shade.textures import _mirror_ball_uv, _spherical_uv
+
+    q = pos.double()
+    if kern.xform_idx is not None:
+        A = params["tex_xform"][kern.xform_idx].detach().double()
+        q = q @ A[:, :3].T + A[:, 3]
+    uv = (_mirror_ball_uv if kern.mirror else _spherical_uv)(q)
+    img = params["images"][kern.img_id]
+    x = (uv[:, 0] - torch.floor(uv[:, 0])) * img.shape[1]
+    y = (1.0 - (uv[:, 1] - torch.floor(uv[:, 1]))) * img.shape[0]
+    return (((x - torch.round(x)).abs() <= tol * img.shape[1])
+            | ((y - torch.round(y)).abs() <= tol * img.shape[0]))
+
+
+def _check_k7(scene, calls, tag):
+    """K7 against ``eval_emissive`` on each recorded call's inputs: ``rtol
+    1e-5, atol 1e-6`` except lanes of the chain's material whose texel a
+    float64 recompute puts within 1e-6 of a boundary.  Returns (max|k − p|
+    on the other lanes, the lanes off only by such a boundary)."""
+    import torch
+
+    kern = scene.emission_fn
+    err, n_near = 0.0, 0
+    for params, pos, mid, em_k in calls:
+        with torch.no_grad():
+            p = {k: ([x.detach() for x in v] if isinstance(v, list) else v.detach())
+                 for k, v in params.items()}
+            em_p = scene.material_fn.eval_emissive(p, pos, mid)
+            near = _texel_boundary_lanes(kern, p, pos) & (mid == kern.dyn_mi)
+        torch.cuda.synchronize()
+        close = torch.isclose(em_k.detach(), em_p, rtol=1e-5, atol=1e-6).all(dim=-1)
+        if not bool((close | near).all()):
+            raise AssertionError(f"{tag}: K7 differs from eval_emissive on "
+                                 f"{int((~(close | near)).sum())} lanes")
+        e = float((em_k.detach() - em_p)[~near].abs().max())
+        flips = int((~close & near).sum())
+        err, n_near = max(err, e), n_near + flips
+        log(f"[{tag}] N={pos.shape[0]} chain lanes {int((mid == kern.dyn_mi).sum())}, "
+            f"{int(near.sum())} within 1e-6 of a texel boundary, {flips} of them off "
+            f"(another texel); max_abs_err {e:.3g} elsewhere")
+    return err, n_near
+
+
+def phase_k7_chunk(scene, tag):
+    """One 65,536-ray chunk (band 256 of the render, depth 16) with the
+    counters zeroed: K1 17 and K7 once (``trace_rays`` evaluates emission
+    once, on all phases' records), no histogram, no plain call; K7 held
+    against ``eval_emissive`` on its inputs."""
+    import torch
+    from ptx_torch.core import rng
+    from ptx_torch.integrate.camera import Camera
+    from ptx_torch.integrate.render import render_rows
+
+    calls = []
+    with _swapped(scene, "emission_fn", _recording_em(scene.emission_fn, calls)):
+        _reset_counters()
+        with torch.no_grad():
+            band = render_rows(scene, scene.params, Camera.reference_demo(W, H),
+                               rng.PRNGKey(0), 256, BAND_ROWS, 1, 1, DEPTH)
+        torch.cuda.synchronize()
+        c = _counters()
+    expect = _expect(K1=DEPTH + 1, K7=1)
+    log(f"[{tag}] one chunk of {BAND_ROWS * W} rays: launches {c} (expected {expect}); "
+        f"band mean {float(band.mean()):.6g}")
+    if c != expect or not bool(torch.isfinite(band).all()):
+        raise AssertionError(f"{tag}: chunk launches {c}, expected {expect}, or not finite")
+    err, near = _check_k7(scene, calls, tag)
+    _, pos, mid, _ = calls[0]
+    return err, near, (pos, mid)
+
+
+def phase_train_k7(scene):
+    """3 train steps of the demo with K7: K1 17, K2 16, K7 1 and K3 1 per
+    step (K7's backward: one combined histogram of the sky image and the
+    const rows, (64 + R) × 128 × 3, inside K3's shared memory); every K7
+    call and every histogram held against its plain version."""
+    calls, hists, outs = [], [], []
+    c, secs, peak, _ = phase_train(
+        scene, "C2 K7 train", _expect(K1=3 * (DEPTH + 1), K2=3 * DEPTH, K7=3, K3=3),
+        _all(_swapped(scene, "emission_fn", _recording_em(scene.emission_fn, calls)),
+             _recording_hists(hists, outs)))
+    err7, near = _check_k7(scene, calls, "C2 train-width K7 vs plain")
+    err3 = _check_hists(hists, "C2 train-width K3 (K7 backward) vs plain", "K3", 3, outs)
+    return c, secs, peak, err7, near, err3
+
+
+def phase_probe(pb):
+    """The 1536×3072 probe: 3 train steps of the demo under that sky, K1
+    17, K2 16 and K8 3 per step (one per phase's sky-select gradient, the
+    75.5 MB image past K3's shared memory), K3 0; every K8 call's output
+    held against ``hist_reference`` within the reordered-sum bound."""
+    hists, outs = [], []
+    c, secs, peak, _ = phase_train(
+        pb, "B1 probe train", _expect(K1=3 * (DEPTH + 1), K2=3 * DEPTH, K8=9),
+        _recording_hists(hists, outs))
+    err8 = _check_hists(hists, "B2 probe K8 vs plain", "K8", 9, outs)
+    k8_in = max(hists, key=lambda h: h[0].numel())
+    return c, secs, peak, err8, k8_in
+
+
+def bound_k4(B, L):
+    """K4 at B lanes: reads o, d (24 B), writes t, normal, flags, evt
+    (24 B); operations (estimate): ~25 per leaf interval and 2 compares
+    per (event, leaf) pair of the membership fold."""
+    return _bound(48 * B, B * (25 * L + 4 * L * L))
+
+
+def bound_k7(N, img):
+    """K7 at N lanes: reads pos and mid (20 B) and the image once, writes
+    em, texel, xi, yi, flags and row (40 B); ~90 operations a lane."""
+    return _bound(60 * N + img.numel() * 4, 90 * N)
+
+
+def phase_timing_small(c4, k4_in, pe, k7_in, k8_in):
+    """K4, K7 and K8 as the main path calls them against their plain
+    versions (K8 also against ``index_put_``), in turns: plain, kernel,
+    kernel, plain."""
+    import torch
+    from ptx_torch.ops import imagegrad
+
+    o, d = k4_in
+    buf = c4.hit_fn.pack(c4.params)
+    k4 = lambda: c4.hit_fn(c4.params, o, d, packed=buf)
+    k4p = lambda: c4.plain_hit_fn(c4.params, o, d)
+    p1, w1, w2, p2 = _time_ms(k4p), _time_ms(k4), _time_ms(k4), _time_ms(k4p)
+    log(f"[10 timing] K4 at B={o.shape[0]} (wrapper: launch + decode) {w1:.4f} / "
+        f"{w2:.4f} ms; plain dense hit {p1:.4f} / {p2:.4f} ms")
+    k4_t = (min(w1, w2), min(p1, p2), bound_k4(o.shape[0], c4.hit_fn.layout[0]))
+
+    pos, mid = k7_in
+    kern = pe.emission_fn
+    with torch.no_grad():
+        k7 = lambda: kern(pe.params, pos, mid)
+        k7p = lambda: pe.material_fn.eval_emissive(pe.params, pos, mid)
+        q1, v1, v2, q2 = _time_ms(k7p), _time_ms(k7), _time_ms(k7), _time_ms(k7p)
+    log(f"[10 timing] K7 at N={pos.shape[0]} (a chunk's concatenated records; wrapper: "
+        f"pack + launch) {v1:.4f} / {v2:.4f} ms; plain eval_emissive {q1:.4f} / "
+        f"{q2:.4f} ms")
+    k7_t = (min(v1, v2), min(q1, q2), bound_k7(pos.shape[0], pe.params["images"][kern.img_id]))
+
+    yi, xi, inb, ct, shape = k8_in
+    ct_m = torch.where(inb[:, None], ct, 0.0)
+    k8 = lambda: imagegrad.hist(yi, xi, inb, ct, shape)
+    k8p = lambda: imagegrad.hist_reference(yi, xi, inb, ct, shape)
+    lib = lambda: torch.zeros(shape, device=ct.device).index_put_((yi, xi), ct_m,
+                                                                  accumulate=True)
+    r1, l1 = _time_ms(k8p), _time_ms(lib)
+    h1, h2 = _time_ms(k8), _time_ms(k8)
+    l2, r2 = _time_ms(lib), _time_ms(k8p)
+    log(f"[10 timing] K8 at N={yi.numel()} on {tuple(shape)} (wrapper: lane sort + "
+        f"launch) {h1:.4f} / {h2:.4f} ms; plain {r1:.4f} / {r2:.4f} ms; "
+        f"index_put_(accumulate=True) {l1:.4f} / {l2:.4f} ms")
+    k8_t = (min(h1, h2), min(r1, r2), bound_k3(yi, inb, ct, shape), min(l1, l2))
+    return k4_t, k7_t, k8_t
+
+
+def _compile_with_emk(root, device):
+    """``compile_scene`` with ``PTX_EMK=1`` set around it, as
+    tests/test_emission_kernel.py:26-30 does for the JAX package."""
+    from ptx_torch.integrate.trace import compile_scene
+
+    old = os.environ.get("PTX_EMK")
+    os.environ["PTX_EMK"] = "1"
+    try:
+        scene = compile_scene(root, device)
+    finally:
+        os.environ.pop("PTX_EMK") if old is None else os.environ.__setitem__("PTX_EMK", old)
+    if scene.emission_fn is None:
+        raise AssertionError("PTX_EMK=1 did not build the emission kernel")
+    return scene
+
+
+def _mirror_world():
+    """A mirror-ball sky world, as tests/test_emission_kernel.py:87-115."""
+    import numpy as np
+    from ptx_torch.geom.tape import Sphere
+    from ptx_torch.scenes import builders
+    from ptx_torch.shade.materials import Material
+
+    probe = np.random.default_rng(7).uniform(0.0, 2.0, (16, 32, 4)).astype(np.float32)
+    sky = builders.make_sky_mirror_sphere(probe, scale=(1.5, 1.0, 0.5))
+    return builders.union_array([Sphere((0.0, 0.0, -4.0), 1.0,
+                                        Material(reflect=0.8, scatter=1.0))]
+                                + builders.sky_planes(sky))
+
+
+def _timed(label, fn, *args):
+    """Run one phase and print its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[phase seconds] {label}: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -981,35 +1394,79 @@ def main():
         return 1
     sys.path.insert(0, ROOT)
     from ptx_torch.integrate.trace import compile_scene
-    from ptx_torch.scenes.builders import make_world
+    from ptx_torch.scenes import builders
 
+    dev = torch.device("cuda", 0)
     torch.cuda.set_device(0)
     os.makedirs(OUT, exist_ok=True)
+    t_start = time.perf_counter()
     name, smi = phase_device()
-    build_s = phase_build()
-    scene = compile_scene(make_world(), torch.device("cuda", 0))
-    flips3, err3, inputs = phase_kernel_vs_plain(scene)
-    flips3c, err3c = phase_compacted_chunks(scene)
-    render_launches, wall, rays_s = phase_slice(scene)
-    flips4 = phase_band_vs_plain(scene)
-    err_k2, err_k3, k2_in, k3_in = phase_backward_kernels(scene)
-    phase_gradients(scene)
-    train, secs, peak, target = phase_train(scene)
-    flips8, err8_1, err8_2, err8_3 = phase_train_kernels(scene, target)
+    build_s = _timed("2 build", phase_build)
+
+    # the demo: K1, K2, K3
+    scene = compile_scene(builders.make_world(), dev)
+    flips3, err3, inputs = _timed("3 K1 primary bounces", phase_kernel_vs_plain, scene)
+    flips3c, err3c = _timed("3 K1 render chunks", phase_compacted_chunks, scene)
+    render_launches, wall, rays_s = _timed("4 render", phase_slice, scene)
+    flips4 = _timed("4 band", phase_band_vs_plain, scene)
+    err_k2, err_k3, err_k8a, k2_in, k3_in = _timed("5 K2 K3 K8", phase_backward_kernels,
+                                                   scene)
+    _timed("6 gradients", phase_gradients, scene)
+    train, secs, peak, target = _timed(
+        "7 train", phase_train, scene, "7 train",
+        _expect(K1=3 * (DEPTH + 1), K2=3 * DEPTH, K3=3 * 3))
+    flips8, err8_1, err8_2, err8_3 = _timed("8 train-width kernels", phase_train_kernels,
+                                            scene, target)
     del target
-    fb_rays, f_rays = phase_fwd_bwd(scene)
-    w_ms, p_ms, dev_ms = phase_timing(scene, inputs)
-    (k2_ms, k2p_ms, k2_bound), (k3_ms, k3p_ms, k3_lib, k3_bound) = \
-        phase_timing_backward(scene, k2_in, k3_in)
+
+    # path A, config 4: the unfused bounce on K4, the checker's gradient on K3
+    c4 = compile_scene(builders.baseline_config4(), dev)
+    flipsA, err4, k4_in = _timed("A1 K4 chunk", phase_k4_chunk, c4)
+    c4_rays_s = _timed("A2 render config4", phase_render_cli, "config4", "A2 render",
+                       _expect(K4=(H // BAND_ROWS) * SPP * (DEPTH + 1)))
+    train4, secs4, peak4, _ = _timed(
+        "A3 config4 train", phase_train, c4, "A3 config4 train",
+        _expect(K4=3 * (DEPTH + 1), K3=3 * (DEPTH + 3)))
+    _timed("A4 config4 gradients", phase_gradients, c4, "A4 config4 gradients")
+
+    # path B, the 1536x3072 probe: the sky's gradient on K8
+    pb = compile_scene(builders.make_world(
+        sky_image=builders.procedural_sky_image(*PROBE)), dev)
+    trainB, secsB, peakB, err8, k8_in = _timed("B probe train", phase_probe, pb)
+    del pb
+
+    # path C, the emission kernel K7: the demo with PTX_EMK=1, a mirror-ball sky
+    pe = _compile_with_emk(builders.make_world(), dev)
+    err7a, near_a, k7_in = _timed("C1 K7 chunk", phase_k7_chunk, pe, "C1 K7 chunk")
+    trainC, secsC, peakC, err7b, near_b, err3c7 = _timed("C2 K7 train", phase_train_k7, pe)
+    _timed("C3 K7 gradients", phase_gradients, pe, "C3 K7 gradients")
+    pm = _compile_with_emk(_mirror_world(), dev)
+    err7m, near_m, _ = _timed("C4 mirror-ball chunk", phase_k7_chunk, pm,
+                              "C4 mirror-ball K7 chunk")
+    _timed("C5 mirror-ball gradients", phase_gradients, pm, "C5 mirror-ball gradients")
+
+    fb_rays, f_rays = _timed("9 fwd+bwd", phase_fwd_bwd, scene)
+    w_ms, p_ms, dev_ms = _timed("10 K1 timing", phase_timing, scene, inputs)
+    (k2_ms, k2p_ms, k2_bound), (k3_ms, k3p_ms, k3_lib, k3_bound) = _timed(
+        "10 K2 K3 timing", phase_timing_backward, scene, k2_in, k3_in)
+    k4_t, k7_t, k8_t = _timed("10 K4 K7 K8 timing", phase_timing_small, c4, k4_in, pe,
+                              k7_in, k8_in)
     k1_bound = bound_k1(inputs[0].shape[0], scene.bounce_fn.layout[0])
     log(f"summary: build {build_s:.2f} s; flips {flips3} (primary bounces) + "
-        f"{flips3c} (render chunks) + {flips4} (band) + {flips8} (train step); render {rays_s:.4g} rays/s "
-        f"(K1 launches {render_launches}); train step {min(secs):.3f} s, peak "
-        f"{peak:.3f} GiB, launches {train}; fwd+bwd chunk {fb_rays:.4g} rays/s, fwd "
-        f"{f_rays:.4g} rays/s; K1 {w_ms:.4f} ms vs plain {p_ms:.4f} ms (bound "
-        f"{k1_bound[0]:.4g} ms, {k1_bound[1]}); K2 {k2_ms:.4f} vs {k2p_ms:.4f} ms "
-        f"(bound {k2_bound[0]:.4g} ms); K3 {k3_ms:.4f} vs {k3p_ms:.4f} ms, "
-        f"index_put_ {k3_lib:.4f} ms (bound {k3_bound[0]:.4g} ms); {smi}")
+        f"{flips3c} (render chunks) + {flips4} (band) + {flips8} (train step) + {flipsA} "
+        f"(K4); render {rays_s:.4g} rays/s (K1 launches {render_launches}), config4 "
+        f"{c4_rays_s:.4g} rays/s; train step demo {min(secs):.3f} s / {peak:.3f} GiB, "
+        f"config4 {min(secs4):.3f} s / {peak4:.3f} GiB, probe {min(secsB):.3f} s / "
+        f"{peakB:.3f} GiB, K7 demo {min(secsC):.3f} s / {peakC:.3f} GiB; K7 lanes on "
+        f"another texel at a boundary {near_a} + {near_b} + {near_m}; fwd+bwd chunk {fb_rays:.4g} "
+        f"rays/s, fwd {f_rays:.4g} rays/s; K1 {w_ms:.4f} ms vs plain {p_ms:.4f} ms "
+        f"(bound {k1_bound[0]:.4g} ms, {k1_bound[1]}); K2 {k2_ms:.4f} vs {k2p_ms:.4f} ms "
+        f"(bound {k2_bound[0]:.4g} ms); K3 {k3_ms:.4f} vs {k3p_ms:.4f} ms, index_put_ "
+        f"{k3_lib:.4f} ms (bound {k3_bound[0]:.4g} ms); K4 {k4_t[0]:.4f} vs "
+        f"{k4_t[1]:.4f} ms (bound {k4_t[2][0]:.4g} ms); K7 {k7_t[0]:.4f} vs "
+        f"{k7_t[1]:.4f} ms (bound {k7_t[2][0]:.4g} ms); K8 {k8_t[0]:.4f} vs "
+        f"{k8_t[1]:.4f} ms, index_put_ {k8_t[3]:.4f} ms (bound {k8_t[2][0]:.4g} ms); "
+        f"total {time.perf_counter() - t_start:.1f} s; {smi}")
     entry = lambda name_, source, replaces, launches, err, ms, plain, bound, lib: {
         "name": name_, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -1024,7 +1481,16 @@ def main():
               train["K2"], max(err_k2, err8_2), k2_ms, k2p_ms, k2_bound, None),
         entry("image_hist (K3: image-gather transpose)",
               "ptx_torch/csrc/image_hist_kernel.cu", "ptx/ops/imagegrad.py:91",
-              train["K3"], max(err_k3, err8_3), k3_ms, k3p_ms, k3_bound, k3_lib),
+              train["K3"], max(err_k3, err8_3, err3c7), k3_ms, k3p_ms, k3_bound, k3_lib),
+        entry("first_hit (K4: hit-only CSG fold)",
+              "ptx_torch/csrc/fasthit_kernel.cu", "ptx/ops/fasthit_kernel.py:233",
+              train4["K4"], err4, k4_t[0], k4_t[1], k4_t[2], None),
+        entry("emission_forward (K7: fused emission chain)",
+              "ptx_torch/csrc/emission_kernel.cu", "ptx/ops/emission_kernel.py:98",
+              trainC["K7"], max(err7a, err7b, err7m), k7_t[0], k7_t[1], k7_t[2], None),
+        entry("image_hist_banded (K8: banded image-gather transpose)",
+              "ptx_torch/csrc/image_hist_kernel.cu", "ptx/ops/imagegrad.py:218",
+              trainB["K8"], max(err8, err_k8a), k8_t[0], k8_t[1], k8_t[2], k8_t[3]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -20,7 +20,7 @@ def _build_scene(args, device):
     from ptx_torch.integrate.trace import compile_scene
     from ptx_torch.scenes import builders
 
-    world = {"demo": builders.make_world}[args.demo]()
+    world = builders.DEMOS[args.demo]()
     cam = Camera.reference_demo(args.width or 640, args.height or 480)
     return compile_scene(world, device), cam, args.spp or 10, args.depth or 16
 
@@ -86,8 +86,9 @@ def main(argv=None):
                                 description="CSG path tracer, PyTorch/CUDA port")
     sub = p.add_subparsers(dest="cmd", required=True)
     sp = sub.add_parser("render", help="render locally")
-    sp.add_argument("--demo", choices=["demo"], default="demo",
-                    help="built-in scene")
+    sp.add_argument("--demo", choices=["demo", "config1", "config2", "config3",
+                                       "config4"], default="demo",
+                    help="built-in scene: the reference demo or BASELINE config 1-4")
     sp.add_argument("--width", type=int, default=0)
     sp.add_argument("--height", type=int, default=0)
     sp.add_argument("--spp", type=int, default=0)

@@ -32,7 +32,11 @@ def scene_from_jax(root):
         if kind in _NODES or kind in _TEXTURES or kind in (
                 "Union", "Intersection", "Material"):
             return convert(v)
-        return np.asarray(v) if hasattr(v, "__array__") else v
+        if not hasattr(v, "__array__"):
+            return v
+        if id(v) not in seen:             # an image shared by skybox faces
+            seen[id(v)] = np.asarray(v)
+        return seen[id(v)]
 
     def convert(obj):
         if id(obj) in seen:

@@ -103,6 +103,11 @@ def translate(t, device):
     return affine(torch.eye(3, device=device), t)
 
 
+def scale(s, device):
+    s = torch.as_tensor(s, dtype=torch.float32, device=device).expand(3)
+    return affine(torch.diag(s), torch.zeros(3, device=device))
+
+
 def rotate(axis, angle, device):
     """Axis-angle rotation via the versine form (transform.h:207-225);
     ``angle`` is rounded to float32 before its cos/sin, as in JAX."""

@@ -9,11 +9,11 @@ first hit is the minimum such boundary with ``t >= EPS``.  The JAX
 module's docstring proves this equals the reference's span walk.
 
 This dense form materializes the (2L, L, B) membership tensors.  It is
-the plain PyTorch version of the hit half of the fused bounce kernel
-(``ptx_torch/csrc/bounce_kernel.cu``), which folds the same candidates
-as 64-bit masks per ray.  The candidate-blocked, union-sweep and
-megasweep strategies of the JAX module are not ported yet (ROADMAP
-Queue 1 #8).
+the plain PyTorch version of the hit-only kernel K4 and of the hit half
+of the fused bounce kernel K1 (``ptx_torch/csrc/hit_fold.cuh``), which
+fold the same candidates as 64-bit masks per ray.  The candidate-blocked,
+union-sweep and megasweep strategies of the JAX module are not ported yet
+(ROADMAP Queue 1 #8).
 """
 
 from __future__ import annotations

@@ -101,7 +101,10 @@ def recompute_flat(rows, sph, par, ox, oy, oz, dx, dy, dz, evt):
     evt = evt.to(torch.int64)
     leaf = torch.where(evt >= L, evt - L, evt)
     is_start = evt < L
-    row = rows[leaf]
+    # index_select, not rows[leaf]: its transpose is index_add_, where that
+    # of rows[leaf] sorts the lanes and walks each leaf's duplicates serially
+    # (a few leaves, millions of lanes)
+    row = rows.index_select(0, leaf)
     sph, par = sph[leaf], par[leaf]
     w, nrm = row[:, 5:17], row[:, 17:26]
     lox = w[:, 0] * ox + w[:, 1] * oy + w[:, 2] * oz + w[:, 3]

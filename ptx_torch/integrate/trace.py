@@ -18,12 +18,25 @@ path that reaches them ("sky-select").
 Every bounce is one :class:`ManualBounce`, the port of the JAX package's
 manual bounce VJP (``_make_manual_bounce``): its forward is
 ``scene.bounce_fn`` and its backward ``scene.bounce_bwd_fn``, the
-decision-frozen replay.  On a CUDA device those are one launch each of
-the fused bounce kernels K1 and K2 (:mod:`ptx_torch.ops.bounce_kernel`);
-on the CPU their plain PyTorch versions, built on :func:`_bounce_live`
-and :func:`_bounce_replay`.  Compaction and emission are plain PyTorch,
-differentiated by autograd; the sky image's gradient goes through the
-image-gather transpose kernel K3 (:mod:`ptx_torch.ops.imagegrad`).
+decision-frozen replay.  ``compile_scene`` routes as the JAX package's
+``_compile_scene_body`` does, for scenes of at most 24 leaves:
+
+- every non-emissive slot Constant: the fused bounce kernels K1 and K2
+  (:mod:`ptx_torch.ops.bounce_kernel`), one launch each per bounce;
+- a textured non-emissive slot (BASELINE config 4): the unfused bounce,
+  :class:`UnfusedBounce` — plain-PyTorch :func:`_bounce_live` on the
+  hit-only kernel K4 (:mod:`ptx_torch.ops.fasthit_kernel`), the
+  composition the JAX package leaves to XLA — and :func:`replay_vjp`,
+  autograd of :func:`_bounce_replay` over every param the replay reads;
+- emission: the fused emission kernel K7
+  (:mod:`ptx_torch.ops.emission_kernel`) when a dynamic emissive chain is
+  not terminal or ``PTX_EMK=1``, else mat-sum + sky-select in plain
+  PyTorch.  Image gradients go through the histogram kernels K3 / K8
+  (:mod:`ptx_torch.ops.imagegrad`).
+
+Each kernel wrapper runs its plain version on CPU tensors, so the same
+routing serves the CPU.  On CUDA a scene of more than 24 leaves raises:
+its kernels (K5, K6) are not ported.
 """
 
 from __future__ import annotations
@@ -31,6 +44,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import os
 from typing import Any, Callable
 
 import torch
@@ -42,19 +56,20 @@ from ptx_torch.geom.fasthit import collect_leaves, compile_fast_hit
 from ptx_torch.shade import materials as mats
 from ptx_torch.shade import textures as tx
 
-# The fused bounce kernel's limits: at most 24 leaves (48 candidates fit
-# one 64-bit mask), and every non-emissive slot Constant (the kernel
-# reads material scalars from its scene buffer; emission is evaluated
-# after the bounces).  The same eligibility as the JAX package's fused
-# bounce (ptx/integrate/trace.py:187-190).
+# The hit kernels' limit: at most 24 leaves (48 candidates fit one 64-bit
+# mask).  K1 also needs every non-emissive slot Constant (it reads material
+# scalars from its scene buffer; emission is evaluated after the bounces),
+# the JAX package's fused-bounce eligibility (ptx/integrate/trace.py:187-190).
 KERNEL_MAX_LEAVES = 24
-_KERNEL_CONST_SLOTS = ("reflect", "scatter", "transmit", "transmit_reflect")
+_NON_EMISSIVE = ("reflect", "scatter", "transmit", "transmit_reflect")
 
 # The params a bounce is differentiable in: geometry, transforms, constant
-# slots and ior.  Texture factors, transforms and images reach the
-# radiance only through emission, which autograd differentiates.
+# slots and ior.  On a scene with a textured non-emissive slot the replay
+# also reads the texture params; otherwise those reach the radiance only
+# through emission, which autograd differentiates.
 DIFF_KEYS = ("sphere_center", "sphere_radius", "plane_normal", "plane_d",
              "xform", "const", "ior")
+TEXTURE_KEYS = ("factor", "tex_xform", "images")
 
 
 @dataclasses.dataclass(eq=False)
@@ -62,28 +77,48 @@ class CompiledScene:
     """A scene lowered to tensors + callables on one device.
 
     ``bounce_fn`` is the one bounce every wavefront step calls and
-    ``bounce_bwd_fn`` its replay backward: the fused kernels
-    (:class:`ptx_torch.ops.bounce_kernel.BounceKernel`, ``BounceBwdKernel``)
-    for kernel-eligible scenes, else (CPU only) their plain versions
-    ``bounce_reference`` and ``bounce_bwd_reference``."""
+    ``bounce_bwd_fn`` its replay backward (module docstring).  ``hit_fn``
+    is K4's wrapper for scenes of at most 24 leaves, ``plain_hit_fn`` the
+    dense first hit (K4's and K1's plain versions read it).
+    ``emission_fn`` is K7's wrapper or None; ``diff_keys`` the params
+    ``ManualBounce`` passes to autograd."""
     params: dict
     plan: Any
     material_fn: mats.MaterialTable
     hit_fn: Callable            # (params, origin, dir) -> first-hit dict
     hit_replay_fn: Callable     # (params, o, d, evt, entering, hit) -> (t, normal)
     device: torch.device
+    plain_hit_fn: Callable = None
     bounce_fn: Callable = None
     bounce_bwd_fn: Callable = None
+    emission_fn: Callable = None
+    diff_keys: tuple = DIFF_KEYS
+
+
+def _want_emission_kernel(ordered, table) -> bool:
+    """The JAX package's policy (ptx/integrate/trace.py:220-245): K7 when a
+    dynamic emissive chain is not terminal; not when every one is (the sky
+    enclosure: sky-select evaluates the chain on one lane per path);
+    ``PTX_EMK=1`` forces it on, ``PTX_EMK=0`` off."""
+    env = os.environ.get("PTX_EMK")
+    if env is not None:
+        return env == "1"
+    term = {mi for mi, m in enumerate(ordered)
+            if mats._const_zero(m.reflect) and mats._const_zero(m.transmit)}
+    dyn = set(table.dynamic_slots["emissive"])
+    return not (dyn and dyn <= term)
 
 
 def compile_scene(root, device) -> CompiledScene:
     """Compile a scene tree for ``device``.
 
-    On a CUDA device only kernel-eligible scenes compile: any other scene
-    raises ``NotImplementedError`` (no quiet fallback to a plain path)."""
+    On a CUDA device a scene of more than 24 leaves raises
+    ``NotImplementedError`` (no quiet fallback to a plain path)."""
+    from ptx_torch.ops import emission_kernel
     from ptx_torch.ops.bounce_kernel import (BounceBwdKernel, BounceKernel,
                                              bounce_bwd_reference,
                                              bounce_reference)
+    from ptx_torch.ops.fasthit_kernel import HitKernel
 
     device = torch.device(device)
     cpu = torch.device("cpu")
@@ -92,32 +127,37 @@ def compile_scene(root, device) -> CompiledScene:
     compiler = tx.TextureCompiler()
     mat_params, table = mats.compile_material_table(ordered, compiler, cpu)
     n_leaves = len(collect_leaves(plan))
-    eligible = n_leaves <= KERNEL_MAX_LEAVES and not any(
-        table.dynamic_slots[s] for s in _KERNEL_CONST_SLOTS)
-    if device.type == "cuda" and not eligible:
+    small = n_leaves <= KERNEL_MAX_LEAVES
+    dynamic = any(table.dynamic_slots[s] for s in _NON_EMISSIVE)
+    if device.type == "cuda" and not small:
         raise NotImplementedError(
-            f"scene with {n_leaves} leaves and dynamic slots "
-            f"{ {s: v for s, v in table.dynamic_slots.items() if v} }: on CUDA "
-            "only the fused bounce kernel K1 is ported (L <= "
-            f"{KERNEL_MAX_LEAVES}, Constant non-emissive slots); the hit-only "
-            "kernel K4 with the unfused bounce, and the large-scene kernels "
-            "K5/K6, are ROADMAP Queue 2")
+            f"scene with {n_leaves} leaves: on CUDA the port has the kernels of "
+            f"scenes of at most {KERNEL_MAX_LEAVES} leaves (K1-K4, K7, K8); the "
+            "large-scene kernels K5 (megasweep) and K6 (row-fed replay backward) "
+            "are ROADMAP Queue 2")
     params = dict(geo_params)
     params.update(mat_params)
     params.update(compiler.finalize(cpu))
     params = {k: ([x.to(device) for x in v] if isinstance(v, list)
                   else v.to(device)) for k, v in params.items()}
+    plain_hit = compile_fast_hit(plan)
     scene = CompiledScene(
         params=params, plan=plan, material_fn=table,
-        hit_fn=compile_fast_hit(plan),
+        hit_fn=HitKernel(plan, plain_hit, params) if small else plain_hit,
         hit_replay_fn=hitreplay.build_hit_replay(collect_leaves(plan)),
-        device=device)
-    if eligible:
+        device=device, plain_hit_fn=plain_hit)
+    if small and not dynamic:
         scene.bounce_fn, scene.bounce_bwd_fn = (BounceKernel(scene),
                                                 BounceBwdKernel(scene))
+    elif dynamic:
+        scene.diff_keys = DIFF_KEYS + TEXTURE_KEYS
+        scene.bounce_fn = UnfusedBounce(scene)
+        scene.bounce_bwd_fn = functools.partial(replay_vjp, scene)
     else:
         scene.bounce_fn = functools.partial(bounce_reference, scene)
         scene.bounce_bwd_fn = functools.partial(bounce_bwd_reference, scene)
+    if _want_emission_kernel(ordered, table) and emission_kernel.supported(table):
+        scene.emission_fn = emission_kernel.EmissionKernel(table, device)
     return scene
 
 
@@ -297,19 +337,85 @@ _DEC_KEYS = ("t", "evt", "hit", "entering", "take_transmit", "scatter_alive",
              "u_sel", "mat_id")
 
 
+class UnfusedBounce:
+    """The bounce of a scene with a textured non-emissive slot: plain-
+    PyTorch :func:`_bounce_live` on ``scene.hit_fn`` (K4 on CUDA), the
+    production composition, as the JAX package leaves it to XLA.  Returns
+    the dict of K1's wrapper; ``packed`` is K4's scene buffer, which
+    ``trace_rays`` packs once per call (:meth:`pack`)."""
+
+    def __init__(self, scene):
+        self.scene = scene
+
+    def pack(self, params):
+        return self.scene.hit_fn.pack(params)
+
+    def __call__(self, params, o, d, thr, strength, alive, u_coin, u3, in_depth,
+                 packed=None):
+        scene = self.scene
+        hit_fn = (scene.hit_fn if packed is None
+                  else functools.partial(scene.hit_fn, packed=packed))
+        (o2, d2, thr2, st2, alive2), dec = _bounce_live(
+            hit_fn, scene.material_fn, params, o, d, thr, strength, alive, in_depth,
+            u_coin, u3)
+        return dict(dec, o2=o2, d2=d2, thr2=thr2, strength2=st2, alive2=alive2)
+
+
+def _diff_inputs(scene, params):
+    """The tensors of ``scene.diff_keys`` in order, list entries (images)
+    one by one: the explicit inputs autograd reaches the params through."""
+    out = []
+    for k in scene.diff_keys:
+        v = params[k]
+        out += list(v) if isinstance(v, list) else [v]
+    return out
+
+
+def _with_diff(scene, params, flat):
+    """``params`` with the ``scene.diff_keys`` entries taken from ``flat``
+    (the layout of :func:`_diff_inputs`)."""
+    out, i = dict(params), 0
+    for k in scene.diff_keys:
+        if isinstance(params[k], list):
+            out[k] = list(flat[i:i + len(params[k])])
+            i += len(params[k])
+        else:
+            out[k] = flat[i]
+            i += 1
+    return out
+
+
+def replay_vjp(scene, params, o, d, thr, dec, ct_o2, ct_d2, ct_thr2):
+    """The unfused bounce's backward: autograd of :func:`_bounce_replay`
+    over ``(o, d, thr)`` and every param of ``scene.diff_keys`` (the JAX
+    package's ``jax.vjp`` of ``_bounce_replay`` over the whole params,
+    ``ptx/integrate/trace.py:723-732``).  Texture gathers' transposes
+    reach K3 / K8.  Returns ``(d_o, d_d, d_thr, d_params)``, ``d_params``
+    a dict over ``scene.diff_keys`` (``images`` a list)."""
+    with torch.enable_grad():
+        flat = [x.detach().requires_grad_(True) for x in _diff_inputs(scene, params)]
+        xs = [x.detach().requires_grad_(True) for x in (o, d, thr)]
+        outs = _bounce_replay(scene, _with_diff(scene, params, flat), *xs, dec)
+        grads = torch.autograd.grad(outs, xs + flat, (ct_o2, ct_d2, ct_thr2),
+                                    allow_unused=True)
+    d_flat = [torch.zeros_like(x) if g is None else g for x, g in zip(flat, grads[3:])]
+    d_params = _with_diff(scene, params, d_flat)
+    return (*grads[:3], {k: d_params[k] for k in scene.diff_keys})
+
+
 class ManualBounce(torch.autograd.Function):
     """One bounce with a decision-frozen replay backward (port of
     ``_make_manual_bounce``, ``ptx/integrate/trace.py:660``).
 
     ``apply(scene, params, packed, in_depth, o, d, thr, strength, alive,
-    u_coin, u3, *[params[k] for k in DIFF_KEYS])`` returns ``(o2, d2, thr2,
+    u_coin, u3, *_diff_inputs(scene, params))`` returns ``(o2, d2, thr2,
     strength2, alive2)`` and then the decisions ``_DEC_KEYS``.  The
-    forward is ``scene.bounce_fn`` (K1 on CUDA, with the scene buffer
-    ``packed``); it saves the carry and the decisions, not the uniforms
-    (the replay reads the accepted draw ``u_sel``).  The backward is
-    ``scene.bounce_bwd_fn`` (K2 on CUDA) on the cotangents of o2, d2 and
-    thr2.  strength2, alive2 and the decisions are not differentiable; the
-    param tensors are explicit inputs so that autograd reaches them."""
+    forward is ``scene.bounce_fn`` (with the scene buffer ``packed``); it
+    saves the carry and the decisions, not the uniforms (the replay reads
+    the accepted draw ``u_sel``).  The backward is ``scene.bounce_bwd_fn``
+    on the cotangents of o2, d2 and thr2.  strength2, alive2 and the
+    decisions are not differentiable; the param tensors the replay reads
+    are explicit inputs so that autograd reaches them."""
 
     @staticmethod
     def forward(ctx, scene, params, packed, in_depth, o, d, thr, strength, alive,
@@ -328,17 +434,18 @@ class ManualBounce(torch.autograd.Function):
         o, d, thr, *rest = ctx.saved_tensors
         n_dec = len(_DEC_KEYS) - 1
         dec = dict(zip(_DEC_KEYS[1:], rest[:n_dec]))
-        params = dict(ctx.params, **dict(zip(DIFF_KEYS, rest[n_dec:])))
-        d_o, d_d, d_thr, d_params = ctx.scene.bounce_bwd_fn(
+        scene = ctx.scene
+        params = _with_diff(scene, ctx.params, rest[n_dec:])
+        d_o, d_d, d_thr, d_params = scene.bounce_bwd_fn(
             params, o, d, thr, dec, ct_o2.contiguous(), ct_d2.contiguous(),
             ct_thr2.contiguous())
         return ((None,) * 4 + (d_o, d_d, d_thr) + (None,) * 4
-                + tuple(d_params[k] for k in DIFF_KEYS))
+                + tuple(_diff_inputs(scene, d_params)))
 
 
 def _bounce(scene: CompiledScene, params, packed, carry, in_depth, u_coin, u3):
     outs = ManualBounce.apply(scene, params, packed, in_depth, *carry, u_coin, u3,
-                              *(params[k] for k in DIFF_KEYS))
+                              *_diff_inputs(scene, params))
     return outs[:5], dict(zip(_DEC_KEYS, outs[5:]))
 
 
@@ -423,7 +530,8 @@ def trace_rays(scene: CompiledScene, params, origin, direction, key,
     ``compact``: dead-lane compaction between bounce phases; default on
     for flat batches of at least 16384 rays at depth ≥ 8.  ``skysel``:
     evaluate terminal dynamic-emissive chains (the sky) on one selected
-    lane per path (exact; see the module docstring).
+    lane per path (exact; see :func:`_emission`); off when the scene has
+    the emission kernel K7.
     """
     batch_shape = origin.shape[:-1]
     origin = origin.reshape(-1, 3)
@@ -442,8 +550,8 @@ def trace_rays(scene: CompiledScene, params, origin, direction, key,
         phases += [(s, dv) for s, dv in _COMPACT_SCHEDULE
                    if s <= depth and B // dv >= 1]
 
-    # K1's scene buffer, packed once for all bounces of this call (the
-    # plain bounce on the CPU reads params itself)
+    # K1's or K4's scene buffer, packed once for all bounces of this call
+    # (the plain versions on the CPU read params themselves)
     pack = getattr(scene.bounce_fn, "pack", None)
     packed = pack(params) if pack is not None and device.type == "cuda" else None
     orig = torch.arange(B, dtype=torch.int64, device=device)
@@ -469,8 +577,8 @@ def trace_rays(scene: CompiledScene, params, origin, direction, key,
         saved.append((pos, thr, mid, live, orig))
 
     radiance = torch.zeros((B, 3), dtype=torch.float32, device=device)
-    for pi, (pos, thr, mid, live, orig) in enumerate(saved):
-        contrib = _phase_emission(scene, params, pos, thr, mid, live, skysel)
+    for pi, ((*_, orig), contrib) in enumerate(zip(saved, _emission(scene, params,
+                                                                    saved, skysel))):
         if pi == 0:
             radiance = radiance + contrib
         else:
@@ -481,41 +589,57 @@ def trace_rays(scene: CompiledScene, params, origin, direction, key,
     return radiance.reshape(batch_shape + (3,))
 
 
-def _phase_emission(scene, params, pos, thr, mid, live, skysel):
-    """Radiance one phase banks per lane, from its (nb, Bp) bounce records.
+def _emission(scene, params, saved, skysel):
+    """Radiance each phase banks per lane, from its (nb, Bp) bounce records
+    ``saved[pi] = (pos, thr, mid, live, orig)`` (``trace.py:1098-1227``):
 
-    - mat-sum (every dynamic emitter is terminal): emission is a constant
-      per material, so sum the live throughput per material and multiply
-      by that material's emissive row once;
-    - otherwise evaluate the emissive slot on every record;
-    - sky-select: a terminal material zeroes throughput, so at most one
-      record per lane has (terminal material ∧ throughput ≠ 0); its chain
-      is evaluated on that record only (first such bounce).
+    - mat-sum (every dynamic emitter is terminal and handled by
+      sky-select): emission is a constant per material, so sum the live
+      throughput per material and multiply by that material's emissive row
+      once;
+    - otherwise evaluate the emissive slot once, on all phases' records
+      concatenated in phase order: K7 when the scene has it (one launch per
+      ``trace_rays`` call), else the material table;
+    - sky-select (off with K7): a terminal material zeroes throughput, so at
+      most one record per lane has (terminal material ∧ throughput ≠ 0); its
+      chain is evaluated on that record only (first such bounce), phase by
+      phase.
     """
     table = scene.material_fn
-    term_chains = table.terminal_dynamic_emissive if skysel else []
+    term_chains = (table.terminal_dynamic_emissive
+                   if skysel and scene.emission_fn is None else [])
     term_mis = {mi for mi, _ in term_chains}
-    if term_chains and set(table.dynamic_slots["emissive"]) <= term_mis:
-        em_rows = params["const"][torch.as_tensor(
-            table.const_idx["emissive"], device=thr.device)]
-        contrib = torch.zeros(thr.shape[1:], dtype=torch.float32,
-                              device=thr.device)
-        for m in range(table.n_materials):
-            if m in term_mis:
-                continue
-            wsum = torch.where((live & (mid == m))[..., None], thr, 0.0).sum(dim=0)
-            contrib = contrib + wsum * em_rows[m]
-    else:
-        em_eval = table.eval_emissive_base if term_chains else table.eval_emissive
-        em = em_eval(params, pos.reshape(-1, 3), mid.reshape(-1)).reshape(thr.shape)
-        contrib = torch.where(live[..., None], thr * em, 0.0).sum(dim=0)
+    mat_sum = bool(term_chains) and set(table.dynamic_slots["emissive"]) <= term_mis
+    ems = None
+    if not mat_sum:
+        em_eval = scene.emission_fn or (table.eval_emissive_base if term_chains
+                                        else table.eval_emissive)
+        em = em_eval(params, torch.cat([p.reshape(-1, 3) for p, *_ in saved]),
+                     torch.cat([m.reshape(-1) for _, _, m, *_ in saved]))
+        ems = em.split([m.numel() for _, _, m, *_ in saved])
+    out = []
+    for pi, (pos, thr, mid, live, _) in enumerate(saved):
+        if mat_sum:
+            em_rows = params["const"][torch.as_tensor(
+                table.const_idx["emissive"], device=thr.device)]
+            contrib = torch.zeros(thr.shape[1:], dtype=torch.float32,
+                                  device=thr.device)
+            for m in range(table.n_materials):
+                if m in term_mis:
+                    continue
+                wsum = torch.where((live & (mid == m))[..., None], thr, 0.0).sum(dim=0)
+                contrib = contrib + wsum * em_rows[m]
+        else:
+            em = ems[pi].reshape(thr.shape)
+            contrib = torch.where(live[..., None], thr * em, 0.0).sum(dim=0)
 
-    thr_nz = thr.abs().sum(dim=-1) > 0.0
-    for mi, fn in term_chains:
-        is_sel = live & (mid == mi) & thr_nz                    # (nb, Bp)
-        first = torch.argmax(is_sel.to(torch.uint8), dim=0)    # first True
-        pick = lambda a: a.gather(0, first[None, :, None].expand(1, -1, 3))[0]
-        em = fn(params, pick(pos))
-        contrib = contrib + torch.where(is_sel.any(dim=0)[:, None],
-                                        pick(thr) * em, 0.0)
-    return contrib
+        thr_nz = thr.abs().sum(dim=-1) > 0.0
+        for mi, fn in term_chains:
+            is_sel = live & (mid == mi) & thr_nz                    # (nb, Bp)
+            first = torch.argmax(is_sel.to(torch.uint8), dim=0)    # first True
+            pick = lambda a: a.gather(0, first[None, :, None].expand(1, -1, 3))[0]
+            em = fn(params, pick(pos))
+            contrib = contrib + torch.where(is_sel.any(dim=0)[:, None],
+                                            pick(thr) * em, 0.0)
+        out.append(contrib)
+    return out

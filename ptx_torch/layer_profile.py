@@ -1,8 +1,11 @@
 """Where a render's time goes, layer by layer, on one device.
 
-    python -m ptx_torch.layer_profile [--chunks 4] [--device cuda] [--grad]
+    python -m ptx_torch.layer_profile [--chunks 4] [--device cuda] [--grad | --train]
+        [--demo demo|config1|config2|config3|config4] [--sky HxW]
 
-Renders the demo at 512×512 and depth 16 the way the CLI does (128-row
+Renders a built-in scene (the demo by default; ``--sky HxW`` gives the
+demo or config 4 a procedural sky of that size, as ``bench.py --sky``
+does) at 512×512 and depth 16 the way the CLI does (128-row
 bands of 65,536 rays, one sample per chunk): one warm-up band, then
 ``--chunks`` chunks of rows 128-255 three times without the profiler
 (the best wall is kept), then the same chunks once under
@@ -15,9 +18,18 @@ Chrome trace goes to ``--out`` and is parsed here (:func:`summarize`):
 - per layer: the kernels whose launch call (matched by correlation id)
   lies inside the layer's host range, their device time, and the
   range's share of the profiled host wall;
-- K1, K2, K3: calls and mean device time per call, over all of a
-  kernel's launches: ``bounce_forward_kernel``; ``bounce_bwd_kernel`` and
-  the ``reduce_partials_kernel`` launched after it; the ``hist_*_kernel``s.
+- K1, K2, K3, K4, K7, K8: calls and mean device time per call, over all
+  of a kernel's launches: ``bounce_forward_kernel``; ``bounce_bwd_kernel``
+  and the ``reduce_partials_kernel`` launched after it;
+  ``hist_shared_kernel``; ``first_hit_kernel``;
+  ``emission_forward_kernel``; ``hist_banded_kernel``;
+- the ``TOP`` kernels by total device time, with their calls;
+- peak device memory (``max_memory_allocated``) over the unprofiled runs.
+
+``--train`` profiles ``--chunks`` ``make_train_step`` steps instead of
+render chunks: each one 4,194,304-ray wavefront (512², spp 16, depth 16)
+forward and backward, against a target rendered before the timing, with
+the backward ranges of ``--grad``.
 
 ``--grad`` runs each chunk forward and backward (``radiance.mean()``,
 then ``backward()``) and adds one range per backward layer: the replay
@@ -48,20 +60,24 @@ LAYERS = (                      # (range name, module, function)
     ("rng_draws", "ptx_torch.integrate.trace", "_phase_uniforms"),
     ("bounce", "ptx_torch.integrate.trace", "_bounce"),
     ("compaction", "ptx_torch.integrate.trace", "_compact_wavefront"),
-    ("emission", "ptx_torch.integrate.trace", "_phase_emission"),
+    ("emission", "ptx_torch.integrate.trace", "_emission"),
 )
 GRAD_LAYERS = (                 # (range name, module, function, its backward range)
     ("bounce", "ptx_torch.integrate.trace", "_bounce", "bounce_bwd"),
     ("compaction", "ptx_torch.integrate.trace", "_compact_wavefront", "compaction_bwd"),
-    ("emission", "ptx_torch.integrate.trace", "_phase_emission", "emission_bwd"),
+    ("emission", "ptx_torch.integrate.trace", "_emission", "emission_bwd"),
 )
 SKY_HIST = "sky_hist"           # the image gather's backward node, inside emission
 # per kernel, the names of its launches; one call launches each once, and
 # the first name counts the calls
 KERNELS = {"k1": ("bounce_forward_kernel",),
            "k2": ("bounce_bwd_kernel", "reduce_partials_kernel"),
-           "k3": ("hist_",)}
+           "k3": ("hist_shared_kernel",),
+           "k4": ("first_hit_kernel",),
+           "k7": ("emission_forward_kernel",),
+           "k8": ("hist_banded_kernel",)}
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+TOP = 8                         # kernels listed by total device time
 
 
 def _union_us(intervals):
@@ -111,6 +127,12 @@ def summarize(events, layers=tuple(n for n, _, _ in LAYERS)):
         out[f"{tag}_calls"] = calls
         out[f"{tag}_mean_us"] = dur / calls if calls else 0.0
     out["layers"] = per
+    by_name: dict = {}
+    for k in kernels:
+        calls, us = by_name.get(k["name"], (0, 0.0))
+        by_name[k["name"]] = (calls + 1, us + k["dur"])
+    out["top"] = [{"name": n[:90], "calls": c, "device_ms": us / 1e3} for n, (c, us)
+                  in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:TOP]]
     return out
 
 
@@ -214,7 +236,7 @@ def main(argv=None):
     from ptx_torch.integrate import render
     from ptx_torch.integrate.camera import Camera
     from ptx_torch.integrate.trace import compile_scene
-    from ptx_torch.scenes.builders import make_world
+    from ptx_torch.scenes import builders
 
     ap = argparse.ArgumentParser(prog="python -m ptx_torch.layer_profile")
     ap.add_argument("--chunks", type=int, default=4)
@@ -223,6 +245,11 @@ def main(argv=None):
     ap.add_argument("--out", default=os.path.join("build", "layer_profile"))
     ap.add_argument("--grad", action="store_true",
                     help="forward and backward of each chunk's mean radiance")
+    ap.add_argument("--train", action="store_true",
+                    help="make_train_step steps (--size², spp 16) instead of chunks")
+    ap.add_argument("--demo", choices=sorted(builders.DEMOS), default="demo",
+                    help="built-in scene")
+    ap.add_argument("--sky", help="HxW procedural sky for the demo or config4")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     cuda = device.type == "cuda"
@@ -235,11 +262,27 @@ def main(argv=None):
                              capture_output=True, text=True, check=True,
                              timeout=60).stdout.strip())
 
-    scene = compile_scene(make_world(), device)
+    kw = {}
+    if args.sky:
+        h, w = (int(v) for v in args.sky.lower().split("x"))
+        kw["sky_image"] = builders.procedural_sky_image(h, w)
+    scene = compile_scene(builders.DEMOS[args.demo](**kw), device)
     cam = Camera.reference_demo(args.size, args.size)
     rows = max(1, min(args.size, 2 ** 16 // args.size))
+    args.grad = args.grad or args.train
+    if args.train:
+        from ptx_torch.parallel.render import _local_render, make_train_step
+        with torch.no_grad():
+            target = _local_render(scene, cam, 16, 16, scene.params, rng.PRNGKey(1), 0,
+                                   cam.height)
+        step = make_train_step(scene, cam, spp=16, depth=16, learning_rate=3e-4)
 
     def run(y0, n):
+        if args.train:
+            for i in range(n):
+                step(scene.params, target, rng.fold(rng.PRNGKey(2), y0, i))
+            sync()
+            return
         if not args.grad:
             with torch.no_grad():
                 render.render_rows(scene, scene.params, cam, rng.PRNGKey(0), y0,
@@ -257,6 +300,8 @@ def main(argv=None):
         sync()
 
     run(0, 2)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -267,7 +312,9 @@ def main(argv=None):
     with _layer_ranges(), grad_ranges, profile(activities=activities) as prof:
         run(rows, args.chunks)
     os.makedirs(args.out, exist_ok=True)
-    path = os.path.join(args.out, "trace_grad.json" if args.grad else "trace.json")
+    path = os.path.join(args.out, f"trace_{args.demo}"
+                        f"{'_sky' + args.sky if args.sky else ''}"
+                        f"{'_train' if args.train else '_grad' if args.grad else ''}.json")
     prof.export_chrome_trace(path)
     names = [n for n, _, _ in LAYERS]
     if args.grad:
@@ -276,18 +323,25 @@ def main(argv=None):
         s = summarize(json.load(f)["traceEvents"], tuple(names))
 
     wall_ms = min(walls) * 1e3
-    s.update(chunks=args.chunks, rays_per_chunk=rows * args.size,
+    s.update(scene=args.demo, sky=args.sky, chunks=args.chunks, train=args.train,
+             rays_per_chunk=args.size ** 2 * 16 if args.train else rows * args.size,
+             peak_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30 if cuda else None,
              wall_ms=wall_ms, walls_ms=[w * 1e3 for w in walls],
              idle_share=1.0 - s["busy_ms"] / wall_ms)
-    print(f"{args.chunks} chunks of {rows * args.size} rays, depth 16"
+    print(f"{args.demo}{' sky ' + args.sky if args.sky else ''}: "
+          f"{args.chunks} {'train steps' if args.train else 'chunks'} of "
+          f"{s['rays_per_chunk']} rays, depth 16"
           f"{', forward + backward' if args.grad else ''}: unprofiled "
           f"wall {wall_ms:.3f} ms (best of {[round(w * 1e3, 3) for w in walls]}); "
           f"profiled host wall {s['host_ms']:.3f} ms")
     print(f"kernels launched {s['kernels']}; device busy {s['busy_ms']:.3f} ms; "
-          f"idle share {s['idle_share']:.4f} (1 - busy / unprofiled wall)")
+          f"idle share {s['idle_share']:.4f} (1 - busy / unprofiled wall); peak "
+          f"memory {s['peak_gib'] if cuda else 'not measured'} GiB")
     for tag, names in KERNELS.items():
         print(f"{tag.upper()} ({' + '.join(names)}): {s[f'{tag}_calls']} calls, mean "
               f"{s[f'{tag}_mean_us']:.2f} us per call")
+    for t in s["top"]:
+        print(f"top kernel: {t['device_ms']:9.3f} ms in {t['calls']:6d} calls  {t['name']}")
     print("layer            kernels  device_ms  share of profiled host wall")
     for name, v in s["layers"].items():
         print(f"{name:<16} {v['kernels']:>7}  {v['device_ms']:>9.3f}  "

@@ -58,7 +58,15 @@ def _entry_points():
          [vp, i, i, vp]                 # scene buffer, words, L, leaf aux
          + [vp] * 12 + [i]              # inputs, cotangents, B
          + [vp] * 4 + [i, vp, vp], i),  # d_o d_d d_thr partial, blocks, acc, stream
-        ("ptx_image_hist", [vp] * 4 + [i] * 4 + [vp, vp, vp], i),
+        ("ptx_image_hist", [vp] * 4 + [i] * 4 + [vp, vp], i),
+        ("ptx_image_hist_banded", [vp, vp, i, i, i, vp, vp], i),
+        ("ptx_first_hit",
+         [vp, i, i, i, i, vp, vp, i]      # scene buffer, words, layout, o, d, B
+         + [vp] * 4 + [vp], i),           # t normal flags evt, stream
+        ("ptx_emission_forward",
+         [vp, vp, i, vp, i, i, i]         # params, const rows, M, image, H, W, C
+         + [vp, vp, i, i, i, i]           # pos, mid, N, dyn material, xform, mirror
+         + [vp] * 6 + [vp], i),           # em texel xi yi flags row, stream
         ("ptx_cuda_error_name", [i], ctypes.c_char_p),
     ]
 

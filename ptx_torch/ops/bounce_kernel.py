@@ -33,105 +33,39 @@ import ctypes
 import torch
 
 from ptx_torch.core import linalg
-from ptx_torch.geom import hitreplay, tape
-from ptx_torch.geom.fasthit import collect_leaves, leaf_affine, plane_inv_mag
+from ptx_torch.geom import hitreplay
+from ptx_torch.geom.fasthit import collect_leaves
 from ptx_torch.integrate import trace
+from ptx_torch.ops.fasthit_kernel import MAX_SCENE_BYTES, pack_geometry
 from ptx_torch.shade.materials import mean3
 
 LAUNCHES = 0
 REFERENCE_CALLS = 0
 BWD_REFERENCE_CALLS = 0
 
-# scene buffer layout — must match ptx_torch/csrc/bounce_kernel.cu
-_LEAF_STRIDE = 5     # kind (0 sphere, 1 plane), geo offset, has_xform, material, parity
+# material rows appended to K4's scene buffer — must match
+# ptx_torch/csrc/bounce_kernel.cu
 _MAT_STRIDE = 9      # rfl0 rfl1 rfl2 scatter_f tr0 tr1 tr2 transmit_reflect_f ior
-_OP_UNION, _OP_INTERSECTION, _OP_DIFFERENCE = -1, -2, -3
-_MAX_STACK = 32      # kMaxStack in the kernel
-_MAX_SCENE_BYTES = 48 * 1024   # dynamic shared memory without opt-in
-
-
-def tape_program(plan, leaf_pos) -> list[int]:
-    """The CSG tape as a postfix program over leaf indices: ``k >= 0``
-    pushes leaf ``k``'s membership; a negative op pops two entries and
-    pushes their union, intersection or difference.  n-ary nodes become
-    left folds, as in ``fasthit._bits_at``."""
-    prog = []
-    code = {"union": _OP_UNION, "intersection": _OP_INTERSECTION,
-            "difference": _OP_DIFFERENCE}
-
-    def emit(node):
-        if isinstance(node, tape._LeafPlan):
-            prog.append(leaf_pos[id(node)])
-            return
-        emit(node.children[0])
-        for c in node.children[1:]:
-            emit(c)
-            prog.append(code[node.op])
-
-    emit(plan)
-    return prog
-
-
-def _stack_depth(prog) -> int:
-    depth = peak = 0
-    for op in prog:
-        depth += 1 if op >= 0 else -1
-        peak = max(peak, depth)
-    return peak
 
 
 def pack_scene(plan, table, params):
-    """The kernel's scene buffer (float32, on the params' device) and its
-    layout ``(L, mat_off, tape_off, tape_len)``.
-
-    Words: ``L`` leaf records of 5; per-leaf geometry (sphere ``cx cy cz
-    r``, plane ``nx ny nz d inv_mag``, then ``W⁻¹`` (12, row-major) and
-    ``W⁻ᵀ`` (9) when transformed) — the Pallas kernel's packing; ``M``
-    material rows of 9; the tape program.  Small integers are stored as
-    exact float values."""
-    leaves = collect_leaves(plan)
-    L = len(leaves)
-    leaf_pos = {id(lf): i for i, (lf, _) in enumerate(leaves)}
-    prog = tape_program(plan, leaf_pos)
-    if _stack_depth(prog) > _MAX_STACK:
-        raise NotImplementedError(
-            f"CSG tape needs a stack of {_stack_depth(prog)} > {_MAX_STACK}")
-    device = params["const"].device
-    f32 = lambda xs: torch.as_tensor(xs, dtype=torch.float32, device=device)
-
-    geo, records = [], []
-    off = L * _LEAF_STRIDE
-    for lf, parity in leaves:
-        if lf.kind == "sphere":
-            g = [params["sphere_center"][lf.index],
-                 params["sphere_radius"][lf.index][None]]
-        else:
-            n = params["plane_normal"][lf.index]
-            g = [n, params["plane_d"][lf.index][None], plane_inv_mag(n)[None]]
-        xf = leaf_affine(lf, params)
-        if xf is not None:
-            g += [xf[0].reshape(-1), xf[1].reshape(-1)]
-        g = torch.cat(g)
-        records.append([0.0 if lf.kind == "sphere" else 1.0, float(off),
-                        float(xf is not None), float(lf.mat_id), parity])
-        geo.append(g)
-        off += g.numel()
-    mat_off = off
-
+    """K1's scene buffer (float32, on the params' device) and its layout
+    ``(L, mat_off, tape_off, tape_len)``: K4's buffer
+    (:func:`~ptx_torch.ops.fasthit_kernel.pack_geometry`: leaf records,
+    geometry, the CSG tape), then ``M`` material rows of 9."""
+    buf, (L, tape_off, tape_len) = pack_geometry(plan, params)
     const = params["const"]
-    idx = {s: torch.as_tensor(v, device=device)
+    idx = {s: torch.as_tensor(v, device=const.device)
            for s, v in table.const_idx.items()}
     mat = torch.cat([const[idx["reflect"]], mean3(const[idx["scatter"]])[:, None],
                      const[idx["transmit"]],
                      mean3(const[idx["transmit_reflect"]])[:, None],
                      params["ior"][:, None]], dim=1)
-    buf = torch.cat([f32(records).reshape(-1), *geo, mat.reshape(-1),
-                     f32(prog)]).contiguous()
-    if buf.numel() * 4 > _MAX_SCENE_BYTES:
+    buf = torch.cat([buf, mat.reshape(-1)]).contiguous()
+    if buf.numel() * 4 > MAX_SCENE_BYTES:
         raise NotImplementedError(f"scene buffer of {buf.numel() * 4} bytes "
                                   "exceeds the kernel's shared memory")
-    layout = (L, mat_off, mat_off + mat.numel(), len(prog))
-    return buf, layout
+    return buf, (L, tape_off + tape_len, tape_off, tape_len)
 
 
 def _check_inputs(kernel, device, expect):
@@ -249,7 +183,7 @@ def bounce_reference(scene, params, o, d, thr, strength, alive, u_coin, u3,
     global REFERENCE_CALLS
     REFERENCE_CALLS += 1
     (o2, d2, thr2, st2, alive2), dec = trace._bounce_live(
-        scene.hit_fn, scene.material_fn, params, o, d, thr, strength, alive,
+        scene.plain_hit_fn, scene.material_fn, params, o, d, thr, strength, alive,
         in_depth, u_coin, u3)
     return dict(dec, o2=o2, d2=d2, thr2=thr2, strength2=st2, alive2=alive2)
 
@@ -419,22 +353,11 @@ def bounce_bwd_lanes_reference(packed, aux, o, d, thr, dec, ct_o2, ct_d2, ct_thr
 
 def bounce_bwd_reference(scene, params, o, d, thr, dec, ct_o2, ct_d2, ct_thr2):
     """K2's plain PyTorch version, on any device: autograd through
-    ``trace._bounce_replay``.  Returns ``(d_o, d_d, d_thr, d_params)``,
-    ``d_params`` a dict over ``trace.DIFF_KEYS``."""
+    ``trace._bounce_replay`` (``trace.replay_vjp``).  Returns ``(d_o, d_d,
+    d_thr, d_params)``, ``d_params`` a dict over ``scene.diff_keys``."""
     global BWD_REFERENCE_CALLS
     BWD_REFERENCE_CALLS += 1
-    with torch.enable_grad():
-        p = {k: (params[k].detach().requires_grad_(True) if k in trace.DIFF_KEYS
-                 else params[k]) for k in params}
-        xs = [x.detach().requires_grad_(True) for x in (o, d, thr)]
-        o2, d2, thr2 = trace._bounce_replay(scene, p, *xs, dec)
-        leaves = [p[k] for k in trace.DIFF_KEYS]
-        grads = torch.autograd.grad((o2, d2, thr2), xs + leaves,
-                                    (ct_o2, ct_d2, ct_thr2), allow_unused=True)
-    d_o, d_d, d_thr = grads[:3]
-    d_params = {k: (torch.zeros_like(x) if g is None else g)
-                for k, x, g in zip(trace.DIFF_KEYS, leaves, grads[3:])}
-    return d_o, d_d, d_thr, d_params
+    return trace.replay_vjp(scene, params, o, d, thr, dec, ct_o2, ct_d2, ct_thr2)
 
 
 class BounceBwdKernel:

@@ -1,32 +1,43 @@
-"""Image-texture gather whose backward is the histogram kernel K3.
+"""Image-texture gather whose backward is the histogram kernel K3 or K8.
 
 Port of ``ptx/ops/imagegrad.py``.  ``img[yi, xi]`` is a nearest-texel
 gather; its transpose adds each lane's cotangent into its texel.  The JAX
-package wrote that transpose as a Pallas TPU kernel (``_build_hist`` /
-``_hist_kernel``, ``ptx/ops/imagegrad.py:91``, one-hot MXU matrices with a
-hi/lo bf16 split).  Here it is ``ptx_torch/csrc/image_hist_kernel.cu``:
+package wrote that transpose as two Pallas TPU kernels; here they are
+``ptx_torch/csrc/image_hist_kernel.cu``:
 
 - :func:`image_gather` is the gather as an autograd Function: its forward
   is the plain masked gather (the JAX package leaves it to XLA too), its
-  backward :class:`HistKernel`;
-- :class:`HistKernel` launches K3 on CUDA tensors (or raises) and runs
-  :func:`hist_reference`, the plain version, on CPU tensors only;
-- ``LAUNCHES`` and ``REFERENCE_CALLS`` count the kernel's launches and the
-  plain version's calls.
+  backward :func:`hist`;
+- :func:`hist` routes by image size, as ``image_gather._bwd`` does
+  (``ptx/ops/imagegrad.py:324-384``): K3 (:class:`HistKernel`, the port of
+  ``_build_hist``, :91) where the image fits one block's shared memory,
+  K8 (:class:`BandedHistKernel`, the port of ``_build_banded_hist``,
+  :218) for every larger image;
+- each wrapper launches its kernel on CUDA tensors (or raises) and runs
+  :func:`hist_reference`, the plain version of both, on CPU tensors
+  only; ``LAUNCHES`` (K3), ``BandedHistKernel.LAUNCHES`` (K8) and
+  ``REFERENCE_CALLS`` count them.
 
-The banded kernel of the JAX module for images too large for its VMEM
-(``_build_banded_hist``, K8) is not ported yet: K3's global-atomic path
-takes every image here.
+``PTX_IMG_GRAD_COARSE=k`` (k > 1, read once at import) swaps the exact
+transpose of a K8-sized image for the JAX package's coarse estimator
+(``imagegrad.py:343-373``): the histogram at k×k-coarsened resolution
+through K3, each coarse bin's total spread evenly over its texels.  Unlike
+the JAX version, a bin is divided by its in-image texel count, not k², so
+the per-bin totals stay exact where k divides neither H nor W.
 """
 
 from __future__ import annotations
 
-import ctypes
+import os
 
 import torch
 
 LAUNCHES = 0
 REFERENCE_CALLS = 0
+
+K3_MAX_BYTES = 232_448        # a block's opt-in shared memory on Hopper (227 KB)
+BLOCK_H, BLOCK_W = 32, 256    # K8's image block (kBH, kBW in the kernel)
+COARSE = int(os.environ.get("PTX_IMG_GRAD_COARSE", "0"))
 
 
 def hist_reference(yi, xi, inb, ct, shape):
@@ -39,12 +50,22 @@ def hist_reference(yi, xi, inb, ct, shape):
                           accumulate=True)
 
 
+def _check(kernel, yi, xi, inb, ct, shape):
+    from ptx_torch.ops.bounce_kernel import _check_inputs
+
+    N = ct.shape[0]
+    _check_inputs(kernel, ct.device, {
+        "yi": (yi, (N,), torch.int64), "xi": (xi, (N,), torch.int64),
+        "inb": (inb, (N,), torch.bool), "ct": (ct, (N, shape[2]), torch.float32)})
+    if N == 0:
+        raise ValueError(f"{kernel}: no lanes")
+
+
 class HistKernel:
     """K3's wrapper: ``hist(yi, xi, inb, ct, shape)`` with flat int64
     ``yi``/``xi`` (already clipped into the image), bool ``inb`` and ``ct``
-    (N, C) float32 → ``d_img`` (H, W, C)."""
-
-    used_shared = None           # whether the last launch took the shared path
+    (N, C) float32 → ``d_img`` (H, W, C), for images of at most
+    ``K3_MAX_BYTES``."""
 
     def __call__(self, yi, xi, inb, ct, shape):
         if ct.device.type == "cpu":
@@ -56,29 +77,101 @@ class HistKernel:
     def launch(self, yi, xi, inb, ct, shape):
         global LAUNCHES
         from ptx_torch.ops import _build
-        from ptx_torch.ops.bounce_kernel import (_check_inputs, _ptr, _raise_on,
-                                                 _stream)
+        from ptx_torch.ops.bounce_kernel import _ptr, _raise_on, _stream
 
-        N, C = ct.shape
-        H, W, C_img = shape
-        device = ct.device
-        _check_inputs("image histogram kernel", device, {
-            "yi": (yi, (N,), torch.int64), "xi": (xi, (N,), torch.int64),
-            "inb": (inb, (N,), torch.bool), "ct": (ct, (N, C_img), torch.float32)})
-        if N == 0:
-            raise ValueError("image histogram kernel: no lanes")
+        _check("image histogram kernel", yi, xi, inb, ct, shape)
         lib = _build.library()
-        out = torch.zeros(shape, dtype=torch.float32, device=device)
-        used = ctypes.c_int(0)
-        err = lib.ptx_image_hist(_ptr(yi), _ptr(xi), _ptr(inb), _ptr(ct), N, H, W,
-                                 C, _ptr(out), ctypes.byref(used), _stream(device))
+        out = torch.zeros(shape, dtype=torch.float32, device=ct.device)
+        H, W, C = shape
+        err = lib.ptx_image_hist(_ptr(yi), _ptr(xi), _ptr(inb), _ptr(ct), ct.shape[0],
+                                 H, W, C, _ptr(out), _stream(ct.device))
         _raise_on(err, lib, "image histogram kernel")
-        HistKernel.used_shared = bool(used.value)
         LAUNCHES += 1
         return out
 
 
-hist = HistKernel()
+class BandedHistKernel:
+    """K8's wrapper: :class:`HistKernel`'s call for images of any size.
+    Outside the kernel, as the JAX package does it outside Pallas
+    (``imagegrad.py:229-256``): a bin id per lane (its 32×256 image block,
+    skipped lanes last), a stable argsort, ``searchsorted`` for the
+    per-block offsets and one packed row gather ``[y, x, ct]``."""
+
+    LAUNCHES = 0
+
+    def __call__(self, yi, xi, inb, ct, shape):
+        if ct.device.type == "cpu":
+            return hist_reference(yi, xi, inb, ct, shape)
+        if ct.device.type != "cuda":
+            raise ValueError(f"banded histogram kernel: no kernel for {ct.device}")
+        return self.launch(yi, xi, inb, ct, shape)
+
+    @staticmethod
+    def sort_lanes(yi, xi, inb, ct, shape):
+        """``(rows, offs)``: the lanes' ``[y, x, ct]`` rows (N, 2 + C)
+        float32 in image-block order and the (n_blocks + 1,) int32 lane
+        offsets of the blocks."""
+        H, W, _ = shape
+        n_bx = -(-W // BLOCK_W)
+        n_bins = -(-H // BLOCK_H) * n_bx
+        bins = torch.where(inb, (yi // BLOCK_H) * n_bx + xi // BLOCK_W, n_bins)
+        order = torch.argsort(bins, stable=True)
+        offs = torch.searchsorted(bins[order], torch.arange(n_bins + 1, device=ct.device))
+        rows = torch.cat([yi[:, None].float(), xi[:, None].float(), ct], dim=1)[order]
+        return rows, offs.to(torch.int32)
+
+    def launch(self, yi, xi, inb, ct, shape):
+        from ptx_torch.ops import _build
+        from ptx_torch.ops.bounce_kernel import _ptr, _raise_on, _stream
+
+        _check("banded histogram kernel", yi, xi, inb, ct, shape)
+        if shape[0] >= 1 << 24 or shape[1] >= 1 << 24:
+            raise ValueError("banded histogram kernel: texel indices must be exact "
+                             "in float32")
+        lib = _build.library()
+        rows, offs = self.sort_lanes(yi, xi, inb, ct, shape)
+        out = torch.empty(shape, dtype=torch.float32, device=ct.device)
+        H, W, C = shape
+        err = lib.ptx_image_hist_banded(_ptr(rows), _ptr(offs), H, W, C, _ptr(out),
+                                        _stream(ct.device))
+        _raise_on(err, lib, "banded histogram kernel")
+        BandedHistKernel.LAUNCHES += 1
+        return out
+
+
+k3 = HistKernel()
+k8 = BandedHistKernel()
+
+
+def fits_k3(shape) -> bool:
+    return shape[0] * shape[1] * shape[2] * 4 <= K3_MAX_BYTES
+
+
+def coarse_hist(yi, xi, inb, ct, shape, k):
+    """The coarse estimator: the histogram of the k×k-coarsened image
+    through K3, each coarse bin divided by its in-image texel count and
+    spread over those texels (per-bin totals exact)."""
+    H, W, C = shape
+    Hc, Wc = -(-H // k), -(-W // k)
+    g = k3(yi // k, xi // k, inb, ct, (Hc, Wc, C))
+    dev = ct.device
+    ny = torch.clamp(H - k * torch.arange(Hc, device=dev), max=k)
+    nx = torch.clamp(W - k * torch.arange(Wc, device=dev), max=k)
+    g = g / (ny[:, None] * nx[None, :]).to(g.dtype)[..., None]
+    return g.repeat_interleave(k, dim=0).repeat_interleave(k, dim=1)[:H, :W]
+
+
+def hist(yi, xi, inb, ct, shape):
+    """The gather's transpose ``d_img`` (H, W, C), routed by image size:
+    K3 where the image fits one block's shared memory; past that the coarse
+    estimator when ``PTX_IMG_GRAD_COARSE`` asks for it and the coarse image
+    fits K3, else K8."""
+    if fits_k3(shape):
+        return k3(yi, xi, inb, ct, shape)
+    H, W, C = shape
+    if COARSE > 1 and fits_k3((-(-H // COARSE), -(-W // COARSE), C)):
+        return coarse_hist(yi, xi, inb, ct, shape, COARSE)
+    return k8(yi, xi, inb, ct, shape)
 
 
 class _ImageGather(torch.autograd.Function):
@@ -102,5 +195,5 @@ def image_gather(img, xi, yi, inb):
 
     ``img`` (H, W, C) float32; ``xi``/``yi`` int64 of any shape, already
     clipped into range by the caller; ``inb`` marks lanes whose unclipped
-    index was inside.  Differentiable in ``img`` only, through K3."""
+    index was inside.  Differentiable in ``img`` only, through K3 or K8."""
     return _ImageGather.apply(img, xi, yi, inb)

@@ -84,7 +84,10 @@ class MaterialTable:
     - ``dynamic_slots[slot]``: material ids whose slot is per-position;
     - ``terminal_dynamic_emissive``: ``(mi, fn)`` for dynamic emissive
       chains of *terminal* materials (reflect ≡ transmit ≡ 0), which
-      ``trace_rays`` evaluates on one selected lane per path.
+      ``trace_rays`` evaluates on one selected lane per path;
+    - ``emissive_dynamic_specs``: ``(mi, spec)`` of every dynamic emissive
+      chain (the texture closures' ``.spec``), which the fused emission
+      kernel's eligibility reads.
     """
 
     def __init__(self, materials, compiler: tx.TextureCompiler):
@@ -111,6 +114,8 @@ class MaterialTable:
                     if _const_zero(m.reflect) and _const_zero(m.transmit)}
         self.terminal_dynamic_emissive = [
             (mi, fn) for mi, fn in self._dynamic["emissive"] if mi in terminal]
+        self.emissive_dynamic_specs = [(mi, fn.spec)
+                                       for mi, fn in self._dynamic["emissive"]]
 
     def packed(self, params) -> torch.Tensor:
         """(M, 16) per-material row: the 5 constant slots then ior."""
@@ -121,7 +126,9 @@ class MaterialTable:
                          + [params["ior"][:, None]], dim=1)
 
     def __call__(self, params, pos, mat_id):
-        row = self.packed(params)[mat_id]                # (..., 16)
+        # (..., 16); index_select for its index_add_ transpose (hitreplay)
+        row = self.packed(params).index_select(0, mat_id.reshape(-1)).reshape(
+            *mat_id.shape, 16)
         out = {}
         for i, s in enumerate(SLOTS):
             val = row[..., 3 * i:3 * i + 3]

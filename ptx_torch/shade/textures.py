@@ -9,13 +9,17 @@ Lookup semantics, as in the JAX package and the reference:
 - :class:`ImageTex`: wrap via ``x − floor(x)``, y flipped before
   scaling, nearest texel, out-of-bounds reads black
   (image_texture.h:18-28, image.cpp:366-380);
-- :class:`SphericalCoords`: the equirect direction → uv map
-  (transform_texture.h:73-85);
-- :class:`Multiply`: per-channel factor (filter_texture.h:30-73).
+- :class:`Skybox`: 6-face cubemap selected by dominant axis, with the
+  reference's face orientations (image_texture.h:90-110); the face folds
+  into the row index of one ``(6·H, W, 4)`` gather, so its transpose is
+  one histogram;
+- :class:`SphericalCoords` / :class:`MirrorBall`: the equirect and
+  angular-probe direction → uv maps (transform_texture.h:46-59, 73-85);
+- :class:`Multiply` / :class:`Log`: post-filters (filter_texture.h:30-73).
 
-``Skybox``, ``MirrorBall`` and ``Log`` can be described but do not
-compile yet (ROADMAP Queue 1 #3): the demo's sky chain does not use
-them.
+Each compiled closure carries ``.spec``, the chain's structure with its
+param indices, as in the JAX package: the fused emission kernel
+(:mod:`ptx_torch.ops.emission_kernel`) reads it to decide eligibility.
 """
 
 from __future__ import annotations
@@ -117,12 +121,13 @@ class TextureCompiler:
         return self._image_ids[key]
 
     def compile(self, tex):
-        """Returns ``fn(params, pos) -> (..., 3)``."""
+        """Returns ``fn(params, pos) -> (..., 3)`` with its ``.spec``."""
         if isinstance(tex, Constant):
             idx = len(self.params["const"])
             self.params["const"].append(
                 np.broadcast_to(np.asarray(tex.color, np.float32), (3,)).copy())
-            return lambda p, pos: p["const"][idx].expand(pos.shape)
+            return _spec(lambda p, pos: p["const"][idx].expand(pos.shape),
+                         ("const", idx))
 
         if isinstance(tex, ImageTex):
             img_id = self._image_id(tex.image)
@@ -136,30 +141,55 @@ class TextureCompiler:
                 xi = torch.floor(x * w).to(torch.int64)
                 yi = torch.floor(y * h).to(torch.int64)
                 return _get_pixel(img, xi, yi, alpha)
-            return image_fn
+            return _spec(image_fn, ("image", img_id, alpha))
+
+        if isinstance(tex, Skybox):
+            faces = [tex.top, tex.bottom, tex.left, tex.right, tex.front, tex.back]
+            ids = [self._image_id(f) for f in faces]
+            if len({self.images[i].shape for i in ids}) != 1:
+                raise ValueError("skybox faces must share dimensions")
+            alpha = tex.alpha
+
+            def skybox_fn(p, pos):
+                stack = torch.stack([p["images"][i] for i in ids])   # (6, H, W, 4)
+                return _skybox_lookup(stack, pos, alpha)
+            return _spec(skybox_fn, ("skybox", tuple(ids), alpha))
 
         if isinstance(tex, TransformedTex):
             idx = len(self.params["tex_xform"])
             self.params["tex_xform"].append(
                 np.asarray(tex.transform, np.float32).reshape(3, 4))
             child = self.compile(tex.child)
-            return lambda p, pos: child(p, linalg.apply(p["tex_xform"][idx], pos))
+            return _spec(lambda p, pos: child(p, linalg.apply(p["tex_xform"][idx], pos)),
+                         ("xform", idx, child.spec))
+
+        if isinstance(tex, MirrorBall):
+            child = self.compile(tex.child)
+            return _spec(lambda p, pos: child(p, _mirror_ball_uv(pos)),
+                         ("mirror", child.spec))
 
         if isinstance(tex, SphericalCoords):
             child = self.compile(tex.child)
-            return lambda p, pos: child(p, _spherical_uv(pos))
+            return _spec(lambda p, pos: child(p, _spherical_uv(pos)),
+                         ("spherical", child.spec))
 
         if isinstance(tex, Multiply):
             idx = len(self.params["factor"])
             self.params["factor"].append(
                 np.broadcast_to(np.asarray(tex.factor, np.float32), (3,)).copy())
             child = self.compile(tex.child)
-            return lambda p, pos: child(p, pos) * p["factor"][idx]
+            return _spec(lambda p, pos: child(p, pos) * p["factor"][idx],
+                         ("mul", idx, child.spec))
 
-        if isinstance(tex, (Skybox, MirrorBall, Log)):
-            raise NotImplementedError(
-                f"{type(tex).__name__} textures are not ported yet "
-                "(ROADMAP Queue 1 #3)")
+        if isinstance(tex, Log):
+            child = self.compile(tex.child)
+
+            def log_fn(p, pos):
+                v = child(p, pos)
+                return torch.where(v <= 1e-30, 0.0,
+                                   0.5 + torch.log2(torch.clamp(v, min=1e-30)) / 256.0)
+            return _spec(log_fn, ("log", child.spec))
+
         raise TypeError(f"unknown texture node {type(tex)!r}")
 
     def finalize(self, device) -> dict:
@@ -173,6 +203,11 @@ class TextureCompiler:
             "tex_xform": table(self.params["tex_xform"], (-1, 3, 4)),
             "images": [torch.from_numpy(img).to(device) for img in self.images],
         }
+
+
+def _spec(fn, spec):
+    fn.spec = spec
+    return fn
 
 
 # ---------------------------------------------------------------------------
@@ -191,6 +226,59 @@ def _get_pixel(img, xi, yi, alpha: bool):
     texel = image_gather(img, xi.clamp(0, w - 1), yi.clamp(0, h - 1), inb)
     val = texel[..., 3:4] if alpha else texel[..., :3]
     return val.expand(val.shape[:-1] + (3,))
+
+
+def _skybox_face_uv(v):
+    """Dominant-axis face index and the reference's per-face (u, w)
+    (image_texture.h:90-110).  Faces: 0 top, 1 bottom, 2 left, 3 right,
+    4 front, 5 back."""
+    x, y, z = v.unbind(-1)
+    ax, ay, az = x.abs(), y.abs(), z.abs()
+    x_dom = (ax > ay) & (ax > az)
+    y_dom = ~x_dom & (ay > az)
+    safe = lambda a: torch.where(a == 0, 1.0, a)
+    face = torch.where(x_dom, torch.where(x < 0, 2, 3),
+                       torch.where(y_dom, torch.where(y < 0, 1, 0),
+                                   torch.where(z < 0, 5, 4)))
+    u = torch.where(x_dom, torch.where(x < 0, -z, z) / safe(ax),
+                    torch.where(y_dom, torch.where(y < 0, -x, x) / safe(ay),
+                                torch.where(z < 0, x, -x) / safe(az)))
+    w = torch.where(x_dom, y / safe(ax), torch.where(y_dom, z / safe(ay), y / safe(az)))
+    return face, u, w
+
+
+def _skybox_lookup(stack, v, alpha: bool):
+    """Cubemap lookup on the (6, H, W, 4) face stack: the face index folds
+    into the row index of one (6·H, W, 4) gather, so the six faces share
+    one histogram in the backward."""
+    from ptx_torch.ops.imagegrad import image_gather
+
+    zero_dir = (v == 0.0).all(dim=-1)
+    face, u, w = _skybox_face_uv(v)
+    h, wid = stack.shape[1], stack.shape[2]
+    xi = torch.floor((u * 0.5 + 0.5) * wid).to(torch.int64)
+    yi = torch.floor((0.5 - w * 0.5) * h).to(torch.int64)
+    inb = (xi >= 0) & (xi < wid) & (yi >= 0) & (yi < h)
+    flat = stack.reshape(6 * h, wid, stack.shape[3])
+    texel = image_gather(flat, xi.clamp(0, wid - 1), face * h + yi.clamp(0, h - 1),
+                         inb & ~zero_dir)
+    val = texel[..., 3:4] if alpha else texel[..., :3]
+    return val.expand(val.shape[:-1] + (3,))
+
+
+def _mirror_ball_uv(v):
+    """Angular mirror-ball probe mapping (transform_texture.h:46-59)."""
+    zero = (v == 0.0).all(dim=-1)
+    n = linalg.normalize(v)
+    z = n[..., 2]
+    d = torch.sqrt(torch.clamp(2.0 + 2.0 * z, min=0.0))
+    bad = (z <= -1.0) | (d == 0.0)
+    safe_d = torch.where(bad, 1.0, d)
+    u = torch.where(bad, 0.0, n[..., 0] / safe_d * 0.5 + 0.5)
+    w = torch.where(bad, 0.5, n[..., 1] / safe_d * 0.5 + 0.5)
+    u = torch.where(zero, 0.0, u)
+    w = torch.where(zero, 0.0, w)
+    return torch.stack([u, w, torch.zeros_like(u)], dim=-1)
 
 
 def _spherical_uv(v):

@@ -37,7 +37,7 @@ from ptx.scenes import builders as jbuilders
 from ptx_torch.convert import params_from_jax, scene_from_jax
 from ptx_torch.integrate import trace as ttr
 from ptx_torch.geom.fasthit import collect_leaves
-from ptx_torch.ops import bounce_kernel
+from ptx_torch.ops import bounce_kernel, fasthit_kernel
 
 torch.set_num_threads(1)
 
@@ -224,7 +224,7 @@ def test_k1_follows_the_params_of_the_call():
                 if lf.kind == "sphere" and lf.index == 1)
     lf = collect_leaves(ts.plan)[lf_i][0]
     grown = dict(ts.params, sphere_radius=ts.params["sphere_radius"] * 1.1)
-    geo = lambda buf: int(buf[bounce_kernel._LEAF_STRIDE * lf_i + 1])
+    geo = lambda buf: int(buf[fasthit_kernel.LEAF_STRIDE * lf_i + 1])
     old, new = kern.pack(ts.params), kern.pack(grown)
     assert float(old[geo(old) + 3]) == float(ts.params["sphere_radius"][lf.index])
     assert float(new[geo(new) + 3]) == float(grown["sphere_radius"][lf.index])

@@ -22,6 +22,7 @@ import torch
 
 from ptx.integrate import trace as jtr
 from ptx.integrate.camera import Camera as JCamera, sample_rays as jax_sample_rays
+from ptx.scenes.builders import baseline_config4 as jax_config4
 from ptx.scenes.builders import make_world as jax_make_world
 from ptx_torch.convert import grads_to_numpy, params_from_jax, scene_from_jax
 from ptx_torch.core import rng
@@ -77,6 +78,37 @@ def test_trace_rays_gradient_matches_jax(pair, compact):
     for k in ("sphere_center", "sphere_radius", "ior", "const", "factor"):
         assert np.abs(g_t[k]).sum() > 0, k
     assert np.abs(g_t["images"][0]).sum() > 0
+
+
+def test_config4_textured_slot_gradient_matches_jax():
+    """BASELINE config 4: the checker texture is the reflect slot of the
+    sphere and the ground, so the bounce is the unfused one and its replay
+    reads the texture params.  The port must differentiate the replay in
+    them (``factor``, ``tex_xform``, every image), as ``jax.vjp`` of the
+    JAX replay does: the checker image's gradient among them."""
+    root = jax_config4()
+    js = jtr.compile_scene(root, pallas=False)
+    ts = trace.compile_scene(scene_from_jax(root), "cpu")
+    ts.params = params_from_jax(jax.tree.map(np.asarray, js.params), "cpu")
+    w, h = 8, 6
+    kj = jax.random.PRNGKey(0)
+    o, d = jax_sample_rays(JCamera.reference_demo(w, h), kj, jnp.arange(h),
+                           jnp.arange(w), 1)
+    loss_j, g_j = jax.jit(jax.value_and_grad(lambda p: jnp.mean(
+        jtr.trace_rays(js, p, o, d, kj, 4, compact=False))))(js.params)
+    ot, dt = sample_rays(Camera.reference_demo(w, h), rng.PRNGKey(0), range(h),
+                         range(w), 1, "cpu")
+    loss_t, g_t = _port_grad(ts, ts.params, ot, dt, rng.PRNGKey(0), 4, False)
+    assert loss_t == pytest.approx(float(loss_j), rel=1e-5)
+    g_j = jax.tree.map(np.asarray, g_j)
+    assert set(g_t) == set(g_j)
+    for k in g_j:
+        for a, b in zip(*(x if isinstance(x, list) else [x] for x in (g_t[k], g_j[k]))):
+            assert a.shape == b.shape and np.isfinite(a).all(), k
+            scale = np.abs(b).max() if b.size else 0.0
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-4 * scale + 1e-7, err_msg=k)
+    checker = next(i for i, im in enumerate(ts.params["images"]) if im.shape[0] == 8)
+    assert np.abs(g_t["images"][checker]).max() > 1e-3
 
 
 # --- central finite differences, the scene and rays of tests/test_gradients.py

@@ -1,5 +1,6 @@
 """The CUDA kernels on the card against their plain PyTorch versions: K1
-(bounce), K2 (replay backward) and K3 (image-gather transpose).
+(bounce), K2 (replay backward), K3 and K8 (image-gather transposes), K4
+(first hit) and K7 (emission).
 
 This file imports no jax, so it runs on a machine with a card and no jax:
 
@@ -13,8 +14,10 @@ two round alike; chip_smoke.py adjudicates near-tie flips at full size.
 K2's hand adjoint orders its float32 operations unlike autograd: an
 element passes within ``rtol 1e-5, atol 1e-6`` or within twice the plain
 value's error against a float64 recompute plus 1e-4 relative (near-grazing
-lanes are ill-conditioned).  K3 adds with atomics in a varying order:
-``1e-5`` of each texel's sum of |ct|.
+lanes are ill-conditioned).  K3 and K8 add with atomics in a varying
+order: ``1e-5`` of each texel's sum of |ct|.  K4 must equal the dense hit
+as K1 does; K7 its plain lanes, with texel indices equal except where a
+float64 recompute puts the lane within 1e-6 of a texel boundary.
 """
 
 import pytest
@@ -162,26 +165,129 @@ def test_k1_follows_a_changed_radius_on_the_card(cuda_scene):
     assert not torch.equal(kb["t"], before["t"])
 
 
+def _hist_case(shape, N=100_000, seed=1):
+    H, W, C = shape
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    yi = torch.randint(0, H, (N,), device=dev, generator=g)
+    xi = torch.randint(0, W, (N,), device=dev, generator=g)
+    inb = torch.rand(N, device=dev, generator=g) < 0.9
+    ct = torch.randn((N, C), device=dev, generator=g)
+    return yi, xi, inb, ct
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(64, 128, 4), (512, 1024, 4)], ids=["shared", "global"])
+@pytest.mark.parametrize("shape", [(64, 128, 4)], ids=["shared"])
 def test_k3_matches_its_plain_version(shape):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the histogram kernel has no CPU mode")
     from ptx_torch.ops import imagegrad
 
-    H, W, C = shape
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(1)
-    N = 100_000
-    yi = torch.randint(0, H, (N,), device=dev, generator=g)
-    xi = torch.randint(0, W, (N,), device=dev, generator=g)
-    inb = torch.rand(N, device=dev, generator=g) < 0.9
-    ct = torch.randn((N, C), device=dev, generator=g)
+    yi, xi, inb, ct = _hist_case(shape)
     launches = imagegrad.LAUNCHES
     got = imagegrad.hist(yi, xi, inb, ct, shape)
-    assert imagegrad.HistKernel.used_shared == (shape == (64, 128, 4))
     want = imagegrad.hist_reference(yi, xi, inb, ct, shape)
     scale = imagegrad.hist_reference(yi, xi, inb, ct.abs(), shape)
     torch.cuda.synchronize()
     assert imagegrad.LAUNCHES == launches + 1
     assert bool(((got - want).abs() <= 1e-5 * scale + 1e-7).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(512, 1024, 4), (250, 530, 3), (1536, 3072, 4)],
+                         ids=["512x1024x4", "ragged-c3", "probe"])
+def test_k8_matches_its_plain_version(shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the histogram kernel has no CPU mode")
+    from ptx_torch.ops import imagegrad
+
+    yi, xi, inb, ct = _hist_case(shape, N=1 << 20)
+    k3, k8 = imagegrad.LAUNCHES, imagegrad.BandedHistKernel.LAUNCHES
+    got = imagegrad.hist(yi, xi, inb, ct, shape)
+    want = imagegrad.hist_reference(yi, xi, inb, ct, shape)
+    scale = imagegrad.hist_reference(yi, xi, inb, ct.abs(), shape)
+    torch.cuda.synchronize()
+    assert (imagegrad.LAUNCHES, imagegrad.BandedHistKernel.LAUNCHES) == (k3, k8 + 1)
+    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-7).all())
+
+
+@pytest.fixture(scope="module")
+def config4_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hit kernel has no CPU mode")
+    from ptx_torch.scenes.builders import baseline_config4
+    return trace.compile_scene(baseline_config4(), torch.device("cuda"))
+
+
+@pytest.mark.cuda
+def test_config4_compiles_on_cuda_with_k4(config4_cuda):
+    from ptx_torch.ops.fasthit_kernel import HitKernel
+
+    assert isinstance(config4_cuda.hit_fn, HitKernel)
+    assert isinstance(config4_cuda.bounce_fn, trace.UnfusedBounce)
+
+
+@pytest.mark.cuda
+def test_k4_matches_its_plain_version(config4_cuda):
+    """Primary rays and one bounce's carry of 64×64 config-4 rays."""
+    from ptx_torch.ops import fasthit_kernel
+
+    scene, dev = config4_cuda, config4_cuda.device
+    o, d = sample_rays(Camera.reference_demo(64, 64), rng.PRNGKey(0),
+                       range(64), range(64), 1, dev)
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    launches = fasthit_kernel.LAUNCHES
+    for _ in range(2):
+        got = scene.hit_fn(scene.params, o, d)
+        want = scene.plain_hit_fn(scene.params, o, d)
+        torch.cuda.synchronize()
+        for k in ("_evt", "hit", "entering", "mat_id"):
+            assert torch.equal(got[k], want[k]), k
+        hit = want["hit"]
+        torch.testing.assert_close(got["t"], want["t"], rtol=1e-5, atol=5e-6)
+        torch.testing.assert_close(got["normal"][hit], want["normal"][hit], rtol=1e-5,
+                                   atol=5e-6)
+        o = o + want["t"][:, None] * d
+        d = d - 2.0 * (d * want["normal"]).sum(-1, keepdim=True) * want["normal"]
+    assert fasthit_kernel.LAUNCHES == launches + 2
+
+
+@pytest.mark.cuda
+def test_k7_matches_its_plain_version(monkeypatch):
+    """The demo with ``PTX_EMK=1``: K7's outputs against its plain lanes and
+    ``eval_emissive`` on random positions, and its backward (one histogram)
+    against autograd of ``eval_emissive``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the emission kernel has no CPU mode")
+    from ptx_torch.ops import emission_kernel as ek
+
+    monkeypatch.setenv("PTX_EMK", "1")
+    scene = trace.compile_scene(make_world(), torch.device("cuda"))
+    kern, dev = scene.emission_fn, scene.device
+    assert isinstance(kern, ek.EmissionKernel)
+    g = torch.Generator(device=dev).manual_seed(2)
+    N = 65_536
+    pos = torch.randn((N, 3), device=dev, generator=g) * 30.0
+    mid = torch.randint(0, scene.material_fn.n_materials, (N,), device=dev, generator=g)
+    p = scene.params
+    args = (p["tex_xform"], p["const"], p["factor"], p["images"][kern.img_id], pos, mid)
+    got = kern.launch(*args)
+    want = ek.lanes_reference(kern, *args)
+    torch.cuda.synchronize()
+    same = (got[2] == want[2]) & (got[3] == want[3]) & (got[4] == want[4])
+    assert float(same.float().mean()) > 0.999
+    for a, b in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a[same], b[same], rtol=1e-5, atol=1e-6)
+    assert torch.equal(got[5], want[5])
+
+    leaf = lambda: {k: ([x.detach().clone().requires_grad_(True) for x in v]
+                        if isinstance(v, list) else v.detach().clone().requires_grad_(True))
+                    for k, v in p.items()}
+    wgt = torch.rand((N, 3), device=dev, generator=g) * same[:, None]
+    pk, pp = leaf(), leaf()
+    (kern(pk, pos, mid) * wgt).sum().backward()
+    (scene.material_fn.eval_emissive(pp, pos, mid) * wgt).sum().backward()
+    for k in ("const", "factor"):
+        torch.testing.assert_close(pk[k].grad, pp[k].grad, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(pk["images"][kern.img_id].grad,
+                               pp["images"][kern.img_id].grad, rtol=1e-4, atol=1e-5)

@@ -34,6 +34,9 @@ def test_summarize_attributes_kernels_to_layers():
         {"kernels": 2, "device_ms": 0.02, "host_share": 0.3})
     assert s["layers"]["bounce"] == pytest.approx(
         {"kernels": 1, "device_ms": 0.006, "host_share": 0.4})
+    assert s["top"][0] == {"name": "threefry_add", "calls": 1, "device_ms": 0.01}
+    assert [t["name"] for t in s["top"]][1:3] == ["threefry_xor",
+                                                 "bounce_forward_kernel(float const*)"]
 
 
 def test_summarize_empty_trace():

@@ -18,7 +18,8 @@ from ptx.scenes import builders as jbuilders
 from ptx_torch.convert import params_from_jax, scene_from_jax
 from ptx_torch.geom.fasthit import collect_leaves
 from ptx_torch.integrate import trace as ttr
-from ptx_torch.ops.bounce_kernel import pack_scene, tape_program
+from ptx_torch.ops.bounce_kernel import pack_scene
+from ptx_torch.ops.fasthit_kernel import tape_program
 from ptx_torch.scenes.builders import make_world
 from ptx_torch.geom.fasthit import _bits_at
 
@@ -139,8 +140,9 @@ def test_tape_program_folds_like_the_plan(scene_name):
 
 
 def test_pack_scene_layout(scenes):
-    """Leaf records point at each leaf's geometry; material rows hold the
-    constant slots; the tape closes the buffer."""
+    """Leaf records point at each leaf's geometry; the tape follows the
+    geometry (K4's buffer); material rows hold the constant slots and
+    close the buffer."""
     _, ts = scenes
     buf, (L, mat_off, tape_off, tape_len) = pack_scene(
         ts.plan, ts.material_fn, ts.params)
@@ -161,4 +163,5 @@ def test_pack_scene_layout(scenes):
     glass = buf[mat_off + 9 * 1:mat_off + 9 * 2]     # material 1: the glass
     np.testing.assert_allclose(glass, [0.7, 0.7, 0.7, 0, 0.9, 0.9, 0.9, 1, 1.3],
                                rtol=1e-7)
-    assert tape_off + tape_len == buf.size
+    assert tape_off + tape_len == mat_off
+    assert mat_off + 9 * ts.material_fn.n_materials == buf.size
