@@ -98,6 +98,30 @@ C3. gradients, kernel path vs plain path (``eval_emissive``);
 C4, C5. a mirror-ball sky world (tests/test_emission_kernel.py:87-115):
     C1's chunk and C3's gradients.
 
+Path D, the large scenes (K5, the megasweep: union-sweep first hit, in
+bounce mode with shade and scatter; K6, the row-fed replay backward):
+S1 ``stress_spheres(249)`` (256 leaves), S2 ``stress_gadgets(112)`` (268
+leaves: lenses, bulbs, bites), S3 ``stress_spheres(249, transformed=True)``
+(the 32-column table), S4 S1 under the 1536×3072 probe (K5 + K6 + K8):
+D1. K5's and K6's registers and stack frame from nvcc's report;
+D2. S1-S3: K5 on every bounce of one compacted 65,536-ray chunk (every
+    4th row of the frame, depth 16: widths 65,536 / 21,845 / 4,096)
+    against its plain version (the sweep + the plain shading) as phase 3
+    holds K1, and cull on against cull off bit for bit; on S2 also K5's
+    hit mode against ``megasweep_reference`` on the primary rays; the
+    primary bounce's fixpoint passes per lane and active cull flags;
+D3. S1, S2: every K6 call of that chunk's forward + backward against its
+    plain versions as phase 5 holds K2; two launches the same bits;
+D4. S1, S2: gradients, kernel path vs plain path, as phase 6;
+D5. 3 ``make_train_step`` steps each on S1-S4 at 512², spp 16, d16: K5 17
+    and K6 16 per step (S4 also K8 3), nothing else, no plain call;
+D6. ``python -m ptx_torch render --scene scenes/composed.json`` (52 leaves,
+    the spec's 512², spp 16, depth 8): K5 4 × 16 × 9 = 576 and the tile
+    ordering in every ``trace_rays`` call;
+D7. S1, S2 at 65,536 lanes: K5 (wrapper, bare launch, plain), K6
+    (wrapper, bare launch, plain), and K6's bare launch at 4,194,304
+    lanes (a D5 step's widest backward), each beside its bound.
+
 Then:
 9. a forward + backward chunk at the bench's shape (128 rows × 512, spp 1,
    depth 16, ``loss = radiance.mean()``): rays/s over the median of 10
@@ -109,9 +133,9 @@ Then:
     for K3 and K8 also the library call ``index_put_(accumulate=True)``;
     the least time the card could take (``bound_ms``) from this run's
     inputs;
-11. the JSON lines: the six kernels (launches from the paths' train
-    steps: the demo's for K1-K3, config 4's for K4, C2's for K7, the
-    probe's for K8), then the device.
+11. the JSON lines: the eight kernels (launches from the paths' train
+    steps: the demo's for K1-K3, config 4's for K4, S1's for K5 and K6,
+    C2's for K7, the probe's for K8), then the device.
 
 Outputs (the rendered image, the nvcc report) go to ``build/chip_smoke/``.
 """
@@ -629,14 +653,15 @@ def _hist_bound_ok(name, got, yi, xi, inb, ct, shape):
     return float(err.max())
 
 
-def _check_k2(scene, recorded, tag):
-    """K2 against its plain versions on each recorded backward bounce (the
-    same saved carry, decisions and cotangents): per lane and the per-leaf
-    sums by :func:`_close_f64` against ``bounce_bwd_lanes_reference`` and
-    its float64 recompute; ``d_params`` by :func:`_close_f64` against
-    ``bounce_bwd_reference`` (autograd through ``trace._bounce_replay``),
-    the float64 sums mapped to the params as truth, at each tensor's
-    largest entry; two launches the same bits.  Returns max|k − p|."""
+def _check_k2(scene, recorded, tag, name="K2"):
+    """K2 (or K6, ``name``) against its plain versions on each recorded
+    backward bounce (the same saved carry, decisions and cotangents): per
+    lane and the per-leaf sums by :func:`_close_f64` against
+    ``bounce_bwd_lanes_reference`` and its float64 recompute; ``d_params``
+    by :func:`_close_f64` against ``bounce_bwd_reference`` (autograd
+    through ``trace._bounce_replay``), the float64 sums mapped to the
+    params as truth, at each tensor's largest entry; two launches the same
+    bits.  Returns max|k − p|."""
     import torch
     from ptx_torch.ops import bounce_kernel as bk
 
@@ -647,25 +672,26 @@ def _check_k2(scene, recorded, tag):
         packed_d = packed.detach()
         got = kern.launch(packed_d, o_, d_, thr_, dec, *cts)
         again = kern.launch(packed_d, o_, d_, thr_, dec, *cts)
-        ref = bk.bounce_bwd_lanes_reference(packed_d, kern.aux, o_, d_, thr_, dec, *cts)
+        ref_packed = kern.pack(scene.params).detach()     # the plain version's layout
+        ref = bk.bounce_bwd_lanes_reference(ref_packed, kern.aux, o_, d_, thr_, dec, *cts)
         ref64 = bk.bounce_bwd_lanes_reference(
-            packed_d.double(), kern.aux.double(), o_.double(), d_.double(),
+            ref_packed.double(), kern.aux.double(), o_.double(), d_.double(),
             thr_.double(), dict(dec, u_sel=dec["u_sel"].double()),
             *(c.double() for c in cts))
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"{tag}: two launches on the same inputs differ")
         Bw = o_.shape[0]
-        checks = [_close_f64(f"K2 B={Bw} {n}", g, w, t) for n, g, w, t in
+        checks = [_close_f64(f"{name} B={Bw} {n}", g, w, t) for n, g, w, t in
                   zip(("d_o", "d_d", "d_thr"), got[:3], ref[:3], ref64[:3])]
-        checks.append(_close_f64(f"K2 B={Bw} per-leaf sums", got[3], ref[3], ref64[3],
+        checks.append(_close_f64(f"{name} B={Bw} per-leaf sums", got[3], ref[3], ref64[3],
                                  ref64[4]))
         got_p = kern.params_grad(packed, leaves, got[3])
         want_p = bk.bounce_bwd_reference(scene, scene.params, o_, d_, thr_, dec, *cts)[3]
         truth_p = kern.params_grad(*kern.pack_leaves(scene.params), ref64[3].float())
         for k, t in truth_p.items():
             if t.numel():
-                checks.append(_close_f64(f"K2 B={Bw} d_params {k}", got_p[k], want_p[k],
+                checks.append(_close_f64(f"{name} B={Bw} d_params {k}", got_p[k], want_p[k],
                                          t, torch.full_like(t, float(t.abs().max()))))
         e = max(c[0] for c in checks[:4])
         for c in checks:
@@ -685,7 +711,7 @@ def _check_k2(scene, recorded, tag):
             f"{max(c[0] for c in checks[4:]):.3g}; two launches bit-identical; "
             "no NaN/Inf")
     if offs:
-        raise AssertionError(f"{tag}: K2 outside tolerance:\n" + "\n".join(offs))
+        raise AssertionError(f"{tag}: {name} outside tolerance:\n" + "\n".join(offs))
     return err2
 
 
@@ -811,7 +837,8 @@ def phase_gradients(scene, tag="6 gradients"):
 
 def _reset_counters():
     from ptx_torch.ops import bounce_kernel as bk, emission_kernel as ek
-    from ptx_torch.ops import fasthit_kernel as fk, imagegrad
+    from ptx_torch.ops import fasthit_kernel as fk, imagegrad, megasweep
+    from ptx_torch.ops.replay_bwd import RowFedReplayBwd
 
     bk.LAUNCHES = bk.REFERENCE_CALLS = bk.BWD_REFERENCE_CALLS = 0
     bk.BounceBwdKernel.LAUNCHES = 0
@@ -819,23 +846,27 @@ def _reset_counters():
     imagegrad.BandedHistKernel.LAUNCHES = 0
     fk.LAUNCHES = fk.REFERENCE_CALLS = 0
     ek.LAUNCHES = ek.REFERENCE_CALLS = 0
+    megasweep.MegaSweepKernel.LAUNCHES = megasweep.REFERENCE_CALLS = 0
+    RowFedReplayBwd.LAUNCHES = 0
 
 
 def _counters():
     from ptx_torch.ops import bounce_kernel as bk, emission_kernel as ek
-    from ptx_torch.ops import fasthit_kernel as fk, imagegrad
+    from ptx_torch.ops import fasthit_kernel as fk, imagegrad, megasweep
+    from ptx_torch.ops.replay_bwd import RowFedReplayBwd
 
     return {"K1": bk.LAUNCHES, "K2": bk.BounceBwdKernel.LAUNCHES,
-            "K3": imagegrad.LAUNCHES, "K4": fk.LAUNCHES, "K7": ek.LAUNCHES,
-            "K8": imagegrad.BandedHistKernel.LAUNCHES,
+            "K3": imagegrad.LAUNCHES, "K4": fk.LAUNCHES,
+            "K5": megasweep.MegaSweepKernel.LAUNCHES, "K6": RowFedReplayBwd.LAUNCHES,
+            "K7": ek.LAUNCHES, "K8": imagegrad.BandedHistKernel.LAUNCHES,
             "plain": (bk.REFERENCE_CALLS + bk.BWD_REFERENCE_CALLS + imagegrad.REFERENCE_CALLS
-                      + fk.REFERENCE_CALLS + ek.REFERENCE_CALLS)}
+                      + fk.REFERENCE_CALLS + ek.REFERENCE_CALLS + megasweep.REFERENCE_CALLS)}
 
 
 def _expect(**per_kernel):
     """Exact launch counts: the given kernels, every other kernel 0, and
     no plain-version call."""
-    out = dict.fromkeys(("K1", "K2", "K3", "K4", "K7", "K8", "plain"), 0)
+    out = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "plain"), 0)
     out.update(per_kernel)
     return out
 
@@ -1377,6 +1408,233 @@ def _mirror_world():
                                 + builders.sky_planes(sky))
 
 
+# ---------------------------------------------------------------------------
+# path D, the large scenes: K5 (megasweep, fused mega bounce) and K6
+# ---------------------------------------------------------------------------
+
+def _large_scenes():
+    """S1-S4, the JAX package's large-scene ladder at full width."""
+    from ptx_torch.scenes import builders
+
+    return {"S1": lambda: builders.stress_spheres(249),
+            "S2": lambda: builders.stress_gadgets(112),
+            "S3": lambda: builders.stress_spheres(249, transformed=True),
+            "S4": lambda: builders.stress_spheres(
+                249, sky_image=builders.procedural_sky_image(*PROBE))}
+
+
+def phase_build_report():
+    """D1: registers and stack frame of K5 and K6, from nvcc's report."""
+    from ptx_torch.ops import _build
+
+    lines = _build.BUILD_LOG.splitlines()
+    out = []
+    for kname in ("megasweep_kernel", "replay_bwd_kernel"):
+        # the mangled entry name, length-prefixed: not the file's name in it
+        i = next(j for j, ln in enumerate(lines)
+                 if "Compiling entry function" in ln and f"{len(kname)}{kname}E" in ln)
+        report = " ".join(ln.strip() for ln in lines[i + 1:i + 4])
+        out.append(f"{kname}: {report}")
+    log("[D1 build] " + " | ".join(out))
+
+
+def _full_frame_chunk(scene, key):
+    """A 65,536-ray chunk over the whole frame: every 4th row of the 512²
+    camera (the frame's top rows see only the sky at bounce 0)."""
+    from ptx_torch.integrate.camera import Camera, sample_rays
+
+    return sample_rays(Camera.reference_demo(W, H), key, range(0, H, 4), range(W), 1,
+                       scene.device)
+
+
+def phase_k5_chunk(scene, tag, hit_check=False):
+    """D2: K5 in bounce mode on every bounce of one compacted 65,536-ray
+    chunk (full-frame rows, depth 16), recorded as ``trace_rays`` gives
+    them (widths 65,536, 21,845, 4,096, fillers included): against its
+    plain version (the sweep + the plain shading, ``bounce_reference``)
+    as phase 3 holds K1, and cull on against cull off bit for bit.  With
+    ``hit_check``, K5 in hit mode against ``megasweep_reference`` on the
+    primary rays.  Returns (flips, max_abs_err, the first bounce's inputs,
+    the fixpoint passes and active cull flags of the primary bounce)."""
+    import torch
+    from ptx_torch.core import rng
+    from ptx_torch.integrate.trace import trace_rays
+    from ptx_torch.ops.bounce_kernel import bounce_reference
+
+    key = rng.fold(rng.PRNGKey(0), 0, 4)
+    o, d = _full_frame_chunk(scene, key)
+    rec = []
+    sk = dataclasses.replace(scene, bounce_fn=_recording(scene.bounce_fn, rec))
+    with torch.no_grad():
+        trace_rays(sk, scene.params, o, d, key, DEPTH)
+    torch.cuda.synchronize()
+    widths = [inputs[0].shape[0] for inputs, _ in rec]
+    if widths != _wavefront_widths(BAND_ROWS * W, DEPTH):
+        raise AssertionError(f"{tag}: K5 widths {widths}")
+    packed = scene.bounce_fn.pack(scene.params)
+    flips, err = 0, 0.0
+    for b, (inputs, out_k) in enumerate(rec):
+        with torch.no_grad():
+            out_p = bounce_reference(scene, scene.params, *inputs)
+            out_nc = scene.bounce_fn(scene.params, *inputs, packed=packed, cull=False)
+        torch.cuda.synchronize()
+        if not all(torch.equal(out_k[k], out_nc[k]) for k in out_k):
+            raise AssertionError(f"{tag}: bounce {b}: cull on and off differ")
+        f, e = compare_bounce(scene, inputs, out_k, out_p)
+        flips, err = flips + f, max(err, e)
+        log(f"[{tag}] bounce {b}: B={widths[b]} alive={int(inputs[4].sum())} "
+            f"hit={int(out_k['hit'].sum())} flips={f} max_abs_err={e:.3g}; cull on == off")
+    inputs = rec[0][0]
+    raw = scene.bounce_fn.kernel.launch(packed, *inputs[:2], carry=inputs[2:7],
+                                        in_depth=True, stats=True)
+    stats = raw["stats"].float()
+    lay = scene.plain_hit_fn.layout
+    log(f"[{tag}] primary bounce: fixpoint passes per lane mean {float(stats[:, 0].mean()):.3f} "
+        f"max {int(stats[:, 0].max())}; cull flags active per warp mean "
+        f"{float(stats[:, 1].mean()):.3f} of {lay.n_flags}")
+    if hit_check:
+        hk = scene.hit_fn(scene.params, *inputs[:2])
+        with torch.no_grad():
+            hp = scene.plain_hit_fn(scene.params, *inputs[:2])
+        f, e = compare_hit(scene, *inputs[:2], hk, hp)
+        flips, err = flips + f, max(err, e)
+        log(f"[{tag}] K5 hit mode vs megasweep_reference on the primary rays: "
+            f"hit={int(hk['hit'].sum())} flips={f} max_abs_err={e:.3g}")
+    return flips, err, inputs, stats
+
+
+def phase_k6_chunk(scene, tag):
+    """D3: K6 against its plain versions on every backward bounce of one
+    fwd+bwd chunk (the D2 chunk, ``radiance.mean()``): per lane, per leaf
+    and ``d_params`` as phase 5 holds K2; two launches the same bits."""
+    import torch
+    from ptx_torch.core import rng
+    from ptx_torch.integrate.trace import trace_rays
+
+    key = rng.fold(rng.PRNGKey(0), 0, 4)
+    o, d = _full_frame_chunk(scene, key)
+    rec = []
+    trace_rays(_recording_bwd(scene, rec), _leaf_params(scene.params), o, d, key,
+               DEPTH).mean().backward()
+    torch.cuda.synchronize()
+    widths = sorted((r[0].shape[0] for r in rec), reverse=True)
+    if widths != _wavefront_widths(BAND_ROWS * W, DEPTH - 1):
+        raise AssertionError(f"{tag}: K6 widths {widths}")
+    err = _check_k2(scene, rec, tag, name="K6")
+    return err, next(r for r in rec if r[0].shape[0] == BAND_ROWS * W)
+
+
+class _WidestBwd:
+    """A K6 wrapper that keeps the inputs of its calls at ``width`` lanes."""
+
+    def __init__(self, kern, width):
+        self.kern, self.width, self.calls = kern, width, []
+
+    def __getattr__(self, name):
+        return getattr(self.kern, name)
+
+    def __call__(self, params, o, d, thr, dec, *cts):
+        if o.shape[0] == self.width:
+            self.calls.append((o, d, thr, dec, cts))
+        return self.kern(params, o, d, thr, dec, *cts)
+
+
+def phase_train_large(scene, tag, expect, keep_widest=False):
+    """D5: 3 ``make_train_step`` steps at 512², spp 16, depth 16 with exact
+    launch counts; with ``keep_widest``, the K6 inputs at 4,194,304 lanes."""
+    widest = _WidestBwd(scene.bounce_bwd_fn, W * H * SPP) if keep_widest else None
+    cm = _swapped(scene, "bounce_bwd_fn", widest) if keep_widest else None
+    c, secs, peak, _ = phase_train(scene, tag, expect, cm)
+    return c, secs, peak, (widest.calls[0] if keep_widest else None)
+
+
+def phase_render_scene(tag):
+    """D6: ``python -m ptx_torch render --scene scenes/composed.json`` (512²,
+    spp 16, depth 8 from the spec) through ``ptx_torch.cli.main``, counters
+    zeroed just before: K5 4 bands × 16 samples × 9 bounces, tile ordering
+    on in every ``trace_rays`` call, nothing else."""
+    import numpy as np
+    import torch
+    from ptx_torch import cli
+    from ptx_torch.integrate import trace
+
+    _reset_counters()
+    tiled = trace.TILE_ORDERED
+    t0 = time.perf_counter()
+    frame = cli.main(["render", "--scene", os.path.join(ROOT, "scenes", "composed.json"),
+                      "--device", "cuda", "--out", os.path.join(OUT, "smoke_composed")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = _counters()
+    tiled = trace.TILE_ORDERED - tiled
+    spp, depth = 16, 8
+    expect = _expect(K5=(H // BAND_ROWS) * spp * (depth + 1))
+    rays = W * H * spp * (depth + 1)
+    log(f"[{tag}] render --scene scenes/composed.json {W}x{H} spp {spp} depth {depth}: wall "
+        f"{wall:.3f} s incl. scene compile and image writes, {rays / wall:.4g} rays/s; "
+        f"launches {c} (expected {expect}); tile-ordered trace_rays calls {tiled} of "
+        f"{(H // BAND_ROWS) * spp}; image mean {float(frame.mean()):.6g}")
+    if frame.shape != (H, W, 3) or not np.isfinite(frame).all() or not frame.mean() > 0:
+        raise AssertionError(f"{tag}: render is not a finite, non-black (H, W, 3) image")
+    if c != expect or tiled != (H // BAND_ROWS) * spp:
+        raise AssertionError(f"{tag}: launches {c} or tiled calls {tiled} off")
+    return rays / wall
+
+
+def bound_k5(B, n_rows):
+    """K5 in bounce mode at B lanes: reads o, d, thr, strength, alive,
+    u_coin, u3 (57 B), writes t, o2, d2, thr2, strength2, flags, evt, mat,
+    u_sel (68 B); operations: one unculled pass of interval arithmetic,
+    ~25 per (row, ray)."""
+    return _bound(125 * B, 25 * n_rows * B)
+
+
+def phase_timing_large(scene, tag, k5_in, k6_in, k6_wide):
+    """D7: K5 (wrapper, bare launch, plain) at 65,536 lanes; K6 (wrapper,
+    bare launch, plain) at 65,536 and the bare launch at 4,194,304 lanes;
+    in turns plain, kernel, kernel, plain."""
+    from ptx_torch.ops import bounce_kernel as bk
+
+    inputs = k5_in
+    packed = scene.bounce_fn.pack(scene.params)
+    k5 = lambda: scene.bounce_fn(scene.params, *inputs, packed=packed)
+    k5p = lambda: bk.bounce_reference(scene, scene.params, *inputs)
+    k5b = lambda: scene.bounce_fn.kernel.launch(packed, *inputs[:2], carry=inputs[2:7],
+                                                in_depth=True)
+    p1, w1, w2, p2 = _time_ms(k5p), _time_ms(k5), _time_ms(k5), _time_ms(k5p)
+    b1, b2 = _time_back_to_back_ms(k5b), _time_back_to_back_ms(k5b)
+    B = inputs[0].shape[0]
+    lay = scene.plain_hit_fn.layout
+    k5_bound = bound_k5(B, lay.ns + lay.npl)
+    log(f"[{tag}] K5 bounce mode at B={B} (L={lay.L}, {lay.ns + lay.npl} rows): wrapper "
+        f"{w1:.4f} / {w2:.4f} ms; bare launch {b1:.4f} / {b2:.4f} ms (mean of 20 back to "
+        f"back); plain {p1:.4f} / {p2:.4f} ms; bound {k5_bound[0]:.4g} ms ({k5_bound[1]})")
+    kern = scene.bounce_bwd_fn
+    o, d, thr, dec, cts = k6_in
+    k6 = lambda: kern(scene.params, o, d, thr, dec, *cts)
+    k6p = lambda: bk.bounce_bwd_reference(scene, scene.params, o, d, thr, dec, *cts)
+    p36 = kern.pack36(scene.params).detach()
+    k6b = lambda: kern.launch(p36, o, d, thr, dec, *cts)
+    q1, v1, v2, q2 = _time_ms(k6p), _time_ms(k6), _time_ms(k6), _time_ms(k6p)
+    c1, c2 = _time_back_to_back_ms(k6b), _time_back_to_back_ms(k6b)
+    L = len(kern.leaves)
+    cont = int((dec["take_transmit"] | dec["scatter_alive"]).sum())
+    k6_bound = bound_k2(o.shape[0], cont, L)
+    wide = ""
+    if k6_wide is not None:
+        o2, d2, thr2, dec2, cts2 = k6_wide
+        wb = _time_back_to_back_ms(lambda: kern.launch(p36, o2, d2, thr2, dec2, *cts2))
+        wbound = bound_k2(o2.shape[0], int((dec2["take_transmit"] | dec2["scatter_alive"]).sum()),
+                          L)
+        wide = (f"; bare launch at B={o2.shape[0]} {wb:.4f} ms, bound {wbound[0]:.4g} ms "
+                f"({wbound[1]})")
+    log(f"[{tag}] K6 at B={o.shape[0]} (continuing {cont}): wrapper {v1:.4f} / {v2:.4f} ms; "
+        f"bare launch {c1:.4f} / {c2:.4f} ms; plain {q1:.4f} / {q2:.4f} ms; bound "
+        f"{k6_bound[0]:.4g} ms ({k6_bound[1]}){wide}")
+    return ((min(w1, w2), min(p1, p2), k5_bound, min(b1, b2)),
+            (min(v1, v2), min(q1, q2), k6_bound, min(c1, c2)))
+
+
 def _timed(label, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -1444,6 +1702,32 @@ def main():
     err7m, near_m, _ = _timed("C4 mirror-ball chunk", phase_k7_chunk, pm,
                               "C4 mirror-ball K7 chunk")
     _timed("C5 mirror-ball gradients", phase_gradients, pm, "C5 mirror-ball gradients")
+    del pm
+
+    # path D, the large scenes: K5 (fused mega bounce, hit mode) and K6
+    _timed("D1 build report", phase_build_report)
+    flipsD, err5, err6, k5_in, k6_in, trainD, large = 0, 0.0, 0.0, {}, {}, {}, {}
+    for nm, make in _large_scenes().items():
+        sc = compile_scene(make(), dev)
+        if nm != "S4":
+            f, e, k5_in[nm], _ = _timed(f"D2 {nm} K5 chunk", phase_k5_chunk, sc,
+                                        f"D2 {nm} K5 vs plain", nm == "S2")
+            flipsD, err5 = flipsD + f, max(err5, e)
+        if nm in ("S1", "S2"):
+            e, k6_in[nm] = _timed(f"D3 {nm} K6 chunk", phase_k6_chunk, sc, f"D3 {nm} K6 vs plain")
+            err6 = max(err6, e)
+            _timed(f"D4 {nm} gradients", phase_gradients, sc, f"D4 {nm} gradients")
+            large[nm] = sc
+        extra = {"K8": 3 * 3} if nm == "S4" else {}
+        trainD[nm] = _timed(f"D5 {nm} train", phase_train_large, sc, f"D5 {nm} train",
+                            _expect(K5=3 * (DEPTH + 1), K6=3 * DEPTH, **extra), nm == "S1")
+        del sc
+    composed_rays_s = _timed("D6 render --scene", phase_render_scene, "D6 render --scene")
+    timeD = {nm: _timed(f"D7 {nm} timing", phase_timing_large, large[nm], f"D7 {nm} timing",
+                        k5_in[nm], k6_in[nm], trainD["S1"][3] if nm == "S1" else None)
+             for nm in ("S1", "S2")}
+    (k5_ms, k5p_ms, k5_bound, _), (k6_ms, k6p_ms, k6_bound, _) = timeD["S1"]
+    del large, k5_in, k6_in
 
     fb_rays, f_rays = _timed("9 fwd+bwd", phase_fwd_bwd, scene)
     w_ms, p_ms, dev_ms = _timed("10 K1 timing", phase_timing, scene, inputs)
@@ -1466,7 +1750,11 @@ def main():
         f"{k4_t[1]:.4f} ms (bound {k4_t[2][0]:.4g} ms); K7 {k7_t[0]:.4f} vs "
         f"{k7_t[1]:.4f} ms (bound {k7_t[2][0]:.4g} ms); K8 {k8_t[0]:.4f} vs "
         f"{k8_t[1]:.4f} ms, index_put_ {k8_t[3]:.4f} ms (bound {k8_t[2][0]:.4g} ms); "
-        f"total {time.perf_counter() - t_start:.1f} s; {smi}")
+        f"large scenes: flips {flipsD}, train step "
+        + ", ".join(f"{nm} {min(v[1]):.3f} s / {v[2]:.3f} GiB" for nm, v in trainD.items())
+        + f", render --scene {composed_rays_s:.4g} rays/s; K5 {k5_ms:.4f} vs {k5p_ms:.4f} ms "
+        f"(bound {k5_bound[0]:.4g} ms); K6 {k6_ms:.4f} vs {k6p_ms:.4f} ms (bound "
+        f"{k6_bound[0]:.4g} ms); total {time.perf_counter() - t_start:.1f} s; {smi}")
     entry = lambda name_, source, replaces, launches, err, ms, plain, bound, lib: {
         "name": name_, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -1485,6 +1773,12 @@ def main():
         entry("first_hit (K4: hit-only CSG fold)",
               "ptx_torch/csrc/fasthit_kernel.cu", "ptx/ops/fasthit_kernel.py:233",
               train4["K4"], err4, k4_t[0], k4_t[1], k4_t[2], None),
+        entry("megasweep (K5: union-sweep first hit + shade + scatter, S1)",
+              "ptx_torch/csrc/megasweep_kernel.cu", "ptx/ops/megasweep.py:589",
+              trainD["S1"][0]["K5"], err5, k5_ms, k5p_ms, k5_bound, None),
+        entry("replay_bwd (K6: row-fed replay VJP at any L, S1)",
+              "ptx_torch/csrc/replay_bwd_kernel.cu", "ptx/ops/replay_bwd.py:47",
+              trainD["S1"][0]["K6"], err6, k6_ms, k6p_ms, k6_bound, None),
         entry("emission_forward (K7: fused emission chain)",
               "ptx_torch/csrc/emission_kernel.cu", "ptx/ops/emission_kernel.py:98",
               trainC["K7"], max(err7a, err7b, err7m), k7_t[0], k7_t[1], k7_t[2], None),

@@ -3,9 +3,10 @@
 Mirrors the fast path of ``ptx/cli.py``'s ``render``: build and compile
 the scene, render full-width row bands of at most ``--rays-per-chunk``
 rays with ``--spp-chunk`` samples per wavefront (same keys as the JAX
-package), write ``.bmp`` + ``.hdr`` and print rays/s.  ``--scene``,
+package), write ``.bmp`` + ``.hdr`` and print rays/s.  The scene is a built-in
+(``--demo``) or a JSON spec (``--scene``, :mod:`ptx_torch.scenes.spec`).
 ``--adaptive``, ``--checkpoint``, ``--preview`` and the ``serve`` /
-``farm`` / ``bench`` commands come later (ROADMAP Queue 1 #7, #10).
+``farm`` / ``bench`` commands come later (ROADMAP).
 """
 
 from __future__ import annotations
@@ -16,13 +17,27 @@ import time
 
 
 def _build_scene(args, device):
+    """The scene, camera, spp and depth, as ``ptx/cli.py:30-56``: from the
+    ``--scene`` JSON (its camera and ``render`` options, overridden by the
+    flags) or the ``--demo`` builder."""
     from ptx_torch.integrate.camera import Camera
     from ptx_torch.integrate.trace import compile_scene
     from ptx_torch.scenes import builders
+    from ptx_torch.scenes.spec import SceneSpec
 
-    world = builders.DEMOS[args.demo]()
-    cam = Camera.reference_demo(args.width or 640, args.height or 480)
-    return compile_scene(world, device), cam, args.spp or 10, args.depth or 16
+    if args.scene:
+        world, cam, opts = SceneSpec.load(args.scene).build()
+    else:
+        world, cam, opts = builders.DEMOS[args.demo](), None, {}
+    width = args.width or int(opts.get("width", 0)) or (cam.width if cam else 640)
+    height = args.height or int(opts.get("height", 0)) or (cam.height if cam else 480)
+    cam = Camera.reference_demo(width, height) if cam is None else (
+        cam if (cam.width, cam.height) == (width, height)
+        else Camera(width, height, cam.screen_width, cam.screen_height,
+                    cam.screen_distance, cam.pose))
+    spp = args.spp or int(opts.get("spp", 10))
+    depth = args.depth or int(opts.get("depth", 16))
+    return compile_scene(world, device), cam, spp, depth
 
 
 def _device(name: str):
@@ -89,6 +104,8 @@ def main(argv=None):
     sp.add_argument("--demo", choices=["demo", "config1", "config2", "config3",
                                        "config4"], default="demo",
                     help="built-in scene: the reference demo or BASELINE config 1-4")
+    sp.add_argument("--scene", help="JSON scene spec (its camera and render options "
+                    "apply unless a flag overrides them); takes precedence over --demo")
     sp.add_argument("--width", type=int, default=0)
     sp.add_argument("--height", type=int, default=0)
     sp.add_argument("--spp", type=int, default=0)

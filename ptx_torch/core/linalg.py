@@ -128,6 +128,14 @@ def rotate_x(angle, device):
     return rotate((1.0, 0.0, 0.0), angle, device)
 
 
+def rotate_y(angle, device):
+    return rotate((0.0, 1.0, 0.0), angle, device)
+
+
+def rotate_z(angle, device):
+    return rotate((0.0, 0.0, 1.0), angle, device)
+
+
 def apply(A, v):
     """``L @ v + t`` for ``A`` ``(..., 3, 4)`` and ``v`` ``(..., 3)``."""
     return apply_linear(A, v) + A[..., :, 3]

@@ -1,5 +1,4 @@
-"""Direct (sort-free) CSG first hit — port of the dense path of
-``ptx/geom/fasthit.py``.
+"""Direct (sort-free) CSG first hit — port of ``ptx/geom/fasthit.py``.
 
 Every leaf contributes its two boundary times, giving 2L candidates.
 Root membership just before (``t0 < t <= t1``) and just after
@@ -8,12 +7,19 @@ candidate where the two differ is a boundary of the root solid, and the
 first hit is the minimum such boundary with ``t >= EPS``.  The JAX
 module's docstring proves this equals the reference's span walk.
 
-This dense form materializes the (2L, L, B) membership tensors.  It is
-the plain PyTorch version of the hit-only kernel K4 and of the hit half
-of the fused bounce kernel K1 (``ptx_torch/csrc/hit_fold.cuh``), which
-fold the same candidates as 64-bit masks per ray.  The candidate-blocked,
-union-sweep and megasweep strategies of the JAX module are not ported yet
-(ROADMAP Queue 1 #8).
+:func:`compile_fast_hit` routes as the JAX function does (:399-412):
+
+- a union of more than one group (a leaf or a gadget of at most 12
+  leaves) with more than 24 leaves takes the union sweep: the megasweep's
+  plain version :func:`~ptx_torch.ops.megasweep.megasweep_reference`
+  (:class:`SweepHit`); the hit kernel is K5 (:class:`MegaHit`,
+  :func:`compile_mega_bounce` for the fused bounce).  A union tape that
+  is not mega-eligible raises ``NotImplementedError`` (the JAX package's
+  local-fold group path is not ported);
+- otherwise the dense fold up to 64 leaves: it materializes the (2L, L, B)
+  membership tensors and is the plain version of the hit-only kernel K4
+  and of K1's hit (``ptx_torch/csrc/hit_fold.cuh``); above 64 leaves the
+  JAX package's candidate-blocked path is not ported and raises.
 """
 
 from __future__ import annotations
@@ -26,6 +32,32 @@ from ptx_torch.geom import tape
 
 PAD_T = 3e20                 # "no boundary" sentinel, above MAX_VALUE
 DENSE_L_MAX = 64             # the JAX package's dense-path limit
+SWEEP_L_MIN = 24             # union tapes above this many leaves take the sweep
+SWEEP_GROUP_MAX = 12         # ... when every group has at most this many leaves
+GEO_KEYS = ("sphere_center", "sphere_radius", "plane_normal", "plane_d", "xform")
+
+
+def tape_is_union_only(plan) -> bool:
+    """True iff every internal node of the tape is a union."""
+    if isinstance(plan, tape._LeafPlan):
+        return True
+    return plan.op == "union" and all(tape_is_union_only(c) for c in plan.children)
+
+
+def union_decompose(plan):
+    """The maximal top-level union operands ("groups"): leaves and
+    non-union-rooted subtrees (gadgets)."""
+    groups = []
+
+    def walk(node):
+        if not isinstance(node, tape._LeafPlan) and node.op == "union":
+            for c in node.children:
+                walk(c)
+        else:
+            groups.append(node)
+
+    walk(plan)
+    return groups
 
 
 def collect_leaves(plan):
@@ -172,18 +204,25 @@ def _bits_at(node, leaf_pos, bits):
     return out
 
 
-def compile_fast_hit(plan):
+def compile_fast_hit(plan, params_ref=None):
     """``hit_fn(params, origin, direction) -> dict`` for flat (B, 3) rays:
     ``t`` (0 on miss), signed ``normal`` (B, 3), ``mat_id``, ``entering``,
     ``hit`` and ``_evt``, the winning event index (leaf ``k`` start = k,
-    end = L + k) — the dict ``ptx.geom.fasthit.compile_fast_hit`` returns."""
+    end = L + k) — the dict ``ptx.geom.fasthit.compile_fast_hit`` returns.
+    Routing: module docstring; ``params_ref`` (the params at compile
+    time) orders the sweep's rows for culling only."""
     leaves = collect_leaves(plan)
     L = len(leaves)
+    groups = union_decompose(plan)
+    gmax = max(1 if isinstance(g, tape._LeafPlan) else len(collect_leaves(g))
+               for g in groups)
+    if L > SWEEP_L_MIN and len(groups) > 1 and gmax <= SWEEP_GROUP_MAX:
+        return SweepHit(plan, leaves, params_ref)
     if L > DENSE_L_MAX:
         raise NotImplementedError(
-            f"{L} leaves: the port has only the dense first hit (L <= "
-            f"{DENSE_L_MAX}); the blocked and sweep paths are ROADMAP "
-            "Queue 1 #8")
+            f"{L} leaves in a tape that is not a union of small groups: the JAX "
+            "package's candidate-blocked first hit (ptx/geom/fasthit.py:480) is not "
+            "ported (ROADMAP)")
     parity_list = [p for _, p in leaves]
     mats_list = [lf.mat_id for lf, _ in leaves]
     leaf_pos = {id(lf): i for i, (lf, _) in enumerate(leaves)}
@@ -228,3 +267,144 @@ def compile_fast_hit(plan):
         }
 
     return hit_fn
+
+
+# ---------------------------------------------------------------------------
+# the union sweep: K5's plain version, K5's hit and bounce wrappers
+# ---------------------------------------------------------------------------
+
+class MegaReplay(torch.autograd.Function):
+    """Forward: the sweep's ``t`` / normal (kernel or plain version, no
+    history); backward: autograd of the hit replay
+    (:func:`~ptx_torch.geom.hitreplay.build_hit_replay`) at the frozen
+    decisions ``(evt, entering, hit)`` — the JAX ``_mega_replay`` custom
+    VJP (``ptx/geom/fasthit.py:575-597``).
+
+    ``apply(replay, evt, entering, hit, kt, kn, o, d, *geo)`` with ``geo``
+    the params of ``GEO_KEYS``; returns ``(t, normal)``."""
+
+    @staticmethod
+    def forward(ctx, replay, evt, entering, hit, kt, kn, o, d, *geo):
+        ctx.replay = replay
+        ctx.save_for_backward(evt, entering, hit, o, d, *geo)
+        return kt.clone(), kn.clone()
+
+    @staticmethod
+    def backward(ctx, ct_t, ct_n):
+        evt, entering, hit, o, d, *geo = ctx.saved_tensors
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_(True) for x in (o, d, *geo)]
+            t, n = ctx.replay(dict(zip(GEO_KEYS, xs[2:])), xs[0], xs[1], evt, entering, hit)
+            grads = torch.autograd.grad((t, n), xs, (ct_t, ct_n), allow_unused=True)
+        return (None,) * 6 + tuple(grads)
+
+
+def _hit_dict(replay, params, o, d, t, normal, flags_hit, entering, evt, mat):
+    """The first-hit dict, ``t`` / normal through :class:`MegaReplay` when
+    autograd would reach the geometry or the rays."""
+    geo = [params[k] for k in GEO_KEYS]
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (*geo, o, d)):
+        t, normal = MegaReplay.apply(replay, evt, entering, flags_hit, t, normal, o, d, *geo)
+    return {"t": t, "normal": normal, "mat_id": mat, "entering": entering,
+            "hit": flags_hit, "_evt": evt}
+
+
+class SweepHit:
+    """The union-sweep first hit of a mega-eligible tape: K5's plain
+    version :func:`~ptx_torch.ops.megasweep.megasweep_reference` in hit
+    mode (on any device), the port of the JAX sweep's ``hit_fn``.  A union
+    tape that is not mega-eligible raises (the JAX local-fold group path,
+    ``ptx/geom/fasthit.py:809-1022``, is not ported)."""
+
+    def __init__(self, plan, leaves, params_ref=None):
+        from ptx_torch.geom import hitreplay
+        from ptx_torch.ops import megasweep
+
+        if not megasweep.mega_eligible(plan, leaves):
+            raise NotImplementedError(
+                "a union tape that is not mega-eligible (a gadget of more than "
+                f"{megasweep.SLOT_MAX} coverage slots or a non-sphere/plane leaf): the JAX "
+                "package's local-fold group sweep (ptx/geom/fasthit.py:809-1022) is not "
+                "ported (ROADMAP)")
+        self.layout = megasweep.MegaLayout(plan, leaves, params_ref)
+        self.replay = hitreplay.build_hit_replay(leaves)
+
+    def __call__(self, params, origin, direction, cull=False):
+        from ptx_torch.ops.megasweep import megasweep_reference
+
+        with torch.no_grad():
+            r = megasweep_reference(self.layout, params, origin, direction, cull=cull)
+        return _hit_dict(self.replay, params, origin, direction, r["t"], r["normal"],
+                         r["hit"], r["entering"], r["_evt"], r["mat_id"])
+
+
+class MegaHit:
+    """K5 in hit mode for one compiled scene, the port of the JAX
+    ``_compile_mega_sweep`` (``ptx/geom/fasthit.py:600-653``; the kernel
+    builds ``evt`` from its matches as :626-629 does):
+    ``hit(params, o, d, packed=None)`` returns the first-hit dict.  CUDA
+    tensors launch the kernel (reading ``packed``, :meth:`pack` of these
+    params, packed here when not given); CPU tensors, and only those, run
+    the plain version ``sweep``."""
+
+    def __init__(self, sweep: SweepHit):
+        from ptx_torch.ops.megasweep import MegaSweepKernel
+
+        self.sweep = sweep
+        self.kernel = MegaSweepKernel(sweep.layout)
+
+    def pack(self, params):
+        return self.kernel.pack(params)
+
+    def __call__(self, params, o, d, packed=None):
+        if o.device.type == "cpu":
+            return self.sweep(params, o, d)
+        if o.device.type != "cuda":
+            raise ValueError(f"megasweep kernel: no kernel for {o.device}")
+        raw = self.kernel.launch(self.pack(params) if packed is None else packed, o, d)
+        fl = raw["flags"]
+        return _hit_dict(self.sweep.replay, params, o, d, raw["t"], raw["normal"],
+                         (fl & 1).to(torch.bool), (fl & 2).to(torch.bool), raw["evt"],
+                         raw["mat"].to(torch.int64))
+
+
+class MegaBounce:
+    """K5 in bounce mode (hit + shade + scatter in one launch) with the
+    fused bounce contract of K1's wrapper
+    (:class:`~ptx_torch.ops.bounce_kernel.BounceKernel`): CUDA tensors
+    launch the kernel, CPU tensors run the plain bounce
+    (``bounce_reference``: the port's plain shading on ``scene.plain_hit_fn``,
+    the sweep)."""
+
+    def __init__(self, scene):
+        from ptx_torch.ops.megasweep import MegaSweepKernel
+
+        self.scene = scene
+        self.kernel = MegaSweepKernel(scene.plain_hit_fn.layout, scene.material_fn)
+
+    def pack(self, params):
+        return self.kernel.pack(params)
+
+    def __call__(self, params, o, d, thr, strength, alive, u_coin, u3, in_depth: bool,
+                 packed=None, cull=True):
+        from ptx_torch.ops.bounce_kernel import bounce_reference
+
+        if o.device.type == "cpu":
+            return bounce_reference(self.scene, params, o, d, thr, strength, alive, u_coin,
+                                    u3, in_depth)
+        if o.device.type != "cuda":
+            raise ValueError(f"megasweep kernel: no kernel for {o.device}")
+        raw = self.kernel.launch(self.pack(params) if packed is None else packed, o, d,
+                                 carry=(thr, strength, alive, u_coin, u3),
+                                 in_depth=in_depth, cull=cull)
+        fl = raw.pop("flags")
+        bit = lambda k: ((fl >> k) & 1).to(torch.bool)
+        return dict(raw, hit=bit(0), entering=bit(1), take_transmit=bit(2),
+                    scatter_alive=bit(3), alive2=bit(4), mat_id=raw.pop("mat").to(torch.int64))
+
+
+def compile_mega_bounce(scene):
+    """K5's fused bounce for a compiled scene whose ``plain_hit_fn`` is the
+    sweep (``ptx/geom/fasthit.py:656-712``); the caller checks that every
+    non-emissive slot is Constant.  None when the scene has no sweep."""
+    return MegaBounce(scene) if isinstance(scene.plain_hit_fn, SweepHit) else None

@@ -19,15 +19,23 @@ Every bounce is one :class:`ManualBounce`, the port of the JAX package's
 manual bounce VJP (``_make_manual_bounce``): its forward is
 ``scene.bounce_fn`` and its backward ``scene.bounce_bwd_fn``, the
 decision-frozen replay.  ``compile_scene`` routes as the JAX package's
-``_compile_scene_body`` does, for scenes of at most 24 leaves:
+``_compile_scene_body`` does:
 
-- every non-emissive slot Constant: the fused bounce kernels K1 and K2
-  (:mod:`ptx_torch.ops.bounce_kernel`), one launch each per bounce;
+- at most 24 leaves, every non-emissive slot Constant: the fused bounce
+  kernels K1 and K2 (:mod:`ptx_torch.ops.bounce_kernel`), one launch each
+  per bounce;
+- more than 24 leaves (a union of small groups: the stress scenes,
+  ``scenes/composed.json``), every non-emissive slot Constant: the fused
+  mega bounce, K5 in bounce mode (:mod:`ptx_torch.ops.megasweep`,
+  :class:`~ptx_torch.geom.fasthit.MegaBounce`), and the row-fed replay
+  backward K6 (:mod:`ptx_torch.ops.replay_bwd`); the hit alone is K5 in
+  hit mode, and ``tile_hint`` orders shallow image batches in 16×32-pixel
+  tiles (:func:`trace_rays`);
 - a textured non-emissive slot (BASELINE config 4): the unfused bounce,
   :class:`UnfusedBounce` — plain-PyTorch :func:`_bounce_live` on the
-  hit-only kernel K4 (:mod:`ptx_torch.ops.fasthit_kernel`), the
-  composition the JAX package leaves to XLA — and :func:`replay_vjp`,
-  autograd of :func:`_bounce_replay` over every param the replay reads;
+  hit kernel (K4, or K5's hit mode above 24 leaves), the composition the
+  JAX package leaves to XLA — and :func:`replay_vjp`, autograd of
+  :func:`_bounce_replay` over every param the replay reads;
 - emission: the fused emission kernel K7
   (:mod:`ptx_torch.ops.emission_kernel`) when a dynamic emissive chain is
   not terminal or ``PTX_EMK=1``, else mat-sum + sky-select in plain
@@ -35,8 +43,11 @@ decision-frozen replay.  ``compile_scene`` routes as the JAX package's
   (:mod:`ptx_torch.ops.imagegrad`).
 
 Each kernel wrapper runs its plain version on CPU tensors, so the same
-routing serves the CPU.  On CUDA a scene of more than 24 leaves raises:
-its kernels (K5, K6) are not ported.
+routing serves the CPU.  A union tape of more than 24 leaves that is not
+mega-eligible, or a tape of more than 64 leaves that is no such union,
+raises ``NotImplementedError`` (:func:`~ptx_torch.geom.fasthit.
+compile_fast_hit`); one of 25-64 leaves that is no such union runs the
+dense fold on the CPU and raises on CUDA.
 """
 
 from __future__ import annotations
@@ -61,6 +72,7 @@ from ptx_torch.shade import textures as tx
 # scalars from its scene buffer; emission is evaluated after the bounces),
 # the JAX package's fused-bounce eligibility (ptx/integrate/trace.py:187-190).
 KERNEL_MAX_LEAVES = 24
+TILE_ORDERED = 0            # trace_rays calls that took the tile ordering
 _NON_EMISSIVE = ("reflect", "scatter", "transmit", "transmit_reflect")
 
 # The params a bounce is differentiable in: geometry, transforms, constant
@@ -81,7 +93,9 @@ class CompiledScene:
     is K4's wrapper for scenes of at most 24 leaves, ``plain_hit_fn`` the
     dense first hit (K4's and K1's plain versions read it).
     ``emission_fn`` is K7's wrapper or None; ``diff_keys`` the params
-    ``ManualBounce`` passes to autograd."""
+    ``ManualBounce`` passes to autograd; ``tile_hint`` (large scenes)
+    turns on :func:`trace_rays`'s tile ordering.  Above 24 leaves
+    ``hit_fn`` is K5's hit mode and ``plain_hit_fn`` the sweep."""
     params: dict
     plan: Any
     material_fn: mats.MaterialTable
@@ -93,6 +107,7 @@ class CompiledScene:
     bounce_bwd_fn: Callable = None
     emission_fn: Callable = None
     diff_keys: tuple = DIFF_KEYS
+    tile_hint: bool = False
 
 
 def _want_emission_kernel(ordered, table) -> bool:
@@ -110,15 +125,15 @@ def _want_emission_kernel(ordered, table) -> bool:
 
 
 def compile_scene(root, device) -> CompiledScene:
-    """Compile a scene tree for ``device``.
-
-    On a CUDA device a scene of more than 24 leaves raises
-    ``NotImplementedError`` (no quiet fallback to a plain path)."""
+    """Compile a scene tree for ``device`` (routing: module docstring).
+    A CUDA device gets the kernels or raises; there is no quiet fallback
+    to a plain path."""
+    from ptx_torch.geom.fasthit import MegaHit, SweepHit, compile_mega_bounce
     from ptx_torch.ops import emission_kernel
     from ptx_torch.ops.bounce_kernel import (BounceBwdKernel, BounceKernel,
-                                             bounce_bwd_reference,
-                                             bounce_reference)
+                                             bounce_bwd_reference, bounce_reference)
     from ptx_torch.ops.fasthit_kernel import HitKernel
+    from ptx_torch.ops.replay_bwd import RowFedReplayBwd
 
     device = torch.device(device)
     cpu = torch.device("cpu")
@@ -129,30 +144,33 @@ def compile_scene(root, device) -> CompiledScene:
     n_leaves = len(collect_leaves(plan))
     small = n_leaves <= KERNEL_MAX_LEAVES
     dynamic = any(table.dynamic_slots[s] for s in _NON_EMISSIVE)
-    if device.type == "cuda" and not small:
-        raise NotImplementedError(
-            f"scene with {n_leaves} leaves: on CUDA the port has the kernels of "
-            f"scenes of at most {KERNEL_MAX_LEAVES} leaves (K1-K4, K7, K8); the "
-            "large-scene kernels K5 (megasweep) and K6 (row-fed replay backward) "
-            "are ROADMAP Queue 2")
     params = dict(geo_params)
     params.update(mat_params)
     params.update(compiler.finalize(cpu))
+    plain_hit = compile_fast_hit(plan, params)
+    sweep = isinstance(plain_hit, SweepHit)
+    if device.type == "cuda" and not (small or sweep):
+        raise NotImplementedError(
+            f"scene with {n_leaves} leaves that is not a union of small groups: the JAX "
+            "package folds it densely in XLA, which the port has on the CPU only")
     params = {k: ([x.to(device) for x in v] if isinstance(v, list)
                   else v.to(device)) for k, v in params.items()}
-    plain_hit = compile_fast_hit(plan)
     scene = CompiledScene(
         params=params, plan=plan, material_fn=table,
-        hit_fn=HitKernel(plan, plain_hit, params) if small else plain_hit,
+        hit_fn=(HitKernel(plan, plain_hit, params) if small
+                else MegaHit(plain_hit) if sweep else plain_hit),
         hit_replay_fn=hitreplay.build_hit_replay(collect_leaves(plan)),
-        device=device, plain_hit_fn=plain_hit)
-    if small and not dynamic:
-        scene.bounce_fn, scene.bounce_bwd_fn = (BounceKernel(scene),
-                                                BounceBwdKernel(scene))
-    elif dynamic:
+        device=device, plain_hit_fn=plain_hit, tile_hint=not small)
+    if dynamic:
         scene.diff_keys = DIFF_KEYS + TEXTURE_KEYS
         scene.bounce_fn = UnfusedBounce(scene)
         scene.bounce_bwd_fn = functools.partial(replay_vjp, scene)
+    elif small:
+        scene.bounce_fn, scene.bounce_bwd_fn = (BounceKernel(scene),
+                                                BounceBwdKernel(scene))
+    elif sweep:
+        scene.bounce_fn, scene.bounce_bwd_fn = (compile_mega_bounce(scene),
+                                                RowFedReplayBwd(scene))
     else:
         scene.bounce_fn = functools.partial(bounce_reference, scene)
         scene.bounce_bwd_fn = functools.partial(bounce_bwd_reference, scene)
@@ -537,6 +555,21 @@ def trace_rays(scene: CompiledScene, params, origin, direction, key,
     origin = origin.reshape(-1, 3)
     direction = direction.reshape(-1, 3)
     B = origin.shape[0]
+    # Large-scene tile ordering (``trace.py:914-940``): a shallow (…, rows,
+    # W) batch is permuted so that consecutive lanes form 16×32-pixel image
+    # tiles, which keeps a cull group's rays together; the radiance is
+    # permuted back.  Which lane draws which random numbers changes, so
+    # the estimate changes on this path, as in the JAX package.
+    tile_inv = None
+    if (scene.tile_hint and depth <= 8 and len(batch_shape) >= 2
+            and batch_shape[-2] % 16 == 0 and batch_shape[-1] % 32 == 0):
+        rows_t, w_t = batch_shape[-2], batch_shape[-1]
+        perm = torch.arange(B, device=origin.device).reshape(
+            -1, rows_t // 16, 16, w_t // 32, 32).permute(0, 1, 3, 2, 4).reshape(-1)
+        tile_inv = torch.argsort(perm)
+        origin, direction = origin[perm], direction[perm]
+        global TILE_ORDERED
+        TILE_ORDERED += 1
     device = origin.device
     carry = (origin, direction,
              torch.ones((B, 3), dtype=torch.float32, device=device),
@@ -586,6 +619,8 @@ def trace_rays(scene: CompiledScene, params, origin, direction, key,
             valid = orig < B
             radiance.index_add_(0, torch.where(valid, orig, B - 1),
                                 torch.where(valid[:, None], contrib, 0.0))
+    if tile_inv is not None:
+        radiance = radiance[tile_inv]
     return radiance.reshape(batch_shape + (3,))
 
 

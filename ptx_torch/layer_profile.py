@@ -1,11 +1,15 @@
 """Where a render's time goes, layer by layer, on one device.
 
     python -m ptx_torch.layer_profile [--chunks 4] [--device cuda] [--grad | --train]
-        [--demo demo|config1|config2|config3|config4] [--sky HxW]
+        [--demo demo|config1|config2|config3|config4 | --large S1|S2|S3|S4
+         | --scene spec.json] [--sky HxW]
 
 Renders a built-in scene (the demo by default; ``--sky HxW`` gives the
 demo or config 4 a procedural sky of that size, as ``bench.py --sky``
-does) at 512×512 and depth 16 the way the CLI does (128-row
+does; ``--large`` one of the large-scene ladder, S1 ``stress_spheres(249)``,
+S2 ``stress_gadgets(112)``, S3 S1 transformed, S4 S1 under the 1536×3072
+probe; ``--scene`` a JSON spec) at 512×512 and depth 16 the way the CLI
+does (128-row
 bands of 65,536 rays, one sample per chunk): one warm-up band, then
 ``--chunks`` chunks of rows 128-255 three times without the profiler
 (the best wall is kept), then the same chunks once under
@@ -18,11 +22,12 @@ Chrome trace goes to ``--out`` and is parsed here (:func:`summarize`):
 - per layer: the kernels whose launch call (matched by correlation id)
   lies inside the layer's host range, their device time, and the
   range's share of the profiled host wall;
-- K1, K2, K3, K4, K7, K8: calls and mean device time per call, over all
-  of a kernel's launches: ``bounce_forward_kernel``; ``bounce_bwd_kernel``
-  and the ``reduce_partials_kernel`` launched after it;
-  ``hist_shared_kernel``; ``first_hit_kernel``;
-  ``emission_forward_kernel``; ``hist_banded_kernel``;
+- K1-K8: calls and mean device time per call, over all of a kernel's
+  launches: ``bounce_forward_kernel``; ``bounce_bwd_kernel`` and the
+  ``reduce_partials_kernel`` launched after it; ``hist_shared_kernel``;
+  ``first_hit_kernel``; ``megasweep_kernel``; ``replay_bwd_kernel`` and
+  ``replay_bwd_reduce_kernel``; ``emission_forward_kernel``;
+  ``hist_banded_kernel``;
 - the ``TOP`` kernels by total device time, with their calls;
 - peak device memory (``max_memory_allocated``) over the unprofiled runs.
 
@@ -74,10 +79,27 @@ KERNELS = {"k1": ("bounce_forward_kernel",),
            "k2": ("bounce_bwd_kernel", "reduce_partials_kernel"),
            "k3": ("hist_shared_kernel",),
            "k4": ("first_hit_kernel",),
+           "k5": ("megasweep_kernel",),
+           "k6": ("replay_bwd_kernel", "replay_bwd_reduce_kernel"),
            "k7": ("emission_forward_kernel",),
            "k8": ("hist_banded_kernel",)}
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 TOP = 8                         # kernels listed by total device time
+
+
+def large_world(name):
+    """A scene of the large-scene ladder: S1 ``stress_spheres(249)``, S2
+    ``stress_gadgets(112)``, S3 S1 transformed, S4 S1 under the 1536×3072
+    probe."""
+    from ptx_torch.scenes import builders
+    if name == "S2":
+        return builders.stress_gadgets(112)
+    kw = {"S3": {"transformed": True},
+          "S4": {"sky_image": builders.procedural_sky_image(1536, 3072)}}.get(name, {})
+    return builders.stress_spheres(249, **kw)
+
+
+LARGE = ("S1", "S2", "S3", "S4")
 
 
 def _union_us(intervals):
@@ -249,6 +271,9 @@ def main(argv=None):
                     help="make_train_step steps (--size², spp 16) instead of chunks")
     ap.add_argument("--demo", choices=sorted(builders.DEMOS), default="demo",
                     help="built-in scene")
+    ap.add_argument("--large", choices=LARGE,
+                    help="a scene of the large-scene ladder (K5, K6)")
+    ap.add_argument("--scene", help="a JSON scene spec")
     ap.add_argument("--sky", help="HxW procedural sky for the demo or config4")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
@@ -266,7 +291,15 @@ def main(argv=None):
     if args.sky:
         h, w = (int(v) for v in args.sky.lower().split("x"))
         kw["sky_image"] = builders.procedural_sky_image(h, w)
-    scene = compile_scene(builders.DEMOS[args.demo](**kw), device)
+    if args.scene:
+        from ptx_torch.scenes.spec import SceneSpec
+        world = SceneSpec.load(args.scene).build()[0]
+        name = os.path.splitext(os.path.basename(args.scene))[0]
+    elif args.large:
+        world, name = large_world(args.large), args.large
+    else:
+        world, name = builders.DEMOS[args.demo](**kw), args.demo
+    scene = compile_scene(world, device)
     cam = Camera.reference_demo(args.size, args.size)
     rows = max(1, min(args.size, 2 ** 16 // args.size))
     args.grad = args.grad or args.train
@@ -312,7 +345,7 @@ def main(argv=None):
     with _layer_ranges(), grad_ranges, profile(activities=activities) as prof:
         run(rows, args.chunks)
     os.makedirs(args.out, exist_ok=True)
-    path = os.path.join(args.out, f"trace_{args.demo}"
+    path = os.path.join(args.out, f"trace_{name}"
                         f"{'_sky' + args.sky if args.sky else ''}"
                         f"{'_train' if args.train else '_grad' if args.grad else ''}.json")
     prof.export_chrome_trace(path)
@@ -323,12 +356,12 @@ def main(argv=None):
         s = summarize(json.load(f)["traceEvents"], tuple(names))
 
     wall_ms = min(walls) * 1e3
-    s.update(scene=args.demo, sky=args.sky, chunks=args.chunks, train=args.train,
+    s.update(scene=name, sky=args.sky, chunks=args.chunks, train=args.train,
              rays_per_chunk=args.size ** 2 * 16 if args.train else rows * args.size,
              peak_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30 if cuda else None,
              wall_ms=wall_ms, walls_ms=[w * 1e3 for w in walls],
              idle_share=1.0 - s["busy_ms"] / wall_ms)
-    print(f"{args.demo}{' sky ' + args.sky if args.sky else ''}: "
+    print(f"{name}{' sky ' + args.sky if args.sky else ''}: "
           f"{args.chunks} {'train steps' if args.train else 'chunks'} of "
           f"{s['rays_per_chunk']} rays, depth 16"
           f"{', forward + backward' if args.grad else ''}: unprofiled "

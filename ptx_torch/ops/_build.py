@@ -67,6 +67,18 @@ def _entry_points():
          [vp, vp, i, vp, i, i, i]         # params, const rows, M, image, H, W, C
          + [vp, vp, i, i, i, i]           # pos, mid, N, dyn material, xform, mirror
          + [vp] * 6 + [vp], i),           # em texel xi yi flags row, stream
+        ("ptx_megasweep_smem", [i, i, i], i),
+        ("ptx_megasweep",
+         [vp, i, vp, i]                   # scene floats, words, int table, words
+         + [i] * 11                       # L Lp ns n_rows tw n_flags offsets classes cull
+         + [vp, vp, i]                    # o, d, B
+         + [vp] * 5 + [i]                 # bounce-mode carry (or null), in_depth
+         + [vp] * 11 + [vp], i),          # outputs (null where unused), stream
+        ("ptx_replay_bwd_smem", [i], i),
+        ("ptx_replay_bwd",
+         [vp, i]                          # pack36 scene, L
+         + [vp] * 12 + [i]                # inputs, cotangents, B
+         + [vp] * 4 + [i, vp, vp], i),    # d_o d_d d_thr partial, blocks, acc, stream
         ("ptx_cuda_error_name", [i], ctypes.c_char_p),
     ]
 

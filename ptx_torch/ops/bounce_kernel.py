@@ -48,20 +48,26 @@ BWD_REFERENCE_CALLS = 0
 _MAT_STRIDE = 9      # rfl0 rfl1 rfl2 scatter_f tr0 tr1 tr2 transmit_reflect_f ior
 
 
+def material_rows(table, params):
+    """(M, 9) per material ``reflect₃, mean(scatter), transmit₃,
+    mean(transmit_reflect), ior``: the scalars the fused bounce kernels
+    (K1, K5) shade with (``csrc/shade_lane.cuh``)."""
+    const = params["const"]
+    idx = {s: torch.as_tensor(v, device=const.device)
+           for s, v in table.const_idx.items()}
+    return torch.cat([const[idx["reflect"]], mean3(const[idx["scatter"]])[:, None],
+                      const[idx["transmit"]],
+                      mean3(const[idx["transmit_reflect"]])[:, None],
+                      params["ior"][:, None]], dim=1)
+
+
 def pack_scene(plan, table, params):
     """K1's scene buffer (float32, on the params' device) and its layout
     ``(L, mat_off, tape_off, tape_len)``: K4's buffer
     (:func:`~ptx_torch.ops.fasthit_kernel.pack_geometry`: leaf records,
     geometry, the CSG tape), then ``M`` material rows of 9."""
     buf, (L, tape_off, tape_len) = pack_geometry(plan, params)
-    const = params["const"]
-    idx = {s: torch.as_tensor(v, device=const.device)
-           for s, v in table.const_idx.items()}
-    mat = torch.cat([const[idx["reflect"]], mean3(const[idx["scatter"]])[:, None],
-                     const[idx["transmit"]],
-                     mean3(const[idx["transmit_reflect"]])[:, None],
-                     params["ior"][:, None]], dim=1)
-    buf = torch.cat([buf, mat.reshape(-1)]).contiguous()
+    buf = torch.cat([buf, material_rows(table, params).reshape(-1)]).contiguous()
     if buf.numel() * 4 > MAX_SCENE_BYTES:
         raise NotImplementedError(f"scene buffer of {buf.numel() * 4} bytes "
                                   "exceeds the kernel's shared memory")
@@ -205,13 +211,18 @@ def pack_bwd(leaf_rows, table, params):
     ``pack_bwd``); ``leaf_rows`` is the scene's
     :class:`~ptx_torch.geom.hitreplay.LeafRows`.  Differentiable: its VJP
     maps the kernel's per-leaf sums back to the params."""
-    rows = leaf_rows(params).reshape(-1)
+    return torch.cat([leaf_rows(params).reshape(-1),
+                      bwd_material_rows(table, params).reshape(-1)])
+
+
+def bwd_material_rows(table, params):
+    """(M, 8) per material ``reflect₃, mean(scatter), transmit₃, ior``: the
+    material scalars the replay backward differentiates."""
     const = params["const"]
     idx = {s: torch.as_tensor(table.const_idx[s], device=const.device)
            for s in ("reflect", "scatter", "transmit")}
-    mat = torch.cat([const[idx["reflect"]], mean3(const[idx["scatter"]])[:, None],
-                     const[idx["transmit"]], params["ior"][:, None]], dim=1)
-    return torch.cat([rows, mat.reshape(-1)])
+    return torch.cat([const[idx["reflect"]], mean3(const[idx["scatter"]])[:, None],
+                      const[idx["transmit"]], params["ior"][:, None]], dim=1)
 
 
 def _normalize_cols(x, y, z):

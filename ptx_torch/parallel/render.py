@@ -48,7 +48,7 @@ def make_train_step(scene: CompiledScene, cam: Camera, spp: int = 16,
     def step(params, target, key):
         leaves = _leaves(params)
         xs = [x.detach().requires_grad_(True) for _, _, x in leaves]
-        p = {}
+        p = {k: [] for k, v in params.items() if isinstance(v, list)}   # an empty list too
         for (k, i, _), x in zip(leaves, xs):
             if i is None:
                 p[k] = x
@@ -57,7 +57,7 @@ def make_train_step(scene: CompiledScene, cam: Camera, spp: int = 16,
         img = _local_render(scene, cam, depth, spp, p, key, 0, cam.height)
         loss = torch.mean((img - target) ** 2)
         grads = torch.autograd.grad(loss, xs, allow_unused=True)
-        new = {}
+        new = {k: [] for k in p if isinstance(p[k], list)}
         with torch.no_grad():
             for (k, i, _), x, g in zip(leaves, xs, grads):
                 v = x.detach() if g is None else x.detach() - learning_rate * g

@@ -2,8 +2,8 @@
 
 Scene trees are host-side descriptions (numpy arrays and Python
 numbers); ``compile_scene`` moves their tables to the device.  Here: the
-demo world, the BASELINE configs 1-4 and the sky helpers; the stress
-scenes of the JAX module come with the large-scene slice.
+demo world, the BASELINE configs 1-4, the sky helpers and the stress
+scenes of the large-scene path (``stress_spheres``, ``stress_gadgets``).
 """
 
 from __future__ import annotations
@@ -190,6 +190,91 @@ def _checker_image(n=8):
     c = ((yy + xx) % 2).astype(np.float32)
     return np.stack([0.2 + 0.6 * c, 0.25 + 0.5 * c, 0.3 + 0.4 * c,
                      np.ones_like(c)], axis=-1)
+
+
+def _stress_sky(sky_image):
+    """Sky material of the stress scenes: constant emissive, or the demo's
+    rotated equirect image chain under ``sky_image`` (the reference's
+    big-scene workload: ``unionArray`` CSG under an HDR probe)."""
+    if sky_image is None:
+        return Material(reflect=0.0, scatter=0.0, emissive=(0.7, 0.8, 1.0))
+    return transform_material(
+        linalg.rotate_x(2 * math.pi / 4, _CPU).numpy(),
+        make_sky_spherical(sky_image, scale=(0.01, 0.01, 0.01)))
+
+
+def stress_spheres(n: int, seed: int = 0, sky_image=None, transformed: bool = False):
+    """``n`` spheres in a jittered grid over a ground plane under the sky
+    of :func:`_stress_sky` (the ``unionArray`` big-scene shape, test.cpp:
+    52-64); ``n + 7`` leaves.  ``transformed`` wraps every sphere in a
+    rotation × anisotropic scale about its centre (an ellipsoid)."""
+    rng = np.random.default_rng(seed)
+    mats = [
+        Material(reflect=(0.8, 0.3, 0.3), scatter=1.0),
+        Material(reflect=(0.3, 0.8, 0.3), scatter=1.0),
+        Material(reflect=(0.9, 0.9, 0.9), scatter=0.05),       # mirror-ish
+        Material(reflect=(0.9, 0.8, 0.3), scatter=1.0, emissive=(0.4, 0.3, 0.1)),
+    ]
+    side = max(1, int(math.ceil(math.sqrt(n))))
+    spheres = []
+    for i in range(n):
+        gx, gz = i % side, i // side
+        x = (gx - (side - 1) / 2) * 1.2 + rng.uniform(-0.25, 0.25)
+        z = -3.0 - gz * 1.2 + rng.uniform(-0.25, 0.25)
+        r = rng.uniform(0.15, 0.45)
+        s = Sphere((x, -1.0 + r, z), r, mats[i % len(mats)])
+        if transformed:
+            # rotate about the centre, then squash (outermost first)
+            c = np.asarray((x, -1.0 + r, z), np.float32)
+            t = linalg.compose(
+                linalg.translate(c, _CPU),
+                linalg.compose(
+                    linalg.rotate_y(rng.uniform(0, 2 * math.pi), _CPU),
+                    linalg.compose(linalg.scale((rng.uniform(0.7, 1.3), 0.8, 1.2), _CPU),
+                                   linalg.translate(-c, _CPU))))
+            s = Transformed(s, t.numpy())
+        spheres.append(s)
+    ground = Material(reflect=0.6, scatter=1.0)
+    return union_array([*spheres, Plane((0.0, 1.0, 0.0), 1.0, ground),
+                        *sky_planes(_stress_sky(sky_image))])
+
+
+def stress_gadgets(n: int, seed: int = 0, sky_image=None):
+    """``n`` compound gadgets in a jittered grid over a ground plane under
+    the sky of :func:`_stress_sky`, cycling through the reference's compound
+    vocabulary (test.cpp:126-144): a biconvex glass lens (sphere ∩
+    sphere), a glass bulb with an emissive core (sphere ∩ (plane ∪
+    sphere)) and a diffuse sphere with a spherical bite (sphere − sphere).
+    About ``2.3·n + 7`` leaves."""
+    rng = np.random.default_rng(seed)
+    glass = Material(reflect=0.7, scatter=0.0, transmit=0.9, ior=1.3,
+                     transmit_reflect=1.0)
+    diffuse = [Material(reflect=(0.8, 0.3, 0.3), scatter=1.0),
+               Material(reflect=(0.3, 0.8, 0.3), scatter=1.0)]
+    emit = Material(reflect=0.0, scatter=0.0, emissive=(2.0, 1.8, 1.2))
+    side = max(1, int(math.ceil(math.sqrt(n))))
+    gadgets = []
+    for i in range(n):
+        gx, gz = i % side, i // side
+        x = (gx - (side - 1) / 2) * 1.6 + rng.uniform(-0.3, 0.3)
+        z = -3.0 - gz * 1.6 + rng.uniform(-0.3, 0.3)
+        r = rng.uniform(0.3, 0.55)
+        c = (x, -1.0 + r, z)
+        kind = i % 3
+        if kind == 0:
+            gadgets.append(make_lens(c, (0.0, 0.3, 1.0), 0.6 * r, 1.2 * r, glass))
+        elif kind == 1:
+            gadgets.append(Intersection(
+                Sphere(c, r, glass),
+                Union(Plane.from_point((-1.0, 0.0, -0.7), c, glass),
+                      Sphere(c, 0.3 * r, emit))))
+        else:
+            bite = (c[0] + 0.6 * r, c[1] + 0.4 * r, c[2] + 0.5 * r)
+            gadgets.append(Difference(Sphere(c, r, diffuse[i % 2]),
+                                      Sphere(bite, 0.6 * r, diffuse[(i + 1) % 2])))
+    ground = Material(reflect=0.6, scatter=1.0)
+    return union_array([*gadgets, Plane((0.0, 1.0, 0.0), 1.0, ground),
+                        *sky_planes(_stress_sky(sky_image))])
 
 
 DEMOS = {"demo": make_world, "config1": baseline_config1,

@@ -143,7 +143,10 @@ class MaterialTable:
     def _emissive(self, params, pos, mat_id, skip=()):
         const = params["const"]
         idx = torch.as_tensor(self.const_idx["emissive"], device=const.device)
-        val = const[idx][mat_id]
+        # index_select, not [mat_id]: its transpose is index_add_, where that
+        # of [mat_id] sorts every record to sum a few rows (2.9 s of a large
+        # scene's train step on the card, all-constant emission)
+        val = const[idx].index_select(0, mat_id.reshape(-1)).reshape(mat_id.shape + (3,))
         for mi, fn in self._dynamic["emissive"]:
             if mi not in skip:
                 val = torch.where((mat_id == mi)[..., None], fn(params, pos), val)

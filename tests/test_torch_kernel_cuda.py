@@ -1,6 +1,7 @@
 """The CUDA kernels on the card against their plain PyTorch versions: K1
 (bounce), K2 (replay backward), K3 and K8 (image-gather transposes), K4
-(first hit) and K7 (emission).
+(first hit), K5 (megasweep: hit and bounce modes, 16- and 32-column
+tables), K6 (row-fed replay backward) and K7 (emission).
 
 This file imports no jax, so it runs on a machine with a card and no jax:
 
@@ -17,7 +18,9 @@ value's error against a float64 recompute plus 1e-4 relative (near-grazing
 lanes are ill-conditioned).  K3 and K8 add with atomics in a varying
 order: ``1e-5`` of each texel's sum of |ct|.  K4 must equal the dense hit
 as K1 does; K7 its plain lanes, with texel indices equal except where a
-float64 recompute puts the lane within 1e-6 of a texel boundary.
+float64 recompute puts the lane within 1e-6 of a texel boundary.  K5 must
+equal its plain version as K1 does, and culling must not change a bit;
+K6 is held as K2.
 """
 
 import pytest
@@ -291,3 +294,90 @@ def test_k7_matches_its_plain_version(monkeypatch):
         torch.testing.assert_close(pk[k].grad, pp[k].grad, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(pk["images"][kern.img_id].grad,
                                pp["images"][kern.img_id].grad, rtol=1e-4, atol=1e-5)
+
+
+@pytest.fixture(scope="module", params=["spheres", "gadgets", "ellipsoids"])
+def large_cuda(request):
+    """A 32-leaf sphere scene (16-column table), a 35-leaf gadget scene and a
+    30-leaf ellipsoid scene (32-column table), on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the megasweep kernel has no CPU mode")
+    from ptx_torch.scenes import builders
+    world = {"spheres": lambda: builders.stress_spheres(25),
+             "gadgets": lambda: builders.stress_gadgets(12, seed=4),
+             "ellipsoids": lambda: builders.stress_spheres(23, seed=7, transformed=True)}
+    return trace.compile_scene(world[request.param](), torch.device("cuda"))
+
+
+@pytest.mark.cuda
+def test_k5_bounce_mode_matches_its_plain_version(large_cuda):
+    """Three chained bounces of 64×64 primary rays: K5 in bounce mode vs
+    the sweep + the plain shading; cull on and off the same bits."""
+    from ptx_torch.ops import megasweep
+    scene, dev = large_cuda, large_cuda.device
+    o, d = sample_rays(Camera.reference_demo(64, 64), rng.PRNGKey(0), range(64), range(64), 1,
+                       dev)
+    n = 64 * 64
+    carry = (o.reshape(-1, 3), d.reshape(-1, 3), torch.ones((n, 3), device=dev),
+             torch.ones(n, device=dev), torch.ones(n, dtype=torch.bool, device=dev))
+    launches = megasweep.MegaSweepKernel.LAUNCHES
+    for b in range(3):
+        uc = rng.uniform(rng.PRNGKey(b), (n,), dev)
+        u3 = rng.uniform(rng.PRNGKey(100 + b), (n, 3), dev)
+        kb = scene.bounce_fn(scene.params, *carry, uc, u3, True)
+        nc = scene.bounce_fn(scene.params, *carry, uc, u3, True, cull=False)
+        ref = bounce_kernel.bounce_reference(scene, scene.params, *carry, uc, u3, True)
+        torch.cuda.synchronize()
+        for k in kb:
+            assert torch.equal(kb[k], nc[k]), k
+        for k in _DECISIONS:
+            assert torch.equal(kb[k], ref[k]), (b, k)
+        for k in _FLOATS:
+            torch.testing.assert_close(kb[k], ref[k], rtol=1e-5, atol=5e-6)
+        h = ref["hit"]
+        torch.testing.assert_close(kb["u_sel"][h], ref["u_sel"][h], rtol=1e-5, atol=5e-6)
+        carry = (kb["o2"], kb["d2"], kb["thr2"], kb["strength2"], kb["alive2"])
+    assert megasweep.MegaSweepKernel.LAUNCHES == launches + 6
+
+
+@pytest.mark.cuda
+def test_k5_hit_mode_matches_its_plain_version(large_cuda):
+    from ptx_torch.ops import megasweep
+    scene, dev = large_cuda, large_cuda.device
+    o, d = sample_rays(Camera.reference_demo(64, 64), rng.PRNGKey(1), range(64), range(64), 1,
+                       dev)
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    calls = megasweep.REFERENCE_CALLS
+    got = scene.hit_fn(scene.params, o, d)
+    assert megasweep.REFERENCE_CALLS == calls
+    want = scene.plain_hit_fn(scene.params, o, d)
+    torch.cuda.synchronize()
+    for k in ("_evt", "hit", "entering", "mat_id"):
+        assert torch.equal(got[k], want[k]), k
+    torch.testing.assert_close(got["t"], want["t"], rtol=1e-5, atol=5e-6)
+    torch.testing.assert_close(got["normal"], want["normal"], rtol=1e-5, atol=5e-6)
+
+
+@pytest.mark.cuda
+def test_k6_matches_its_plain_version(large_cuda):
+    from ptx_torch.ops.replay_bwd import RowFedReplayBwd
+    scene = large_cuda
+    carry, dec, cts = _k2_inputs(scene)
+    kern = scene.bounce_bwd_fn
+    assert isinstance(kern, RowFedReplayBwd)
+    p36 = kern.pack36(scene.params).detach()
+    packed = kern.pack(scene.params).detach()
+    launches = RowFedReplayBwd.LAUNCHES
+    got = kern.launch(p36, *carry[:3], dec, *cts)
+    again = kern.launch(p36, *carry[:3], dec, *cts)
+    ref = bounce_kernel.bounce_bwd_lanes_reference(packed, kern.aux, *carry[:3], dec, *cts)
+    ref64 = bounce_kernel.bounce_bwd_lanes_reference(
+        packed.double(), kern.aux.double(), *(x.double() for x in carry[:3]),
+        dict(dec, u_sel=dec["u_sel"].double()), *(c.double() for c in cts))
+    torch.cuda.synchronize()
+    assert RowFedReplayBwd.LAUNCHES == launches + 2
+    for g, w, t in zip(got[:3], ref[:3], ref64[:3]):
+        _close(g, w, t)
+    _close(got[3], ref[3], ref64[3], ref64[4])
+    for a, b in zip(got, again):            # the two-pass reduction is deterministic
+        assert torch.equal(a, b)

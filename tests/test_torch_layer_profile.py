@@ -102,3 +102,35 @@ def test_backward_ranges_tag_the_layers_nodes():
     assert trace._bounce is before
     names = {e.name for e in prof.events()}
     assert {"bounce_bwd", "emission_bwd", "sky_hist"} <= names
+
+
+def test_summarize_counts_the_large_scene_kernels_apart_from_k2():
+    """K5 and K6 are counted by their own names: K6's two launches (the
+    replay and its reduction) apart from K2's."""
+    events = [
+        _x("kernel", "(anonymous namespace)::megasweep_kernel(Args)", 0.0, 8.0),
+        _x("kernel", "(anonymous namespace)::replay_bwd_kernel(float const*)", 10.0, 6.0),
+        _x("kernel", "(anonymous namespace)::replay_bwd_reduce_kernel(float const*)", 20.0,
+           2.0),
+        _x("kernel", "(anonymous namespace)::bounce_bwd_kernel(float const*)", 30.0, 3.0),
+        _x("kernel", "(anonymous namespace)::reduce_partials_kernel(float const*)", 40.0, 1.0),
+    ]
+    s = summarize(events, ())
+    assert s["k5_calls"] == 1 and s["k5_mean_us"] == pytest.approx(8.0)
+    assert s["k6_calls"] == 1 and s["k6_mean_us"] == pytest.approx(8.0)
+    assert s["k2_calls"] == 1 and s["k2_mean_us"] == pytest.approx(4.0)
+
+
+def test_layer_profile_runs_a_large_scene_on_the_cpu(tmp_path, capsys):
+    """The S2 gadget scene (268 leaves) forward and backward at 16²: the
+    rehearsal of the card's profile (no device figures on the CPU)."""
+    import json
+
+    from ptx_torch.layer_profile import main
+
+    assert main(["--device", "cpu", "--size", "16", "--chunks", "1", "--large", "S2",
+                 "--grad", "--out", str(tmp_path)]) == 0
+    s = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert s["scene"] == "S2" and s["peak_gib"] is None and s["rays_per_chunk"] == 16 * 16
+    assert s["layers"]["bounce"]["host_share"] > 0
+    assert (tmp_path / "trace_S2_grad.json").exists()
