@@ -122,6 +122,37 @@ D7. S1, S2 at 65,536 lanes: K5 (wrapper, bare launch, plain), K6
     (wrapper, bare launch, plain), and K6's bare launch at 4,194,304
     lanes (a D5 step's widest backward), each beside its bound.
 
+Path E, the union sweep's other modes (K9, the sweep-select kernel; the
+local membership fold; the candidate-blocked hit) on S1, S2 under
+``PTX_SWEEP_MODE=kernel PTX_MEGAB=0`` (no K5), a bitten union (48 spheres
+with four spherical bites each over the ground plane under the stress sky:
+247 leaves, past the megasweep's slot algebra) under
+``PTX_SWEEP_MODE=kernel`` and by default (the fixpoint sweep), and a carved
+tape (a sphere intersected with a union of 64 spheres, the ground, the sky:
+72 leaves, no union of small groups: the blocked hit); each with the
+unfused bounce on its hit and K6:
+E1. S1, S2, the bitten union in kernel mode: on every bounce of the D2
+    chunk (65,536 / 21,845 / 4,096 lanes) each hit's intervals recomputed
+    from its rays, K9 as called (``sort=False``, stable-sorted starts) and
+    K9 ``sort=True`` (unsorted) against ``sweep_select_reference``: 0
+    differing lanes in all five outputs; the whole hit equal to the
+    ``fixpoint`` and ``sort`` modes' bit for bit; on S1 and S2 equal to K5's
+    plain version except float64-adjudicated near-ties; the fixpoint's
+    passes per bounce;
+E2. gradients, kernel path vs plain path as phase 6: S2 (kernel mode, K9's
+    plain version on the plain path), the bitten union (fixpoint), the
+    carved tape (blocked);
+E3. 3 ``make_train_step`` steps each at 512², spp 4, d16 (1,048,576 rays:
+    the sweep holds (L, B) tensors per bounce): S1, S2 and the bitten union
+    in kernel mode K9 17 and K6 16 per step; the bitten union by default and
+    the carved tape K6 16; nothing else, no plain call; seconds per step,
+    peak memory;
+E4. ``render --scene scenes/composed.json`` under ``PTX_SWEEP_MODE=kernel
+    PTX_MEGAB=0``: K9 4 × 16 × 9 = 576, K5 0, tile ordering in every call;
+E5. S1, S2 at 65,536 lanes on E1's inputs: K9 (wrapper, bare launch with
+    ``sort=False`` and ``sort=True``, plain) and, as context, the
+    ``torch.sort`` of the starts, beside the bound from bytes.
+
 Then:
 9. a forward + backward chunk at the bench's shape (128 rows × 512, spp 1,
    depth 16, ``loss = radiance.mean()``): rays/s over the median of 10
@@ -133,9 +164,9 @@ Then:
     for K3 and K8 also the library call ``index_put_(accumulate=True)``;
     the least time the card could take (``bound_ms``) from this run's
     inputs;
-11. the JSON lines: the eight kernels (launches from the paths' train
+11. the JSON lines: the nine kernels (launches from the paths' train
     steps: the demo's for K1-K3, config 4's for K4, S1's for K5 and K6,
-    C2's for K7, the probe's for K8), then the device.
+    C2's for K7, the probe's for K8, E3's S1 for K9), then the device.
 
 Outputs (the rendered image, the nvcc report) go to ``build/chip_smoke/``.
 """
@@ -792,10 +823,11 @@ def _plain_scene(scene):
         emission_fn=scene.material_fn.eval_emissive if scene.emission_fn else None)
 
 
-def phase_gradients(scene, tag="6 gradients"):
+def phase_gradients(scene, tag="6 gradients", plain_cm=None):
     """Kernel path vs plain path on a compacted 32-row band at spp 2; the
     plain path runs every kernel's plain version, ``hist_reference`` for
-    the histograms."""
+    the histograms, and ``plain_cm`` (a context manager) around it where a
+    kernel is reached through a module function."""
     import torch
     from ptx_torch.core import rng
     from ptx_torch.integrate.camera import Camera, sample_rays
@@ -816,7 +848,8 @@ def phase_gradients(scene, tag="6 gradients"):
     plain_hist = imagegrad.hist
     imagegrad.hist = imagegrad.hist_reference
     try:
-        g_p = grads(_plain_scene(scene))
+        with plain_cm or contextlib.nullcontext():
+            g_p = grads(_plain_scene(scene))
     finally:
         imagegrad.hist = plain_hist
     offs = _close_per_tensor(f"{tag}: gradients kernel vs plain", g_k, g_p)
@@ -837,7 +870,7 @@ def phase_gradients(scene, tag="6 gradients"):
 
 def _reset_counters():
     from ptx_torch.ops import bounce_kernel as bk, emission_kernel as ek
-    from ptx_torch.ops import fasthit_kernel as fk, imagegrad, megasweep
+    from ptx_torch.ops import fasthit_kernel as fk, imagegrad, megasweep, sweep_kernel
     from ptx_torch.ops.replay_bwd import RowFedReplayBwd
 
     bk.LAUNCHES = bk.REFERENCE_CALLS = bk.BWD_REFERENCE_CALLS = 0
@@ -848,33 +881,37 @@ def _reset_counters():
     ek.LAUNCHES = ek.REFERENCE_CALLS = 0
     megasweep.MegaSweepKernel.LAUNCHES = megasweep.REFERENCE_CALLS = 0
     RowFedReplayBwd.LAUNCHES = 0
+    sweep_kernel.LAUNCHES = sweep_kernel.REFERENCE_CALLS = 0
 
 
 def _counters():
     from ptx_torch.ops import bounce_kernel as bk, emission_kernel as ek
-    from ptx_torch.ops import fasthit_kernel as fk, imagegrad, megasweep
+    from ptx_torch.ops import fasthit_kernel as fk, imagegrad, megasweep, sweep_kernel
     from ptx_torch.ops.replay_bwd import RowFedReplayBwd
 
     return {"K1": bk.LAUNCHES, "K2": bk.BounceBwdKernel.LAUNCHES,
             "K3": imagegrad.LAUNCHES, "K4": fk.LAUNCHES,
             "K5": megasweep.MegaSweepKernel.LAUNCHES, "K6": RowFedReplayBwd.LAUNCHES,
             "K7": ek.LAUNCHES, "K8": imagegrad.BandedHistKernel.LAUNCHES,
+            "K9": sweep_kernel.LAUNCHES,
             "plain": (bk.REFERENCE_CALLS + bk.BWD_REFERENCE_CALLS + imagegrad.REFERENCE_CALLS
-                      + fk.REFERENCE_CALLS + ek.REFERENCE_CALLS + megasweep.REFERENCE_CALLS)}
+                      + fk.REFERENCE_CALLS + ek.REFERENCE_CALLS + megasweep.REFERENCE_CALLS
+                      + sweep_kernel.REFERENCE_CALLS)}
 
 
 def _expect(**per_kernel):
     """Exact launch counts: the given kernels, every other kernel 0, and
     no plain-version call."""
-    out = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "plain"), 0)
+    out = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "plain"), 0)
     out.update(per_kernel)
     return out
 
 
-def phase_train(scene, tag, expect, recorder=None):
-    """3 ``make_train_step`` steps at full size, the counters zeroed just
-    before; ``expect`` the exact launch counts of the 3 steps; ``recorder``
-    an optional context manager held around the steps."""
+def phase_train(scene, tag, expect, recorder=None, spp=SPP):
+    """3 ``make_train_step`` steps at full size (512², ``spp``, depth 16),
+    the counters zeroed just before; ``expect`` the exact launch counts of
+    the 3 steps; ``recorder`` an optional context manager held around the
+    steps."""
     import math
 
     import torch
@@ -884,13 +921,13 @@ def phase_train(scene, tag, expect, recorder=None):
 
     cam = Camera.reference_demo(W, H)
     with torch.no_grad():
-        target = _local_render(scene, cam, DEPTH, SPP, scene.params, rng.PRNGKey(1), 0, H)
+        target = _local_render(scene, cam, DEPTH, spp, scene.params, rng.PRNGKey(1), 0, H)
     params = dict(scene.params)
     params["sphere_radius"] = scene.params["sphere_radius"] * 1.05
     const = scene.params["const"].clone()
     const[0] -= 0.1
     params["const"] = const
-    step = make_train_step(scene, cam, spp=SPP, depth=DEPTH, learning_rate=LR)
+    step = make_train_step(scene, cam, spp=spp, depth=DEPTH, learning_rate=LR)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     secs = []
@@ -914,7 +951,7 @@ def phase_train(scene, tag, expect, recorder=None):
             params = new
         c = _counters()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"[{tag}] {W}x{H} spp {SPP} depth {DEPTH} ({W * H * SPP:,} rays per step): "
+    log(f"[{tag}] {W}x{H} spp {spp} depth {DEPTH} ({W * H * spp:,} rays per step): "
         f"launches {c} (expected {expect}); peak memory {peak:.3f} GiB; "
         f"seconds per step {[round(x, 4) for x in secs]}")
     if c != expect:
@@ -1115,16 +1152,19 @@ def _all(*cms):
 
 
 class _RecordingHit:
-    """K4's wrapper, logging each call's rays and output."""
+    """A hit (K4's wrapper, or any ``hit_fn``), logging each call's rays
+    and output."""
 
     def __init__(self, kern, log_list):
         self.kern, self.log = kern, log_list
 
     def pack(self, params):
-        return self.kern.pack(params)
+        pack = getattr(self.kern, "pack", None)
+        return pack(params) if pack is not None else None
 
     def __call__(self, params, o, d, packed=None):
-        out = self.kern(params, o, d, packed=packed)
+        out = (self.kern(params, o, d) if packed is None
+               else self.kern(params, o, d, packed=packed))
         self.log.append((o, d, out))
         return out
 
@@ -1138,10 +1178,11 @@ def _recording_em(kern, log_list):
     return call
 
 
-def compare_hit(scene, o, d, out_k, out_p):
-    """K4 vs the dense hit on one wavefront: (flips, max_abs_err); raises on
-    a flip a float64 recompute does not put at a near-tie, or a float
-    outside ``rtol 1e-5, atol 5e-6`` (the normal on hit lanes)."""
+def compare_hit(scene, o, d, out_k, out_p, name="K4"):
+    """K4 (or ``name``) vs the plain hit on one wavefront: (flips,
+    max_abs_err); raises on a flip a float64 recompute does not put at a
+    near-tie, or a float outside ``rtol 1e-5, atol 5e-6`` (the normal on hit
+    lanes)."""
     import torch
 
     differ = torch.zeros_like(out_k["hit"])
@@ -1154,12 +1195,13 @@ def compare_hit(scene, o, d, out_k, out_p):
                             lanes)
         ok = tied(out_k["_evt"]) | tied(out_p["_evt"])
         if not bool(ok.all()):
-            raise AssertionError(f"K4: {int((~ok).sum())} unexplained decision flips, "
+            raise AssertionError(f"{name}: {int((~ok).sum())} unexplained decision flips, "
                                  f"lanes {lanes[~ok][:8].tolist()}")
     max_err = 0.0
     for k, keep in (("t", ~differ), ("normal", ~differ & out_p["hit"])):
         a, b = out_k[k][keep], out_p[k][keep]
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=5e-6, msg=lambda m: f"K4 {k}: {m}")
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=5e-6,
+                                   msg=lambda m: f"{name} {k}: {m}")
         max_err = max(max_err, float((a - b).abs().max()) if a.numel() else 0.0)
     return int(lanes.numel()), max_err
 
@@ -1378,17 +1420,25 @@ def phase_timing_small(c4, k4_in, pe, k7_in, k8_in):
     return k4_t, k7_t, k8_t
 
 
+@contextlib.contextmanager
+def _env(**kv):
+    """The environment variables ``kv`` set for the block, restored after."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update(kv)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            os.environ.pop(k) if v is None else os.environ.__setitem__(k, v)
+
+
 def _compile_with_emk(root, device):
     """``compile_scene`` with ``PTX_EMK=1`` set around it, as
     tests/test_emission_kernel.py:26-30 does for the JAX package."""
     from ptx_torch.integrate.trace import compile_scene
 
-    old = os.environ.get("PTX_EMK")
-    os.environ["PTX_EMK"] = "1"
-    try:
+    with _env(PTX_EMK="1"):
         scene = compile_scene(root, device)
-    finally:
-        os.environ.pop("PTX_EMK") if old is None else os.environ.__setitem__("PTX_EMK", old)
     if scene.emission_fn is None:
         raise AssertionError("PTX_EMK=1 did not build the emission kernel")
     return scene
@@ -1548,11 +1598,13 @@ def phase_train_large(scene, tag, expect, keep_widest=False):
     return c, secs, peak, (widest.calls[0] if keep_widest else None)
 
 
-def phase_render_scene(tag):
-    """D6: ``python -m ptx_torch render --scene scenes/composed.json`` (512²,
-    spp 16, depth 8 from the spec) through ``ptx_torch.cli.main``, counters
-    zeroed just before: K5 4 bands × 16 samples × 9 bounces, tile ordering
-    on in every ``trace_rays`` call, nothing else."""
+def phase_render_scene(tag, kernel="K5"):
+    """D6 (E4): ``python -m ptx_torch render --scene scenes/composed.json``
+    (512², spp 16, depth 8 from the spec) through ``ptx_torch.cli.main``,
+    counters zeroed just before: ``kernel`` (K5; K9 under
+    ``PTX_SWEEP_MODE=kernel PTX_MEGAB=0``) 4 bands × 16 samples × 9
+    bounces, tile ordering on in every ``trace_rays`` call, nothing
+    else."""
     import numpy as np
     import torch
     from ptx_torch import cli
@@ -1568,7 +1620,7 @@ def phase_render_scene(tag):
     c = _counters()
     tiled = trace.TILE_ORDERED - tiled
     spp, depth = 16, 8
-    expect = _expect(K5=(H // BAND_ROWS) * spp * (depth + 1))
+    expect = _expect(**{kernel: (H // BAND_ROWS) * spp * (depth + 1)})
     rays = W * H * spp * (depth + 1)
     log(f"[{tag}] render --scene scenes/composed.json {W}x{H} spp {spp} depth {depth}: wall "
         f"{wall:.3f} s incl. scene compile and image writes, {rays / wall:.4g} rays/s; "
@@ -1633,6 +1685,249 @@ def phase_timing_large(scene, tag, k5_in, k6_in, k6_wide):
         f"{k6_bound[0]:.4g} ms ({k6_bound[1]}){wide}")
     return ((min(w1, w2), min(p1, p2), k5_bound, min(b1, b2)),
             (min(v1, v2), min(q1, q2), k6_bound, min(c1, c2)))
+
+
+# ---------------------------------------------------------------------------
+# path E, the union sweep's other modes: K9 (sweep select), the local fold,
+# the candidate-blocked hit
+# ---------------------------------------------------------------------------
+
+SPP_E = 4               # path E's train steps: 1,048,576 rays (module docstring)
+K9_OUTPUTS = ("t_star", "entering", "m_start", "m_end", "found")
+_STRESS_SKY = dict(reflect=0.0, scatter=0.0, emissive=(0.7, 0.8, 1.0))
+
+
+def _bitten_union(n=48):
+    """``n`` spheres with four spherical bites each (``Difference(sphere,
+    Union(4 bites))``, past the megasweep's slot algebra) in a jittered
+    grid over the ground plane under the stress sky: ``5n + 7`` leaves."""
+    import math
+
+    import numpy as np
+    from ptx_torch.geom.tape import Difference, Plane, Sphere, Union
+    from ptx_torch.scenes import builders
+    from ptx_torch.shade.materials import Material
+
+    diffuse = [Material(reflect=(0.8, 0.3, 0.3), scatter=1.0),
+               Material(reflect=(0.3, 0.8, 0.3), scatter=1.0)]
+    r = np.random.default_rng(5)
+    side = max(1, int(math.ceil(math.sqrt(n))))
+    gadgets = []
+    for i in range(n):
+        rad = r.uniform(0.3, 0.5)
+        c = np.array([(i % side - (side - 1) / 2) * 1.4 + r.uniform(-0.2, 0.2), -1.0 + rad,
+                      -3.0 - (i // side) * 1.4 + r.uniform(-0.2, 0.2)])
+        bites = [Sphere(c + 0.8 * rad * np.array([math.cos(a), 0.4, math.sin(a)]), 0.45 * rad,
+                        diffuse[(i + 1) % 2]) for a in (0.3, 1.9, 3.5, 5.1)]
+        gadgets.append(Difference(Sphere(c, rad, diffuse[i % 2]), Union(*bites)))
+    return builders.union_array([*gadgets, Plane((0.0, 1.0, 0.0), 1.0,
+                                                 Material(reflect=0.6, scatter=1.0)),
+                                 *builders.sky_planes(Material(**_STRESS_SKY))])
+
+
+def _carved_tape():
+    """``Union(Intersection(big sphere, union_array(64 spheres)), ground,
+    sky planes)``: 72 leaves, no union of small groups."""
+    import numpy as np
+    from ptx_torch.geom.tape import Intersection, Plane, Sphere, Union
+    from ptx_torch.scenes import builders
+    from ptx_torch.shade.materials import Material
+
+    m = Material(reflect=(0.7, 0.5, 0.3), scatter=0.5)
+    r = np.random.default_rng(9)
+    balls = [Sphere((r.uniform(-2, 2), r.uniform(-1, 1.5), r.uniform(-7, -3)),
+                    r.uniform(0.3, 0.7), m) for _ in range(64)]
+    return Union(Intersection(Sphere((0.0, 0.0, -5.0), 2.2, m), builders.union_array(balls)),
+                 Plane((0.0, 1.0, 0.0), 1.0, Material(reflect=0.6, scatter=1.0)),
+                 *builders.sky_planes(Material(**_STRESS_SKY)))
+
+
+def _sweep_scenes():
+    """Path E's worlds and the environment each compiles under."""
+    from ptx_torch.scenes import builders
+
+    kernel = dict(PTX_SWEEP_MODE="kernel", PTX_MEGAB="0")
+    return {"S1": (lambda: builders.stress_spheres(249), kernel),
+            "S2": (lambda: builders.stress_gadgets(112), kernel),
+            "bitten": (_bitten_union, dict(PTX_SWEEP_MODE="kernel")),
+            "bitten-default": (_bitten_union, {}),
+            "carved": (_carved_tape, {})}
+
+
+def _compile_e(name, dev):
+    from ptx_torch.geom import fasthit
+    from ptx_torch.integrate.trace import compile_scene
+
+    make, env = _sweep_scenes()[name]
+    with _env(**env):
+        scene = compile_scene(make(), dev)
+    want = {"bitten-default": (fasthit.UnionSweepHit, "fixpoint"),
+            "carved": (fasthit.BlockedHit, None)}.get(name, (fasthit.UnionSweepHit, "kernel"))
+    if not isinstance(scene.hit_fn, want[0]) or getattr(scene.hit_fn, "mode", None) != want[1]:
+        raise AssertionError(f"E {name}: hit {type(scene.hit_fn).__name__} "
+                             f"{getattr(scene.hit_fn, 'mode', '')}, expected {want}")
+    return scene
+
+
+def _plain_select(s, e, t0, t1, L, eps, sort=False):
+    """K9's plain version in the wrapper's place (the plain path of E2)."""
+    from ptx_torch.ops import sweep_kernel
+
+    return sweep_kernel.sweep_select_reference(s, e, t0, t1, L, eps, sort)
+
+
+def phase_k9_chunk(scene, tag, k5_check):
+    """E1: the kernel-mode sweep on every bounce of one compacted 65,536-ray
+    chunk (the D2 chunk: widths 65,536 / 21,845 / 4,096), each hit's
+    intervals recomputed from its rays: K9 as called (``sort=False`` on the
+    stable-sorted starts) and K9 ``sort=True`` (on the unsorted valid-masked
+    intervals) against ``sweep_select_reference``, 0 differing lanes in all
+    five outputs; the whole hit equal to the ``fixpoint`` and ``sort``
+    modes' bit for bit; with ``k5_check``, equal to K5's plain version
+    (``megasweep_reference``) except float64-adjudicated near-ties.
+    Returns (lanes compared, K9's max_abs_err against its plain version,
+    flips vs K5's plain version, max_abs_err of the hits' floats against it,
+    the fixpoint passes per bounce, the first 65,536-lane K9 inputs)."""
+    import torch
+    from ptx_torch.core import rng
+    from ptx_torch.core.constants import EPS
+    from ptx_torch.geom import fasthit
+    from ptx_torch.integrate.trace import trace_rays
+    from ptx_torch.ops import sweep_kernel
+
+    key = rng.fold(rng.PRNGKey(0), 0, 4)
+    o, d = _full_frame_chunk(scene, key)
+    rec = []
+    with _swapped(scene, "hit_fn", _RecordingHit(scene.hit_fn, rec)), torch.no_grad():
+        trace_rays(scene, scene.params, o, d, key, DEPTH)
+    torch.cuda.synchronize()
+    widths = [ob.shape[0] for ob, _, _ in rec]
+    if widths != _wavefront_widths(BAND_ROWS * W, DEPTH):
+        raise AssertionError(f"{tag}: hit widths {widths}")
+    hit = scene.hit_fn
+    other = {m: fasthit.UnionSweepHit(scene.plan, hit.leaves, m) for m in ("fixpoint", "sort")}
+    mega = (fasthit.compile_fast_hit(scene.plan, scene.params, sweep_mode="mega")
+            if k5_check else None)
+    lanes, k9_err, flips, err, passes, first = 0, 0.0, 0, 0.0, [], None
+    for b, (ob, db, out_k) in enumerate(rec):
+        with torch.no_grad():
+            t0, t1, s, e = hit.intervals(scene.params, ob, db)
+            s_s, idx = torch.sort(s, dim=0, stable=True)
+            e_s = e.gather(0, idx)
+            want = sweep_kernel.sweep_select_reference(s_s, e_s, t0, t1, hit.L, EPS, False)
+            got = {"sort=False": sweep_kernel.launch(s_s, e_s, t0, t1, hit.L, EPS, False),
+                   "sort=True": sweep_kernel.launch(s, e, t0, t1, hit.L, EPS, True)}
+            modes = {m: h(scene.params, ob, db) for m, h in other.items()}
+        torch.cuda.synchronize()
+        for flag, g in got.items():
+            bad = {n: int((a != w).sum()) for n, a, w in zip(K9_OUTPUTS, g, want)}
+            if any(bad.values()):
+                raise AssertionError(f"{tag}: bounce {b}: K9 {flag} differs from its plain "
+                                     f"version on {bad} lanes")
+            k9_err = max([k9_err] + [float((a.double() - w.double()).abs().max())
+                                     for a, w in zip(g, want)])
+        for m, out in modes.items():
+            if not all(torch.equal(out_k[k], out[k]) for k in out_k):
+                raise AssertionError(f"{tag}: bounce {b}: kernel mode differs from {m} mode")
+        passes.append(other["fixpoint"].last_passes)
+        lanes += ob.shape[0]
+        if first is None and ob.shape[0] == BAND_ROWS * W:
+            first = (s_s, e_s, t0, t1, s, e, hit.L)
+        msg = ""
+        if mega is not None:
+            with torch.no_grad():
+                out_p = mega(scene.params, ob, db)
+            torch.cuda.synchronize()
+            f, e_ = compare_hit(scene, ob, db, out_k, out_p, name=f"{tag} vs K5 plain")
+            flips, err = flips + f, max(err, e_)
+            msg = f"; vs K5's plain version: flips={f} max_abs_err={e_:.3g}"
+        log(f"[{tag}] bounce {b}: B={ob.shape[0]} S={s.shape[0]} L={hit.L} "
+            f"hit={int(out_k['hit'].sum())} entering={int(out_k['entering'].sum())}: K9 "
+            f"sort=False and sort=True == plain on every lane of all five outputs; kernel "
+            f"== fixpoint == sort mode bit for bit; fixpoint passes {passes[-1]}{msg}")
+    return lanes, k9_err, flips, err, passes, first
+
+
+def bound_k9(S, L, B, out_bytes):
+    """K9 at B lanes: reads s, e (S rows) and t0, t1 (L rows), writes its
+    outputs once (``out_bytes`` a lane); ~6 compares and selects per
+    (row, lane) of the sweep, 2 per (leaf, lane) of the payload match."""
+    return _bound((2 * S + 2 * L) * B * 4 + out_bytes * B, (6 * S + 2 * L) * B)
+
+
+def phase_timing_k9(tag, inputs):
+    """E5: at 65,536 lanes on a chunk's recorded K9 inputs, K9's wrapper
+    as the sweep calls it, its bare launch (``sort=False`` and ``sort=True``,
+    outputs allocated once), its plain version and, as context, the
+    ``torch.sort`` of the starts the kernel mode runs before it; each the
+    median of 20 single calls between CUDA events (bare: mean of 20 back to
+    back), in turns plain, kernel, kernel, plain."""
+    import torch
+    from ptx_torch.core.constants import EPS
+    from ptx_torch.ops import _build, sweep_kernel
+    from ptx_torch.ops.bounce_kernel import _ptr, _stream
+
+    s_s, e_s, t0, t1, s, e, L = inputs
+    S, B = s.shape
+    lib = _build.library()
+    outs = sweep_kernel.launch(s_s, e_s, t0, t1, L, EPS, False)
+    Sp = sweep_kernel.padded_rows(S)
+
+    def bare(sort):
+        a, b = (s, e) if sort else (s_s, e_s)
+        err = lib.ptx_sweep_select(_ptr(a), _ptr(b), S, _ptr(t0), _ptr(t1), L, B, float(EPS),
+                                   int(sort), Sp if sort else S,
+                                   sweep_kernel.tile_width(Sp) if sort else 0,
+                                   *(_ptr(x) for x in outs), _stream(s.device))
+        if err:
+            raise AssertionError(f"{tag}: K9 launch failed: CUDA error {err}")
+
+    wrap = lambda: sweep_kernel.sweep_select(s_s, e_s, t0, t1, L, EPS)
+    plain = lambda: sweep_kernel.sweep_select_reference(s_s, e_s, t0, t1, L, EPS, False)
+    p1, w1, w2, p2 = _time_ms(plain), _time_ms(wrap), _time_ms(wrap), _time_ms(plain)
+    b1, b2 = _time_back_to_back_ms(lambda: bare(False)), _time_back_to_back_ms(lambda: bare(False))
+    q1, q2 = _time_back_to_back_ms(lambda: bare(True)), _time_back_to_back_ms(lambda: bare(True))
+    srt = _time_ms(lambda: torch.sort(s, dim=0, stable=True))
+    bound = bound_k9(S, L, B, sum(x.element_size() for x in outs))
+    log(f"[{tag}] K9 at B={B} (S={S}, L={L}): wrapper {w1:.4f} / {w2:.4f} ms; bare launch "
+        f"sort=False {b1:.4f} / {b2:.4f} ms, sort=True (Sp={Sp}, "
+        f"{sweep_kernel.tile_width(Sp)} lanes a block) {q1:.4f} / {q2:.4f} ms; plain "
+        f"{p1:.4f} / {p2:.4f} ms; torch.sort of the starts (context) {srt:.4f} ms; bound "
+        f"{bound[0]:.4g} ms ({bound[1]})")
+    return min(w1, w2), min(p1, p2), bound, min(b1, b2), min(q1, q2), srt
+
+
+def run_path_e(dev):
+    """Path E (module docstring); returns what the summary and the kernels
+    line read."""
+    from ptx_torch.ops import sweep_kernel
+
+    lanes, k9_err, flips, k9_in, trainE = 0, 0.0, 0, {}, {}
+    for nm in ("S1", "S2", "bitten"):
+        sc = _compile_e(nm, dev)
+        n, e9, f, _, passes, k9_in[nm] = _timed(f"E1 {nm} K9 chunk", phase_k9_chunk, sc,
+                                                f"E1 {nm} K9 vs plain", nm != "bitten")
+        lanes, k9_err, flips = lanes + n, max(k9_err, e9), flips + f
+        log(f"[E1 {nm}] fixpoint passes per bounce {passes}")
+        if nm == "bitten":
+            del k9_in[nm]
+        del sc
+    for nm, cm in (("S2", _swapped(sweep_kernel, "sweep_select", _plain_select)),
+                   ("bitten-default", None), ("carved", None)):
+        sc = _compile_e(nm, dev)
+        _timed(f"E2 {nm} gradients", phase_gradients, sc, f"E2 {nm} gradients", cm)
+        del sc
+    for nm in ("S1", "S2", "bitten", "bitten-default", "carved"):
+        sc = _compile_e(nm, dev)
+        k9 = {"K9": 3 * (DEPTH + 1)} if getattr(sc.hit_fn, "mode", None) == "kernel" else {}
+        trainE[nm] = _timed(f"E3 {nm} train", phase_train, sc, f"E3 {nm} train",
+                            _expect(K6=3 * DEPTH, **k9), None, SPP_E)
+        del sc
+    with _env(PTX_SWEEP_MODE="kernel", PTX_MEGAB="0"):
+        rays_s = _timed("E4 render --scene", phase_render_scene, "E4 render --scene", "K9")
+    timeE = {nm: _timed(f"E5 {nm} timing", phase_timing_k9, f"E5 {nm} timing", k9_in[nm])
+             for nm in ("S1", "S2")}
+    return lanes, k9_err, flips, trainE, rays_s, timeE
 
 
 def _timed(label, fn, *args):
@@ -1729,6 +2024,10 @@ def main():
     (k5_ms, k5p_ms, k5_bound, _), (k6_ms, k6p_ms, k6_bound, _) = timeD["S1"]
     del large, k5_in, k6_in
 
+    # path E, the union sweep's other modes: K9, the local fold, the blocked hit
+    k9_lanes, err9, flipsE, trainE, composed_k9_rays_s, timeE = run_path_e(dev)
+    k9_ms, k9p_ms, k9_bound, _, _, _ = timeE["S1"]
+
     fb_rays, f_rays = _timed("9 fwd+bwd", phase_fwd_bwd, scene)
     w_ms, p_ms, dev_ms = _timed("10 K1 timing", phase_timing, scene, inputs)
     (k2_ms, k2p_ms, k2_bound), (k3_ms, k3p_ms, k3_lib, k3_bound) = _timed(
@@ -1754,7 +2053,12 @@ def main():
         + ", ".join(f"{nm} {min(v[1]):.3f} s / {v[2]:.3f} GiB" for nm, v in trainD.items())
         + f", render --scene {composed_rays_s:.4g} rays/s; K5 {k5_ms:.4f} vs {k5p_ms:.4f} ms "
         f"(bound {k5_bound[0]:.4g} ms); K6 {k6_ms:.4f} vs {k6p_ms:.4f} ms (bound "
-        f"{k6_bound[0]:.4g} ms); total {time.perf_counter() - t_start:.1f} s; {smi}")
+        f"{k6_bound[0]:.4g} ms); path E: K9 == plain on {k9_lanes} lanes, flips vs K5's "
+        f"plain version {flipsE}, train step (spp {SPP_E}) "
+        + ", ".join(f"{nm} {min(v[1]):.3f} s / {v[2]:.3f} GiB" for nm, v in trainE.items())
+        + f", render --scene (kernel mode) {composed_k9_rays_s:.4g} rays/s; K9 {k9_ms:.4f} vs "
+        f"{k9p_ms:.4f} ms (bound {k9_bound[0]:.4g} ms); total "
+        f"{time.perf_counter() - t_start:.1f} s; {smi}")
     entry = lambda name_, source, replaces, launches, err, ms, plain, bound, lib: {
         "name": name_, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -1785,6 +2089,9 @@ def main():
         entry("image_hist_banded (K8: banded image-gather transpose)",
               "ptx_torch/csrc/image_hist_kernel.cu", "ptx/ops/imagegrad.py:218",
               trainB["K8"], max(err8, err_k8a), k8_t[0], k8_t[1], k8_t[2], k8_t[3]),
+        entry("sweep_select (K9: union-sweep prefix max, break minima, payload match, S1)",
+              "ptx_torch/csrc/sweep_kernel.cu", "ptx/ops/sweep_kernel.py:164",
+              trainE["S1"][0]["K9"], err9, k9_ms, k9p_ms, k9_bound, None),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -10,20 +10,28 @@ module's docstring proves this equals the reference's span walk.
 :func:`compile_fast_hit` routes as the JAX function does (:399-412):
 
 - a union of more than one group (a leaf or a gadget of at most 12
-  leaves) with more than 24 leaves takes the union sweep: the megasweep's
-  plain version :func:`~ptx_torch.ops.megasweep.megasweep_reference`
-  (:class:`SweepHit`); the hit kernel is K5 (:class:`MegaHit`,
-  :func:`compile_mega_bounce` for the fused bounce).  A union tape that
-  is not mega-eligible raises ``NotImplementedError`` (the JAX package's
-  local-fold group path is not ported);
+  leaves) with more than 24 leaves takes the union sweep, in the mode
+  :func:`resolve_sweep_mode` picks: ``mega``, the megasweep's plain
+  version :func:`~ptx_torch.ops.megasweep.megasweep_reference`
+  (:class:`SweepHit`; its kernel is K5, :class:`MegaHit` and
+  :func:`compile_mega_bounce`), on a mega-eligible tape; otherwise
+  :class:`UnionSweepHit` (``fixpoint``, ``sort``, or ``kernel`` with the
+  sweep-select kernel K9), whose gadgets' coverage comes from a local
+  membership fold;
 - otherwise the dense fold up to 64 leaves: it materializes the (2L, L, B)
   membership tensors and is the plain version of the hit-only kernel K4
   and of K1's hit (``ptx_torch/csrc/hit_fold.cuh``); above 64 leaves the
-  JAX package's candidate-blocked path is not ported and raises.
+  candidate-blocked scan, :class:`BlockedHit`.
+
+The dense, blocked, ``fixpoint`` and ``sort`` hits are plain PyTorch on
+every device, as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
 
+import os
+
+import numpy as np
 import torch
 
 from ptx_torch.core import linalg
@@ -34,6 +42,9 @@ PAD_T = 3e20                 # "no boundary" sentinel, above MAX_VALUE
 DENSE_L_MAX = 64             # the JAX package's dense-path limit
 SWEEP_L_MIN = 24             # union tapes above this many leaves take the sweep
 SWEEP_GROUP_MAX = 12         # ... when every group has at most this many leaves
+DEFAULT_CANDIDATE_BLOCK = 32  # events per block of the candidate-blocked scan
+SWEEP_MODES = ("fixpoint", "sort", "kernel", "mega")
+NEG = -3e20                  # end of an invalid sweep interval: extends no chain
 GEO_KEYS = ("sphere_center", "sphere_radius", "plane_normal", "plane_d", "xform")
 
 
@@ -104,12 +115,13 @@ def plane_inv_mag(n):
                                         min=1e-30))
 
 
-def _leaf_intervals(leaves, params, ox, oy, oz, dx, dy, dz):
+def _leaf_intervals(leaves, params, ox, oy, oz, dx, dy, dz, with_normals=True):
     """Per-leaf boundary intervals and boundary normals, leaf-major.
 
     Returns ``(t0, t1, n0, n1)``: ``t0``/``t1`` (L, B) with ``PAD_T``
     where the leaf is missed, ``n0``/``n1`` 3-tuples of (L, B) outward
-    normals at the start/end boundary (unsigned)."""
+    normals at the start/end boundary (unsigned); ``(t0, t1)`` without
+    ``with_normals``."""
     t0s, t1s = [], []
     n0c, n1c = ([], [], []), ([], [], [])
     for lf, _p in leaves:
@@ -137,6 +149,10 @@ def _leaf_intervals(leaves, params, ox, oy, oz, dx, dy, dz):
             sa = torch.where(a == 0.0, 1.0, a)
             t0 = (-b - sq) / sa
             t1 = (-b + sq) / sa
+            t0s.append(torch.where(ok, t0, PAD_T))
+            t1s.append(torch.where(ok, t1, PAD_T))
+            if not with_normals:
+                continue
             inv_r = 1.0 / torch.where(r == 0.0, 1.0, r)
             n0 = ((ocx + t0 * ldx) * inv_r, (ocy + t0 * ldy) * inv_r,
                   (ocz + t0 * ldz) * inv_r)
@@ -159,6 +175,10 @@ def _leaf_intervals(leaves, params, ox, oy, oz, dx, dy, dz):
                              torch.where(entering_half, t, -MAX_VALUE))
             t1 = torch.where(full, MAX_VALUE,
                              torch.where(entering_half, MAX_VALUE, t))
+            t0s.append(torch.where(ok, t0, PAD_T))
+            t1s.append(torch.where(ok, t1, PAD_T))
+            if not with_normals:
+                continue
             one = torch.ones_like(t)
             n0 = n1 = (n[0] * inv_mag * one, n[1] * inv_mag * one,
                        n[2] * inv_mag * one)
@@ -175,15 +195,69 @@ def _leaf_intervals(leaves, params, ox, oy, oz, dx, dy, dz):
                 return wx * inv, wy * inv, wz * inv
             n0, n1 = push(*n0), push(*n1)
 
-        t0s.append(torch.where(ok, t0, PAD_T))
-        t1s.append(torch.where(ok, t1, PAD_T))
         for lst, v in zip(n0c, n0):
             lst.append(v)
         for lst, v in zip(n1c, n1):
             lst.append(v)
     st = lambda xs: torch.stack(xs, dim=0)
+    if not with_normals:
+        return st(t0s), st(t1s)
     return (st(t0s), st(t1s), tuple(st(c) for c in n0c),
             tuple(st(c) for c in n1c))
+
+
+def _leaf_intervals_grouped(leaves, params, ox, oy, oz, dx, dy, dz):
+    """(L, B) boundary intervals without normals, batched by group
+    (``ptx/geom/fasthit.py:272-357``): the untransformed spheres as one
+    gathered broadcast, the untransformed planes as another, transformed
+    leaves one at a time.  Each expression is :func:`_leaf_intervals`'s in
+    its operation order (planes elementwise, where the JAX package uses a
+    matrix product), so the values are that function's, bit for bit; rows
+    in leaf order."""
+    idx_s, idx_p, idx_o = [], [], []
+    for i, (lf, _p) in enumerate(leaves):
+        (idx_o if lf.xform_chain else idx_s if lf.kind == "sphere" else idx_p).append(i)
+    dev = ox.device
+    rows = lambda idx: torch.tensor(idx, dtype=torch.int64, device=dev)
+    index = lambda idx: rows([leaves[i][0].index for i in idx])
+    t0 = ox.new_empty((len(leaves), ox.shape[0]))
+    t1 = torch.empty_like(t0)
+    if idx_s:
+        gi = index(idx_s)
+        c, r = params["sphere_center"][gi], params["sphere_radius"][gi]
+        ocx, ocy, ocz = ox[None] - c[:, 0:1], oy[None] - c[:, 1:2], oz[None] - c[:, 2:3]
+        a = (dx * dx + dy * dy + dz * dz)[None]
+        b = ocx * dx[None] + ocy * dy[None] + ocz * dz[None]
+        cc = ocx * ocx + ocy * ocy + ocz * ocz - (r * r)[:, None]
+        disc = b * b - a * cc
+        ok = (disc > EPS) & (a != 0.0)
+        sq = torch.sqrt(torch.where(ok, disc, 1.0))
+        sa = torch.where(a == 0.0, 1.0, a)
+        t0.index_copy_(0, rows(idx_s), torch.where(ok, (-b - sq) / sa, PAD_T))
+        t1.index_copy_(0, rows(idx_s), torch.where(ok, (-b + sq) / sa, PAD_T))
+    if idx_p:
+        gi = index(idx_p)
+        n, dplane = params["plane_normal"][gi], params["plane_d"][gi]
+        nx, ny, nz = n[:, 0:1], n[:, 1:2], n[:, 2:3]
+        divisor = dx[None] * nx + dy[None] * ny + dz[None] * nz
+        numer = -dplane[:, None] - (ox[None] * nx + oy[None] * ny + oz[None] * nz)
+        flat = torch.abs(divisor) < EPS * EPS
+        t = numer / torch.where(flat, 1.0, divisor)
+        degenerate = flat | (torch.abs(t) >= MAX_VALUE)
+        on_boundary = torch.abs(numer) < EPS * EPS
+        entering_half = divisor < 0.0
+        full = degenerate & on_boundary
+        ok = ~(degenerate & ~on_boundary)
+        t0.index_copy_(0, rows(idx_p), torch.where(ok, torch.where(
+            full, -MAX_VALUE, torch.where(entering_half, t, -MAX_VALUE)), PAD_T))
+        t1.index_copy_(0, rows(idx_p), torch.where(ok, torch.where(
+            full, MAX_VALUE, torch.where(entering_half, MAX_VALUE, t)), PAD_T))
+    if idx_o:
+        o0, o1 = _leaf_intervals([leaves[i] for i in idx_o], params, ox, oy, oz, dx, dy, dz,
+                                 with_normals=False)
+        t0.index_copy_(0, rows(idx_o), o0)
+        t1.index_copy_(0, rows(idx_o), o1)
+    return t0, t1
 
 
 def _bits_at(node, leaf_pos, bits):
@@ -204,25 +278,65 @@ def _bits_at(node, leaf_pos, bits):
     return out
 
 
-def compile_fast_hit(plan, params_ref=None):
+def resolve_sweep_mode(plan, leaves, sweep_kernel=None, sweep_mode=None) -> str:
+    """The union sweep's mode, resolved as the JAX package does
+    (``ptx/geom/fasthit.py:775-807``): an explicit ``sweep_mode``; else
+    ``sweep_kernel`` (True: ``kernel``, False: ``sort``); else
+    ``PTX_SWEEP_KERNEL=1`` (``kernel``); else ``PTX_SWEEP_MODE``; else
+    ``mega`` on a mega-eligible tape and ``fixpoint`` on any other.  The
+    JAX package takes ``mega`` by default on its accelerator only; the port
+    routes alike on every device, so that the CPU runs the plain version of
+    what the card runs.  ``mega`` on a tape that is not mega-eligible falls
+    back to ``fixpoint``."""
+    from ptx_torch.ops.megasweep import mega_eligible
+
+    if sweep_kernel not in (None, True, False):
+        raise ValueError(f"sweep_kernel must be True, False or None, not {sweep_kernel!r}: "
+                         "the device of the tensors decides between K9 and its plain version")
+    eligible = mega_eligible(plan, leaves)
+    if sweep_mode is None:
+        if sweep_kernel is not None:
+            sweep_mode = "kernel" if sweep_kernel else "sort"
+        elif os.environ.get("PTX_SWEEP_KERNEL") == "1":
+            sweep_mode = "kernel"
+        else:
+            sweep_mode = os.environ.get("PTX_SWEEP_MODE", "mega" if eligible else "fixpoint")
+    if sweep_mode == "mega" and not eligible:
+        sweep_mode = "fixpoint"
+    if sweep_mode not in SWEEP_MODES:
+        raise ValueError(f"unknown sweep mode {sweep_mode!r}; one of {SWEEP_MODES}")
+    return sweep_mode
+
+
+def compile_fast_hit(plan, params_ref=None, candidate_block: int | None = None,
+                     sweep: bool | None = None, sweep_kernel: bool | None = None,
+                     sweep_mode: str | None = None):
     """``hit_fn(params, origin, direction) -> dict`` for flat (B, 3) rays:
     ``t`` (0 on miss), signed ``normal`` (B, 3), ``mat_id``, ``entering``,
     ``hit`` and ``_evt``, the winning event index (leaf ``k`` start = k,
     end = L + k) — the dict ``ptx.geom.fasthit.compile_fast_hit`` returns.
-    Routing: module docstring; ``params_ref`` (the params at compile
-    time) orders the sweep's rows for culling only."""
+    Routing: module docstring.  ``sweep`` and ``candidate_block`` force a
+    strategy (``candidate_block=0``: the dense fold), ``sweep_kernel`` and
+    ``sweep_mode`` the sweep's mode (:func:`resolve_sweep_mode`);
+    ``params_ref`` (the params at compile time) orders the megasweep's
+    rows for culling only."""
     leaves = collect_leaves(plan)
     L = len(leaves)
-    groups = union_decompose(plan)
-    gmax = max(1 if isinstance(g, tape._LeafPlan) else len(collect_leaves(g))
-               for g in groups)
-    if L > SWEEP_L_MIN and len(groups) > 1 and gmax <= SWEEP_GROUP_MAX:
-        return SweepHit(plan, leaves, params_ref)
-    if L > DENSE_L_MAX:
-        raise NotImplementedError(
-            f"{L} leaves in a tape that is not a union of small groups: the JAX "
-            "package's candidate-blocked first hit (ptx/geom/fasthit.py:480) is not "
-            "ported (ROADMAP)")
+    if sweep is None:
+        groups = union_decompose(plan)
+        gmax = max(1 if isinstance(g, tape._LeafPlan) else len(collect_leaves(g))
+                   for g in groups)
+        sweep = (candidate_block is None and L > SWEEP_L_MIN and len(groups) > 1
+                 and gmax <= SWEEP_GROUP_MAX)
+    if sweep:
+        mode = resolve_sweep_mode(plan, leaves, sweep_kernel, sweep_mode)
+        if mode == "mega":
+            return SweepHit(plan, leaves, params_ref)
+        return UnionSweepHit(plan, leaves, mode)
+    if candidate_block is None and L > DENSE_L_MAX:
+        candidate_block = DEFAULT_CANDIDATE_BLOCK
+    if candidate_block:
+        return BlockedHit(plan, leaves, candidate_block)
     parity_list = [p for _, p in leaves]
     mats_list = [lf.mat_id for lf, _ in leaves]
     leaf_pos = {id(lf): i for i, (lf, _) in enumerate(leaves)}
@@ -310,22 +424,15 @@ def _hit_dict(replay, params, o, d, t, normal, flags_hit, entering, evt, mat):
 
 
 class SweepHit:
-    """The union-sweep first hit of a mega-eligible tape: K5's plain
-    version :func:`~ptx_torch.ops.megasweep.megasweep_reference` in hit
-    mode (on any device), the port of the JAX sweep's ``hit_fn``.  A union
-    tape that is not mega-eligible raises (the JAX local-fold group path,
-    ``ptx/geom/fasthit.py:809-1022``, is not ported)."""
+    """The union-sweep first hit in ``mega`` mode, on a mega-eligible tape:
+    K5's plain version :func:`~ptx_torch.ops.megasweep.megasweep_reference`
+    in hit mode (on any device), the port of the JAX sweep's ``hit_fn``;
+    :class:`MegaHit` is its kernel."""
 
     def __init__(self, plan, leaves, params_ref=None):
         from ptx_torch.geom import hitreplay
         from ptx_torch.ops import megasweep
 
-        if not megasweep.mega_eligible(plan, leaves):
-            raise NotImplementedError(
-                "a union tape that is not mega-eligible (a gadget of more than "
-                f"{megasweep.SLOT_MAX} coverage slots or a non-sphere/plane leaf): the JAX "
-                "package's local-fold group sweep (ptx/geom/fasthit.py:809-1022) is not "
-                "ported (ROADMAP)")
         self.layout = megasweep.MegaLayout(plan, leaves, params_ref)
         self.replay = hitreplay.build_hit_replay(leaves)
 
@@ -336,6 +443,210 @@ class SweepHit:
             r = megasweep_reference(self.layout, params, origin, direction, cull=cull)
         return _hit_dict(self.replay, params, origin, direction, r["t"], r["normal"],
                          r["hit"], r["entering"], r["_evt"], r["mat_id"])
+
+
+def _selected(replay, mats, params, o, d, evt, entering, hit):
+    """The hit dict of a selected event (``evt``, ``entering``, ``hit``):
+    ``t`` and the normal from the replay, without history here (autograd
+    reaches them through :class:`MegaReplay`)."""
+    L = mats.numel()
+    with torch.no_grad():
+        t, normal = replay(params, o, d, evt, entering, hit)
+    leaf = torch.where(evt >= L, evt - L, evt).to(torch.int64)
+    return _hit_dict(replay, params, o, d, t, normal, hit, entering, evt,
+                     torch.where(hit, mats[leaf], 0))
+
+
+class UnionSweepHit:
+    """The union sweep in ``fixpoint``, ``sort`` or ``kernel`` mode, on
+    any union of small groups (the port of ``_compile_union_sweep``,
+    ``ptx/geom/fasthit.py:715-1022``, without ``mega``).
+
+    Root membership is interval coverage over the pooled *group*
+    intervals: a leaf group gives its leaf interval; gadgets are batched by
+    structure class, and one (G, 2m, m, B) local membership fold per class
+    gives each gadget's boundaries, whose sorted, de-duplicated entry and
+    exit events pair by rank into coverage intervals.  From the
+    valid-masked (S, B) intervals ``(s, e)`` (:meth:`intervals`),
+    :meth:`select` finds the first boundary at or past EPS:
+
+    - ``fixpoint``: sort-free, the minimum start when no valid interval
+      starts below EPS, else the exit of the chain through EPS, the fixed
+      point of ``E <- max(E, max{e : s <= E})``; ``last_passes`` holds the
+      passes of the last call (the loop stops when ``E`` stops changing,
+      one host synchronisation a pass);
+    - ``sort``: a stable sort by ``s``, the exclusive prefix max and the
+      break minima: K9's plain version,
+      :func:`~ptx_torch.ops.sweep_kernel.sweep_select_reference`;
+    - ``kernel``: the same stable sort, then K9
+      (:func:`~ptx_torch.ops.sweep_kernel.sweep_select`, ``sort=False``).
+
+    All three read the same intervals and give the same outputs bit for
+    bit.  The payload is the least leaf whose raw ``t0`` (then ``t1``)
+    equals the boundary; selection is without gradient, and ``t`` and the
+    normal come from the hit replay through :class:`MegaReplay`."""
+
+    def __init__(self, plan, leaves, mode: str):
+        from ptx_torch.geom import hitreplay
+
+        if mode not in ("fixpoint", "sort", "kernel"):
+            raise ValueError(f"union sweep: no {mode!r} mode")
+        self.plan, self.leaves, self.mode = plan, leaves, mode
+        self.L = len(leaves)
+        self.replay = hitreplay.build_hit_replay(leaves)
+        self.mat_list = [lf.mat_id for lf, _ in leaves]
+        self.last_passes = 0
+        leaf_pos = {id(lf): i for i, (lf, _) in enumerate(leaves)}
+
+        def sig(node, local_pos):
+            if isinstance(node, tape._LeafPlan):
+                return ("L", local_pos[id(node)])
+            return (node.op, tuple(sig(c, local_pos) for c in node.children))
+
+        leaf_rows, classes = [], {}     # structure signature -> [plan, local_pos, rows]
+        for g in union_decompose(plan):
+            if isinstance(g, tape._LeafPlan):
+                leaf_rows.append(leaf_pos[id(g)])
+                continue
+            sub = collect_leaves(g)
+            local_pos = {id(lf): j for j, (lf, _) in enumerate(sub)}
+            cls = classes.setdefault(sig(g, local_pos), [g, local_pos, []])
+            cls[2].append([leaf_pos[id(lf)] for lf, _ in sub])
+        self.leaf_rows = leaf_rows
+        self.classes = [(g, pos, np.array(rows, np.int64)) for g, pos, rows in classes.values()]
+
+    def intervals(self, params, origin, direction):
+        """``(t0, t1, s, e)``: the raw (L, B) leaf intervals and the
+        valid-masked (S, B) coverage intervals (``s = PAD_T``, ``e = NEG``
+        where an interval is empty or ends before EPS), without history."""
+        with torch.no_grad():
+            t0, t1 = _leaf_intervals_grouped(self.leaves, params, *origin.unbind(-1),
+                                             *direction.unbind(-1))
+            B = t0.shape[1]
+            dev = t0.device
+            parts_s, parts_e = [], []
+            if self.leaf_rows:
+                r = torch.tensor(self.leaf_rows, device=dev)
+                parts_s.append(t0[r])
+                parts_e.append(t1[r])
+            for gplan, local_pos, rows in self.classes:
+                G, m = rows.shape
+                r = torch.as_tensor(rows.reshape(-1), device=dev)
+                gt0, gt1 = t0[r].reshape(G, m, B), t1[r].reshape(G, m, B)
+                ev = torch.cat([gt0, gt1], dim=1)                    # (G, 2m, B)
+                ts = ev[:, :, None, :]
+                after = (gt0[:, None] <= ts) & (ts < gt1[:, None])   # (G, 2m, m, B)
+                before = (gt0[:, None] < ts) & (ts <= gt1[:, None])
+                ra = _bits_at(gplan, local_pos, after)               # (G, 2m, B)
+                bnd = ra != _bits_at(gplan, local_pos, before)
+                del after, before
+                srt = lambda a: torch.sort(a, dim=1).values
+                # coincident events classify alike: drop adjacent-equal
+                # duplicates, re-sort to restore the rank pairing
+                dedup = lambda a: srt(torch.cat(
+                    [a[:, :1], torch.where(a[:, 1:] == a[:, :-1], PAD_T, a[:, 1:])], dim=1))
+                parts_s.append(dedup(srt(torch.where(bnd & ra, ev, PAD_T)))[:, :m]
+                               .reshape(G * m, B))
+                parts_e.append(dedup(srt(torch.where(bnd & ~ra, ev, PAD_T)))[:, :m]
+                               .reshape(G * m, B))
+            s, e = torch.cat(parts_s), torch.cat(parts_e)
+            valid = (s < e) & (e >= EPS)
+            return t0, t1, torch.where(valid, s, PAD_T), torch.where(valid, e, NEG)
+
+    def select(self, t0, t1, s, e):
+        """``(t_star, entering, m_start, m_end, found)`` in this sweep's
+        mode (class docstring)."""
+        from ptx_torch.ops import sweep_kernel
+
+        L = self.L
+        with torch.no_grad():
+            if self.mode == "sort":
+                return sweep_kernel.sweep_select_reference(s, e, t0, t1, L, EPS, sort=True)
+            if self.mode == "kernel":
+                s_s, idx = torch.sort(s, dim=0, stable=True)
+                return sweep_kernel.sweep_select(s_s.contiguous(), e.gather(0, idx), t0, t1,
+                                                 L, EPS, sort=False)
+            below = s < EPS
+            has_below = below.any(0)
+            E = torch.where(below, e, NEG).amax(0)
+            passes = 0
+            while True:
+                En = torch.maximum(E, torch.where(s <= E[None], e, NEG).amax(0))
+                passes += 1
+                if torch.equal(En, E):
+                    break
+                E = En
+            self.last_passes = passes
+            t_star = torch.where(has_below, E, s.amin(0))
+            return (t_star, ~has_below, *sweep_kernel.payload_match(t0, t1, t_star, L),
+                    t_star < sweep_kernel.FOUND)
+
+    def __call__(self, params, origin, direction):
+        """The first-hit dict from the selection (``ptx/geom/fasthit.py:
+        1000-1022``): ``evt`` from the payload matches, ``t`` and the normal
+        from the hit replay at those decisions."""
+        L = self.L
+        t_star, entering, m_start, m_end, found = self.select(
+            *self.intervals(params, origin, direction))
+        hit = found & ~(t_star >= MAX_VALUE)
+        use_start = m_start < L
+        leaf = torch.where(use_start, m_start, torch.clamp(m_end, max=L - 1)).to(torch.int64)
+        evt = torch.where(hit, torch.where(use_start, leaf, L + leaf), 0).to(torch.int32)
+        mats = torch.tensor(self.mat_list, dtype=torch.int64, device=origin.device)
+        return _selected(self.replay, mats, params, origin, direction, evt, entering, hit)
+
+
+class BlockedHit:
+    """The candidate-blocked first hit (``_compile_blocked_hit``,
+    ``ptx/geom/fasthit.py:480-568``), for tapes of more than 64 leaves that
+    are no union of small groups: the 2L boundary events are scanned in
+    blocks of ``block`` with a running first minimum, each block folding a
+    (block, L, B) membership tensor through the tape — the dense fold's
+    decisions at O(block·L·B) memory.  Selection is without gradient; ``t``
+    and the normal come from the hit replay through :class:`MegaReplay`.
+    Plain PyTorch on every device (XLA in the JAX package)."""
+
+    def __init__(self, plan, leaves, block: int):
+        from ptx_torch.geom import hitreplay
+
+        self.plan, self.leaves, self.block = plan, leaves, block
+        self.replay = hitreplay.build_hit_replay(leaves)
+        self.mat_list = [lf.mat_id for lf, _ in leaves]
+        self.leaf_pos = {id(lf): i for i, (lf, _) in enumerate(leaves)}
+
+    def __call__(self, params, origin, direction):
+        C = self.block
+        with torch.no_grad():
+            t0, t1 = _leaf_intervals_grouped(self.leaves, params, *origin.unbind(-1),
+                                             *direction.unbind(-1))
+            B = t0.shape[1]
+            t_evt = torch.cat([t0, t1])                              # (2L, B)
+            pad = -t_evt.shape[0] % C
+            if pad:
+                t_evt = torch.cat([t_evt, t_evt.new_full((pad, B), PAD_T)])
+            lo, hi = t0[None], t1[None]                              # (1, L, B)
+            best_t = t0.new_full((B,), PAD_T)
+            best_i = torch.zeros(B, dtype=torch.int64, device=t0.device)
+            entering = torch.zeros(B, dtype=torch.bool, device=t0.device)
+            any_c = torch.zeros_like(entering)
+            for k in range(t_evt.shape[0] // C):
+                blk = t_evt[k * C:(k + 1) * C]                       # (C, B)
+                ts = blk[:, None]
+                ra = _bits_at(self.plan, self.leaf_pos, (lo <= ts) & (ts < hi))
+                rb = _bits_at(self.plan, self.leaf_pos, (lo < ts) & (ts <= hi))
+                cand = (ra != rb) & (blk >= EPS)
+                tm = torch.where(cand, blk, PAD_T)
+                loc = torch.argmin(tm, dim=0)                        # first minimum
+                bt = tm.gather(0, loc[None])[0]
+                better = bt < best_t
+                best_t = torch.where(better, bt, best_t)
+                best_i = torch.where(better, k * C + loc, best_i)
+                entering = torch.where(better, ra.gather(0, loc[None])[0], entering)
+                any_c |= cand.any(0)
+            hit = any_c & ~(best_t >= MAX_VALUE)
+            evt = torch.where(hit, best_i, 0).to(torch.int32)
+        mats = torch.tensor(self.mat_list, dtype=torch.int64, device=origin.device)
+        return _selected(self.replay, mats, params, origin, direction, evt, entering, hit)
 
 
 class MegaHit:
@@ -405,6 +716,7 @@ class MegaBounce:
 
 def compile_mega_bounce(scene):
     """K5's fused bounce for a compiled scene whose ``plain_hit_fn`` is the
-    sweep (``ptx/geom/fasthit.py:656-712``); the caller checks that every
-    non-emissive slot is Constant.  None when the scene has no sweep."""
+    ``mega`` sweep (``ptx/geom/fasthit.py:656-712``); the caller checks that
+    every non-emissive slot is Constant.  None when the scene has no such
+    sweep."""
     return MegaBounce(scene) if isinstance(scene.plain_hit_fn, SweepHit) else None

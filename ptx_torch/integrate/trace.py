@@ -24,17 +24,22 @@ decision-frozen replay.  ``compile_scene`` routes as the JAX package's
 - at most 24 leaves, every non-emissive slot Constant: the fused bounce
   kernels K1 and K2 (:mod:`ptx_torch.ops.bounce_kernel`), one launch each
   per bounce;
-- more than 24 leaves (a union of small groups: the stress scenes,
-  ``scenes/composed.json``), every non-emissive slot Constant: the fused
-  mega bounce, K5 in bounce mode (:mod:`ptx_torch.ops.megasweep`,
-  :class:`~ptx_torch.geom.fasthit.MegaBounce`), and the row-fed replay
-  backward K6 (:mod:`ptx_torch.ops.replay_bwd`); the hit alone is K5 in
-  hit mode, and ``tile_hint`` orders shallow image batches in 16×32-pixel
-  tiles (:func:`trace_rays`);
+- more than 24 leaves: the hit is :func:`~ptx_torch.geom.fasthit.
+  compile_fast_hit`'s — on a union of small groups the sweep, in the mode
+  :func:`~ptx_torch.geom.fasthit.resolve_sweep_mode` picks (``mega``: K5 in
+  hit mode, :class:`~ptx_torch.geom.fasthit.MegaHit`; ``kernel``: the sweep
+  with the sweep-select kernel K9; ``fixpoint``, ``sort``: plain PyTorch),
+  else the dense fold (up to 64 leaves) or the candidate-blocked scan.
+  With every non-emissive slot Constant the bounce is K5's fused mega
+  bounce (:class:`~ptx_torch.geom.fasthit.MegaBounce`) in ``mega`` mode
+  unless ``PTX_MEGAB=0``, else :class:`UnfusedBounce` on the hit; the
+  backward is the row-fed replay K6 (:mod:`ptx_torch.ops.replay_bwd`);
+  ``tile_hint`` orders shallow image batches in 16×32-pixel tiles
+  (:func:`trace_rays`).  Examples: the stress scenes,
+  ``scenes/composed.json``;
 - a textured non-emissive slot (BASELINE config 4): the unfused bounce,
   :class:`UnfusedBounce` — plain-PyTorch :func:`_bounce_live` on the
-  hit kernel (K4, or K5's hit mode above 24 leaves), the composition the
-  JAX package leaves to XLA — and :func:`replay_vjp`, autograd of
+  hit (K4 up to 24 leaves) — and :func:`replay_vjp`, autograd of
   :func:`_bounce_replay` over every param the replay reads;
 - emission: the fused emission kernel K7
   (:mod:`ptx_torch.ops.emission_kernel`) when a dynamic emissive chain is
@@ -43,11 +48,7 @@ decision-frozen replay.  ``compile_scene`` routes as the JAX package's
   (:mod:`ptx_torch.ops.imagegrad`).
 
 Each kernel wrapper runs its plain version on CPU tensors, so the same
-routing serves the CPU.  A union tape of more than 24 leaves that is not
-mega-eligible, or a tape of more than 64 leaves that is no such union,
-raises ``NotImplementedError`` (:func:`~ptx_torch.geom.fasthit.
-compile_fast_hit`); one of 25-64 leaves that is no such union runs the
-dense fold on the CPU and raises on CUDA.
+routing serves the CPU and the card; no branch of it reads the device.
 """
 
 from __future__ import annotations
@@ -95,7 +96,9 @@ class CompiledScene:
     ``emission_fn`` is K7's wrapper or None; ``diff_keys`` the params
     ``ManualBounce`` passes to autograd; ``tile_hint`` (large scenes)
     turns on :func:`trace_rays`'s tile ordering.  Above 24 leaves
-    ``hit_fn`` is K5's hit mode and ``plain_hit_fn`` the sweep."""
+    ``plain_hit_fn`` is :func:`~ptx_torch.geom.fasthit.compile_fast_hit`'s
+    hit and ``hit_fn`` K5's hit mode on it in ``mega`` mode, else that hit
+    itself."""
     params: dict
     plan: Any
     material_fn: mats.MaterialTable
@@ -126,12 +129,11 @@ def _want_emission_kernel(ordered, table) -> bool:
 
 def compile_scene(root, device) -> CompiledScene:
     """Compile a scene tree for ``device`` (routing: module docstring).
-    A CUDA device gets the kernels or raises; there is no quiet fallback
-    to a plain path."""
+    On a CUDA device every kernel wrapper launches its kernel or raises;
+    there is no quiet fallback to a plain path."""
     from ptx_torch.geom.fasthit import MegaHit, SweepHit, compile_mega_bounce
     from ptx_torch.ops import emission_kernel
-    from ptx_torch.ops.bounce_kernel import (BounceBwdKernel, BounceKernel,
-                                             bounce_bwd_reference, bounce_reference)
+    from ptx_torch.ops.bounce_kernel import BounceBwdKernel, BounceKernel
     from ptx_torch.ops.fasthit_kernel import HitKernel
     from ptx_torch.ops.replay_bwd import RowFedReplayBwd
 
@@ -148,17 +150,13 @@ def compile_scene(root, device) -> CompiledScene:
     params.update(mat_params)
     params.update(compiler.finalize(cpu))
     plain_hit = compile_fast_hit(plan, params)
-    sweep = isinstance(plain_hit, SweepHit)
-    if device.type == "cuda" and not (small or sweep):
-        raise NotImplementedError(
-            f"scene with {n_leaves} leaves that is not a union of small groups: the JAX "
-            "package folds it densely in XLA, which the port has on the CPU only")
+    mega = isinstance(plain_hit, SweepHit)
     params = {k: ([x.to(device) for x in v] if isinstance(v, list)
                   else v.to(device)) for k, v in params.items()}
     scene = CompiledScene(
         params=params, plan=plan, material_fn=table,
         hit_fn=(HitKernel(plan, plain_hit, params) if small
-                else MegaHit(plain_hit) if sweep else plain_hit),
+                else MegaHit(plain_hit) if mega else plain_hit),
         hit_replay_fn=hitreplay.build_hit_replay(collect_leaves(plan)),
         device=device, plain_hit_fn=plain_hit, tile_hint=not small)
     if dynamic:
@@ -168,12 +166,12 @@ def compile_scene(root, device) -> CompiledScene:
     elif small:
         scene.bounce_fn, scene.bounce_bwd_fn = (BounceKernel(scene),
                                                 BounceBwdKernel(scene))
-    elif sweep:
-        scene.bounce_fn, scene.bounce_bwd_fn = (compile_mega_bounce(scene),
-                                                RowFedReplayBwd(scene))
     else:
-        scene.bounce_fn = functools.partial(bounce_reference, scene)
-        scene.bounce_bwd_fn = functools.partial(bounce_bwd_reference, scene)
+        # PTX_MEGAB=0 keeps the unfused bounce on K5's hit mode
+        # (ptx/integrate/trace.py:216)
+        fused = mega and os.environ.get("PTX_MEGAB") != "0"
+        scene.bounce_fn = compile_mega_bounce(scene) if fused else UnfusedBounce(scene)
+        scene.bounce_bwd_fn = RowFedReplayBwd(scene)
     if _want_emission_kernel(ordered, table) and emission_kernel.supported(table):
         scene.emission_fn = emission_kernel.EmissionKernel(table, device)
     return scene
@@ -356,17 +354,21 @@ _DEC_KEYS = ("t", "evt", "hit", "entering", "take_transmit", "scatter_alive",
 
 
 class UnfusedBounce:
-    """The bounce of a scene with a textured non-emissive slot: plain-
-    PyTorch :func:`_bounce_live` on ``scene.hit_fn`` (K4 on CUDA), the
-    production composition, as the JAX package leaves it to XLA.  Returns
-    the dict of K1's wrapper; ``packed`` is K4's scene buffer, which
-    ``trace_rays`` packs once per call (:meth:`pack`)."""
+    """The bounce of a scene with a textured non-emissive slot, or of a
+    large scene off K5's fused bounce: plain-PyTorch :func:`_bounce_live`
+    on ``scene.hit_fn`` (K4, K5's hit mode, or a hit of
+    :func:`~ptx_torch.geom.fasthit.compile_fast_hit`), the production
+    composition, as the JAX package leaves it to XLA.  Returns the dict of
+    K1's wrapper; ``packed`` is the hit kernel's scene buffer, which
+    ``trace_rays`` packs once per call (:meth:`pack`; None for a hit
+    without one)."""
 
     def __init__(self, scene):
         self.scene = scene
 
     def pack(self, params):
-        return self.scene.hit_fn.pack(params)
+        pack = getattr(self.scene.hit_fn, "pack", None)
+        return pack(params) if pack is not None else None
 
     def __call__(self, params, o, d, thr, strength, alive, u_coin, u3, in_depth,
                  packed=None):
@@ -583,8 +585,9 @@ def trace_rays(scene: CompiledScene, params, origin, direction, key,
         phases += [(s, dv) for s, dv in _COMPACT_SCHEDULE
                    if s <= depth and B // dv >= 1]
 
-    # K1's or K4's scene buffer, packed once for all bounces of this call
-    # (the plain versions on the CPU read params themselves)
+    # K1's, K4's or K5's scene buffer, packed once for all bounces of this
+    # call (the plain versions on the CPU read params themselves; a hit
+    # without a kernel buffer packs None)
     pack = getattr(scene.bounce_fn, "pack", None)
     packed = pack(params) if pack is not None and device.type == "cuda" else None
     orig = torch.arange(B, dtype=torch.int64, device=device)

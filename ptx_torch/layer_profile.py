@@ -22,12 +22,13 @@ Chrome trace goes to ``--out`` and is parsed here (:func:`summarize`):
 - per layer: the kernels whose launch call (matched by correlation id)
   lies inside the layer's host range, their device time, and the
   range's share of the profiled host wall;
-- K1-K8: calls and mean device time per call, over all of a kernel's
+- K1-K9: calls and mean device time per call, over all of a kernel's
   launches: ``bounce_forward_kernel``; ``bounce_bwd_kernel`` and the
   ``reduce_partials_kernel`` launched after it; ``hist_shared_kernel``;
   ``first_hit_kernel``; ``megasweep_kernel``; ``replay_bwd_kernel`` and
   ``replay_bwd_reduce_kernel``; ``emission_forward_kernel``;
-  ``hist_banded_kernel``;
+  ``hist_banded_kernel``; ``sweep_select_kernel`` (the union sweep's
+  ``kernel`` mode: ``PTX_SWEEP_MODE=kernel PTX_MEGAB=0`` with ``--large``);
 - the ``TOP`` kernels by total device time, with their calls;
 - peak device memory (``max_memory_allocated``) over the unprofiled runs.
 
@@ -82,7 +83,8 @@ KERNELS = {"k1": ("bounce_forward_kernel",),
            "k5": ("megasweep_kernel",),
            "k6": ("replay_bwd_kernel", "replay_bwd_reduce_kernel"),
            "k7": ("emission_forward_kernel",),
-           "k8": ("hist_banded_kernel",)}
+           "k8": ("hist_banded_kernel",),
+           "k9": ("sweep_select_kernel",)}
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 TOP = 8                         # kernels listed by total device time
 

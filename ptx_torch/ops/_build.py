@@ -79,6 +79,11 @@ def _entry_points():
          [vp, i]                          # pack36 scene, L
          + [vp] * 12 + [i]                # inputs, cotangents, B
          + [vp] * 4 + [i, vp, vp], i),    # d_o d_d d_thr partial, blocks, acc, stream
+        ("ptx_sweep_select_smem", [i, i], i),
+        ("ptx_sweep_select",
+         [vp, vp, i, vp, vp, i, i]        # s, e, S, t0, t1, L, B
+         + [ctypes.c_float, i, i, i]      # eps, sort, Sp, tile width
+         + [vp] * 5 + [vp], i),           # t_star entering m_start m_end found, stream
         ("ptx_cuda_error_name", [i], ctypes.c_char_p),
     ]
 

@@ -2,9 +2,9 @@
 
 - ``python -m ptx_torch render`` runs on the CPU when asked and never
   imports jax (the card's machine has none);
-- on CUDA a scene no kernel can take raises ``NotImplementedError`` at
-  compile time — before touching the device, so this holds on a host
-  without a card too; no quiet fallback;
+- ``compile_scene`` routes alike on every device: what it picks for a
+  scene on the CPU is what it picks on the card, where every kernel
+  wrapper launches its kernel or raises (no quiet fallback);
 - ``render --scene scenes/composed.json`` (52 leaves: the large-scene
   path) runs on the CPU and never imports jax.
 """
@@ -17,9 +17,11 @@ import numpy as np
 import pytest
 import torch
 
+from ptx_torch.geom import fasthit
 from ptx_torch.geom.tape import Intersection, Plane, Sphere, Union
 from ptx_torch.integrate import trace
 from ptx_torch.ops import bounce_kernel
+from ptx_torch.ops.replay_bwd import RowFedReplayBwd
 from ptx_torch.scenes import builders
 from ptx_torch.shade import textures as tx
 from ptx_torch.shade.materials import Material
@@ -115,19 +117,21 @@ def _big_world():
 @pytest.mark.parametrize("world", [_textured_world, _big_world],
                          ids=["dynamic-reflect", "26-leaves"])
 def test_cuda_compile_rejects_ineligible_scene(world):
-    """More than 24 leaves that are not a union of small groups: no kernel
-    takes them (the JAX package folds them densely in XLA), so CUDA raises
-    before touching the device."""
-    with pytest.raises(NotImplementedError, match="not a union of small groups"):
-        trace.compile_scene(world(), "cuda")
-    # the CPU keeps the plain bounce (constant slots) or the unfused one
-    # on the dense hit (a textured slot) for such scenes
+    """More than 24 leaves that are not a union of small groups: no hit
+    kernel takes them, and the JAX package folds them densely in XLA.
+    ``compile_scene``, whose routing reads no device, gives them the dense
+    hit in plain PyTorch, the unfused bounce on it, and the replay
+    backward: K6's wrapper on constant slots, autograd of the replay on a
+    textured slot."""
     scene = trace.compile_scene(world(), "cpu")
     assert scene.hit_fn is scene.plain_hit_fn
+    assert not isinstance(scene.hit_fn, (fasthit.SweepHit, fasthit.UnionSweepHit,
+                                         fasthit.BlockedHit))
+    assert isinstance(scene.bounce_fn, trace.UnfusedBounce) and scene.tile_hint
     if world is _textured_world:
-        assert isinstance(scene.bounce_fn, trace.UnfusedBounce)
+        assert scene.bounce_bwd_fn.func is trace.replay_vjp
     else:
-        assert scene.bounce_fn.func is bounce_kernel.bounce_reference
+        assert isinstance(scene.bounce_bwd_fn, RowFedReplayBwd)
 
 
 def test_cuda_compile_accepts_the_demo_routing():

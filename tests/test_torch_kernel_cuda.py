@@ -1,7 +1,8 @@
 """The CUDA kernels on the card against their plain PyTorch versions: K1
 (bounce), K2 (replay backward), K3 and K8 (image-gather transposes), K4
 (first hit), K5 (megasweep: hit and bounce modes, 16- and 32-column
-tables), K6 (row-fed replay backward) and K7 (emission).
+tables), K6 (row-fed replay backward), K7 (emission) and K9 (sweep
+select, with and without its in-kernel sort).
 
 This file imports no jax, so it runs on a machine with a card and no jax:
 
@@ -20,7 +21,8 @@ order: ``1e-5`` of each texel's sum of |ct|.  K4 must equal the dense hit
 as K1 does; K7 its plain lanes, with texel indices equal except where a
 float64 recompute puts the lane within 1e-6 of a texel boundary.  K5 must
 equal its plain version as K1 does, and culling must not change a bit;
-K6 is held as K2.
+K6 is held as K2.  K9 only compares, selects and takes maxima and minima:
+its five outputs must equal its plain version's bit for bit.
 """
 
 import pytest
@@ -381,3 +383,77 @@ def test_k6_matches_its_plain_version(large_cuda):
     _close(got[3], ref[3], ref64[3], ref64[4])
     for a, b in zip(got, again):            # the two-pass reduction is deterministic
         assert torch.equal(a, b)
+
+
+def _k9_inputs(S, L, B, ties, seed=0):
+    """(s, e, t0, t1) on the card: L leaf intervals with some missed, the
+    first S of them pooled and valid-masked; ``ties`` puts every boundary on
+    a grid of quarters (duplicated starts, touching intervals).  The odd
+    lanes start in front of every interval (an entry), the even ones mostly
+    inside one (a chain exit)."""
+    from ptx_torch.core.constants import EPS
+    g = torch.Generator().manual_seed(seed)
+    ahead = (torch.arange(B) % 2 == 1).float()
+    t0 = torch.rand((L, B), generator=g) * (7.0 - 5.5 * ahead) - 1.0 + 2.5 * ahead
+    t1 = t0 + torch.rand((L, B), generator=g) * 2.0 + 0.05
+    if ties:
+        t0 = torch.round(t0 * 4.0) / 4.0
+        t1 = t0 + torch.round(torch.rand((L, B), generator=g) * 8.0) / 4.0 + 0.25
+    miss = torch.rand((L, B), generator=g) < 0.25
+    t0, t1 = torch.where(miss, 3e20, t0), torch.where(miss, 3e20, t1)
+    s, e = t0[:S], t1[:S]
+    valid = (s < e) & (e >= EPS)
+    dev = torch.device("cuda")
+    return tuple(x.contiguous().to(dev) for x in (torch.where(valid, s, 3e20),
+                                                  torch.where(valid, e, -3e20), t0, t1))
+
+
+@pytest.fixture
+def k9_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the sweep-select kernel has no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "tie-heavy"])
+@pytest.mark.parametrize("S,L,B,sort", [(256, 256, 65536 + 37, False),
+                                        (200, 256, 4096 + 5, False),
+                                        (256, 256, 65536 + 37, True),
+                                        (300, 320, 4096 + 5, True),
+                                        (700, 700, 2048 + 3, True)],
+                         ids=["presorted", "presorted-S<L", "sort-Sp256", "sort-Sp512",
+                              "sort-Sp1024"])
+def test_k9_matches_its_plain_version(k9_card, S, L, B, sort, ties):
+    """K9 against ``sweep_select_reference`` bit for bit in all five
+    outputs; with ``sort`` on the unsorted intervals (tile widths 32 and
+    16), else on the stable-sorted ones."""
+    from ptx_torch.core.constants import EPS
+    from ptx_torch.ops import sweep_kernel
+    s, e, t0, t1 = _k9_inputs(S, L, B, ties)
+    if not sort:
+        s, idx = torch.sort(s, dim=0, stable=True)
+        e = e.gather(0, idx)
+    launches = sweep_kernel.LAUNCHES
+    got = sweep_kernel.sweep_select(s, e, t0, t1, L, EPS, sort=sort)
+    want = sweep_kernel.sweep_select_reference(s, e, t0, t1, L, EPS, sort)
+    torch.cuda.synchronize()
+    assert sweep_kernel.LAUNCHES == launches + 1
+    for name, a, b in zip(("t_star", "entering", "m_start", "m_end", "found"), got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    assert 0 < int(got[1].sum()) < B and int((got[2] < L).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_k9_wrapper_raises(k9_card):
+    """A CPU tensor among CUDA inputs, and more sorted rows than a block's
+    shared memory holds at 8 lanes, raise instead of launching."""
+    from ptx_torch.core.constants import EPS
+    from ptx_torch.ops import sweep_kernel
+    s, e, t0, t1 = _k9_inputs(64, 64, 256, False)
+    with pytest.raises(ValueError, match="must be a contiguous"):
+        sweep_kernel.sweep_select(s, e, t0.cpu(), t1, 64, EPS)
+    big = torch.zeros((4097, 64), device=s.device)
+    launches = sweep_kernel.LAUNCHES
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        sweep_kernel.sweep_select(big, big, big, big, 4097, EPS, sort=True)
+    assert sweep_kernel.LAUNCHES == launches

@@ -131,9 +131,10 @@ def test_tile_ordering_matches_jax():
 
 
 def test_routing_takes_the_sweep_above_24_leaves():
-    """On the CPU a 25-64-leaf union scene takes the sweep (the dense fold
-    before) with the mega bounce and K6's wrapper; 24 leaves or fewer keep
-    the dense fold; a non-union tape above 64 leaves raises."""
+    """A 25-64-leaf union scene takes the sweep (the dense fold before) with
+    the mega bounce and K6's wrapper; 24 leaves or fewer keep the dense
+    fold; a non-union tape above 64 leaves takes the candidate-blocked hit,
+    with the unfused bounce and K6's wrapper."""
     sc = trace.compile_scene(builders.stress_spheres(25), "cpu")
     assert isinstance(sc.plain_hit_fn, fasthit.SweepHit) and sc.tile_hint
     assert isinstance(sc.hit_fn, fasthit.MegaHit)
@@ -143,5 +144,8 @@ def test_routing_takes_the_sweep_above_24_leaves():
     assert not isinstance(small.plain_hit_fn, fasthit.SweepHit) and not small.tile_hint
     m = Material(reflect=0.5, scatter=1.0)
     big = Intersection(*[Sphere((0.01 * i, 0.0, -4.0), 1.0, m) for i in range(65)])
-    with pytest.raises(NotImplementedError, match="candidate-blocked"):
-        trace.compile_scene(big, "cpu")
+    sc = trace.compile_scene(big, "cpu")
+    assert isinstance(sc.plain_hit_fn, fasthit.BlockedHit) and sc.hit_fn is sc.plain_hit_fn
+    assert sc.plain_hit_fn.block == fasthit.DEFAULT_CANDIDATE_BLOCK
+    assert isinstance(sc.bounce_fn, trace.UnfusedBounce)
+    assert isinstance(sc.bounce_bwd_fn, RowFedReplayBwd)

@@ -42,6 +42,7 @@ def test_summarize_attributes_kernels_to_layers():
 def test_summarize_empty_trace():
     s = summarize([], ("bounce",))
     assert s["kernels"] == 0 and s["busy_ms"] == 0.0 and s["k1_calls"] == 0
+    assert all(s[f"k{i}_calls"] == 0 for i in range(1, 10))
     assert s["layers"]["bounce"]["kernels"] == 0
 
 
@@ -105,7 +106,7 @@ def test_backward_ranges_tag_the_layers_nodes():
 
 
 def test_summarize_counts_the_large_scene_kernels_apart_from_k2():
-    """K5 and K6 are counted by their own names: K6's two launches (the
+    """K5, K6 and K9 are counted by their own names: K6's two launches (the
     replay and its reduction) apart from K2's."""
     events = [
         _x("kernel", "(anonymous namespace)::megasweep_kernel(Args)", 0.0, 8.0),
@@ -114,8 +115,10 @@ def test_summarize_counts_the_large_scene_kernels_apart_from_k2():
            2.0),
         _x("kernel", "(anonymous namespace)::bounce_bwd_kernel(float const*)", 30.0, 3.0),
         _x("kernel", "(anonymous namespace)::reduce_partials_kernel(float const*)", 40.0, 1.0),
+        _x("kernel", "(anonymous namespace)::sweep_select_kernel(float const*)", 50.0, 5.0),
     ]
     s = summarize(events, ())
+    assert s["k9_calls"] == 1 and s["k9_mean_us"] == pytest.approx(5.0)
     assert s["k5_calls"] == 1 and s["k5_mean_us"] == pytest.approx(8.0)
     assert s["k6_calls"] == 1 and s["k6_mean_us"] == pytest.approx(8.0)
     assert s["k2_calls"] == 1 and s["k2_mean_us"] == pytest.approx(4.0)
