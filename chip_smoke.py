@@ -38,12 +38,14 @@ Phases on the demo (K1, K2, K3; each raises on failure, none is caught):
    1e-6`` of the plain value, or within twice the plain value's error
    against a float64 recompute plus 1e-4 relative (the hand adjoint orders
    its float32 operations unlike autograd, and near-grazing lanes are
-   ill-conditioned); per-leaf sums at the scale of their terms' |sum|; two
-   launches the same bits; ``d_params`` within 1e-4 of each tensor's
-   largest entry, or within twice the plain value's error against the
-   float64 sums mapped to the params.  K3 and K8 within the reordered-sum
-   bound ``2·n·2⁻²⁴·Σ|ct|`` per texel (float atomics add in a varying
-   order);
+   ill-conditioned); ``d_packed`` (the cotangent of K2's scene vector)
+   against the per-leaf sums folded onto the materials, the float64 fold
+   as truth, at the scale of the folded sums of |term|; two launches the
+   same bits; ``d_params`` (``d_packed`` through the packing's VJP) within
+   1e-4 of each tensor's largest entry, or within twice the plain value's
+   error against the float64 sums mapped to the params.  K3 and K8
+   within the reordered-sum bound ``2·n·2⁻²⁴·Σ|ct|`` per texel (float
+   atomics add in a varying order);
 6. gradients, kernel path against plain path on the card: a 32-row band at
    spp 2 (32,768 rays, compaction on), depth 16, the gradient of the mean
    radiance with respect to every param tensor, the sky image included,
@@ -54,8 +56,9 @@ Phases on the demo (K1, K2, K3; each raises on failure, none is caught):
    ×1.05 and const row 0 lowered by 0.1; 3 steps with the counters zeroed
    just before; loss and grad norm finite; exact launch counts (K1 17 and
    K2 16 per step: the last bounce's carry feeds nothing, so autograd runs
-   no backward for it; K3 3 per step, one per phase's sky-select
-   evaluation) and no plain call; peak memory and seconds per step;
+   no backward for it; K2's scene vector packed once and its VJP run once
+   per step; K3 3 per step, one per phase's sky-select evaluation) and no
+   plain call; peak memory and seconds per step;
 8. kernels at the training step's widths: one more step from the true
    params with every K1, K2 and K3 call's inputs recorded (4,194,304,
    1,398,101 and 262,144 lanes; the K2 grid's tile loop runs only here),
@@ -79,9 +82,9 @@ A4. gradients, kernel path vs plain path as in phase 6, the checker image
 
 Path B, the 1536×3072 probe (``make_world`` under
 ``procedural_sky_image(1536, 3072)``, as ``bench.py --sky 1536x3072``):
-B1. 3 train steps: K1 17, K2 16, K8 3 per step (one per phase's
-    sky-select gradient: the 75.5 MB image is past K3's shared memory),
-    K3 = 0;
+B1. 3 train steps: K1 17, K2 16 (one pack and one VJP), K8 3 per step
+    (one per phase's sky-select gradient: the 75.5 MB image is past K3's
+    shared memory), K3 = 0;
 B2. every K8 output of those steps against ``hist_reference`` within the
     reordered-sum bound.
 
@@ -161,9 +164,12 @@ Then:
     a chunk's ~263 k emission records for K7, the probe's 4,194,304
     sky-select lanes for K8): the wrapper as the main path calls it and the
     plain version, each the median of 20 single calls between CUDA events;
-    for K3 and K8 also the library call ``index_put_(accumulate=True)``;
-    the least time the card could take (``bound_ms``) from this run's
-    inputs;
+    for K2 also the once-per-call pack + VJP and a step's sum (16 wrappers
+    and one pack + VJP) beside 16 times the per-bounce params route; for K3
+    and K8 also the library calls ``index_put_(accumulate=True)`` and
+    ``index_add_`` on the flat (H·W, C) view, and K8's wrapper at most half
+    of ``index_put_``'s time; the least time the card could take
+    (``bound_ms``) from this run's inputs;
 11. the JSON lines: the nine kernels (launches from the paths' train
     steps: the demo's for K1-K3, config 4's for K4, S1's for K5 and K6,
     C2's for K7, the probe's for K8, E3's S1 for K9), then the device.
@@ -660,12 +666,26 @@ def _recording_hists(log_list, outputs=None):
         imagegrad.hist = fn
 
 
+class _RecordingBwd:
+    """A replay backward wrapper (K2's or K6's) that logs each call's
+    inputs; its other attributes are the wrapper's (``takes_packed``,
+    ``pack``), so ``trace_rays`` routes as it would without it."""
+
+    def __init__(self, kern, log_list):
+        self.kern, self.log = kern, log_list
+
+    def __getattr__(self, name):
+        return getattr(self.kern, name)
+
+    def __call__(self, scene_in, o, d, thr, dec, *cts):
+        self.log.append((o, d, thr, dec, cts))
+        return self.kern(scene_in, o, d, thr, dec, *cts)
+
+
 def _recording_bwd(scene, log_list):
-    """``scene`` with a K2 wrapper that logs each call's inputs."""
-    def call(params, o, d, thr, dec, *cts):
-        log_list.append((o, d, thr, dec, cts))
-        return scene.bounce_bwd_fn(params, o, d, thr, dec, *cts)
-    return dataclasses.replace(scene, bounce_bwd_fn=call)
+    """``scene`` with a replay backward that logs each call's inputs."""
+    return dataclasses.replace(scene, bounce_bwd_fn=_RecordingBwd(scene.bounce_bwd_fn,
+                                                                  log_list))
 
 
 def _hist_bound_ok(name, got, yi, xi, inb, ct, shape):
@@ -687,39 +707,48 @@ def _hist_bound_ok(name, got, yi, xi, inb, ct, shape):
 def _check_k2(scene, recorded, tag, name="K2"):
     """K2 (or K6, ``name``) against its plain versions on each recorded
     backward bounce (the same saved carry, decisions and cotangents): per
-    lane and the per-leaf sums by :func:`_close_f64` against
-    ``bounce_bwd_lanes_reference`` and its float64 recompute; ``d_params``
-    by :func:`_close_f64` against ``bounce_bwd_reference`` (autograd
-    through ``trace._bounce_replay``), the float64 sums mapped to the
-    params as truth, at each tensor's largest entry; two launches the same
-    bits.  Returns max|k − p|."""
+    lane by :func:`_close_f64` against ``bounce_bwd_lanes_reference`` and
+    its float64 recompute; K2's ``d_packed`` against those per-leaf sums
+    folded onto the materials (``fold_packed``; K6's (L, 34) sums as they
+    are), the float64 fold as truth, at the scale of the folded sums of
+    |term|; ``d_params`` (``d_packed`` through the packing's VJP) by
+    :func:`_close_f64` against ``bounce_bwd_reference`` (autograd through
+    ``trace._bounce_replay``), the float64 sums mapped to the params as
+    truth, at each tensor's largest entry; two launches the same bits.
+    Returns max|k − p|."""
     import torch
     from ptx_torch.ops import bounce_kernel as bk
 
     kern = scene.bounce_bwd_fn
+    if getattr(kern, "takes_packed", False):
+        sums, sums_name = (lambda a: bk.fold_packed(a, kern.leaf_mat, kern.n_materials),
+                           "d_packed")
+    else:
+        sums, sums_name = (lambda a: a), "per-leaf sums"
     err2, offs = 0.0, []
     for o_, d_, thr_, dec, cts in reversed(recorded):
         packed, leaves = kern.pack_leaves(scene.params)
         packed_d = packed.detach()
         got = kern.launch(packed_d, o_, d_, thr_, dec, *cts)
         again = kern.launch(packed_d, o_, d_, thr_, dec, *cts)
-        ref_packed = kern.pack(scene.params).detach()     # the plain version's layout
+        ref_packed = bk.pack_bwd(kern.rows, scene.material_fn, scene.params).detach()
         ref = bk.bounce_bwd_lanes_reference(ref_packed, kern.aux, o_, d_, thr_, dec, *cts)
         ref64 = bk.bounce_bwd_lanes_reference(
             ref_packed.double(), kern.aux.double(), o_.double(), d_.double(),
             thr_.double(), dict(dec, u_sel=dec["u_sel"].double()),
             *(c.double() for c in cts))
+        want_s, truth_s, scale_s = sums(ref[3]), sums(ref64[3]), sums(ref64[4])
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"{tag}: two launches on the same inputs differ")
         Bw = o_.shape[0]
         checks = [_close_f64(f"{name} B={Bw} {n}", g, w, t) for n, g, w, t in
                   zip(("d_o", "d_d", "d_thr"), got[:3], ref[:3], ref64[:3])]
-        checks.append(_close_f64(f"{name} B={Bw} per-leaf sums", got[3], ref[3], ref64[3],
-                                 ref64[4]))
+        checks.append(_close_f64(f"{name} B={Bw} {sums_name}", got[3], want_s, truth_s,
+                                 scale_s))
         got_p = kern.params_grad(packed, leaves, got[3])
         want_p = bk.bounce_bwd_reference(scene, scene.params, o_, d_, thr_, dec, *cts)[3]
-        truth_p = kern.params_grad(*kern.pack_leaves(scene.params), ref64[3].float())
+        truth_p = kern.params_grad(*kern.pack_leaves(scene.params), truth_s.float())
         for k, t in truth_p.items():
             if t.numel():
                 checks.append(_close_f64(f"{name} B={Bw} d_params {k}", got_p[k], want_p[k],
@@ -731,13 +760,13 @@ def _check_k2(scene, recorded, tag, name="K2"):
         lane_e = max(float((g - w).abs().max()) for g, w in zip(got[:3], ref[:3]))
         # relative to Σ|term|, floored at 1e-6 of the largest (entries whose
         # terms all round to ~0 have no meaningful relative error)
-        floor = 1e-6 * float(ref64[4].max()) + 1e-30
-        sums_rel = float(((got[3] - ref[3]).abs() / ref64[4].clamp(min=floor)).max())
+        floor = 1e-6 * float(scale_s.max()) + 1e-30
+        sums_rel = float(((got[3] - want_s).abs() / scale_s.clamp(min=floor)).max())
         log(f"[{tag}] B={Bw} continuing="
             f"{int((dec['take_transmit'] | dec['scatter_alive']).sum())} max_abs_err "
             f"{e:.3g}: per lane {lane_e:.3g} (largest |d_o| "
             f"{float(ref64[0].abs().max()):.4g}, |d_d| {float(ref64[1].abs().max()):.4g}), "
-            f"per-leaf sums {float((got[3] - ref[3]).abs().max()):.3g} (at most "
+            f"{sums_name} {float((got[3] - want_s).abs().max()):.3g} (at most "
             f"{sums_rel:.3g} of their Σ|term|), d_params max diff "
             f"{max(c[0] for c in checks[4:]):.3g}; two launches bit-identical; "
             "no NaN/Inf")
@@ -874,7 +903,8 @@ def _reset_counters():
     from ptx_torch.ops.replay_bwd import RowFedReplayBwd
 
     bk.LAUNCHES = bk.REFERENCE_CALLS = bk.BWD_REFERENCE_CALLS = 0
-    bk.BounceBwdKernel.LAUNCHES = 0
+    bk.BounceBwdKernel.LAUNCHES = bk.BounceBwdKernel.PACKS = 0
+    bk.BounceBwdKernel.PACK_VJPS = 0
     imagegrad.LAUNCHES = imagegrad.REFERENCE_CALLS = 0
     imagegrad.BandedHistKernel.LAUNCHES = 0
     fk.LAUNCHES = fk.REFERENCE_CALLS = 0
@@ -890,6 +920,8 @@ def _counters():
     from ptx_torch.ops.replay_bwd import RowFedReplayBwd
 
     return {"K1": bk.LAUNCHES, "K2": bk.BounceBwdKernel.LAUNCHES,
+            "K2 packs": bk.BounceBwdKernel.PACKS,
+            "K2 pack VJPs": bk.BounceBwdKernel.PACK_VJPS,
             "K3": imagegrad.LAUNCHES, "K4": fk.LAUNCHES,
             "K5": megasweep.MegaSweepKernel.LAUNCHES, "K6": RowFedReplayBwd.LAUNCHES,
             "K7": ek.LAUNCHES, "K8": imagegrad.BandedHistKernel.LAUNCHES,
@@ -899,11 +931,13 @@ def _counters():
                       + sweep_kernel.REFERENCE_CALLS)}
 
 
-def _expect(**per_kernel):
+def _expect(steps=0, **per_kernel):
     """Exact launch counts: the given kernels, every other kernel 0, and
-    no plain-version call."""
+    no plain-version call; ``steps`` K2 train steps or backward passes,
+    each packing K2's scene vector once and running its VJP once."""
     out = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "plain"), 0)
     out.update(per_kernel)
+    out["K2 packs"] = out["K2 pack VJPs"] = steps
     return out
 
 
@@ -1009,7 +1043,7 @@ def phase_train_kernels(scene, target):
     bare = [_time_back_to_back_ms(lambda: kern.launch(packed, o, d, thr, dec, *cts))
             for _ in range(2)]
     continuing = int((dec["take_transmit"] | dec["scatter_alive"]).sum())
-    bound = bound_k2(N, continuing, kern.aux.shape[0])
+    bound = bound_k2(N, continuing, packed.numel())
     log(f"[8 train-width timing] K2 bare launch at B={N} (continuing {continuing}): "
         f"{bare[0]:.4f} / {bare[1]:.4f} ms (mean of 20 back to back); bound "
         f"{bound[0]:.4g} ms ({bound[1]})")
@@ -1073,12 +1107,14 @@ def bound_k1(B, L):
     return _bound(121 * B, B * (25 * L + 4 * L * L + 250))
 
 
-def bound_k2(B, continuing, L):
-    """K2: reads o, d, thr, u_sel and three cotangents (21 floats, 84 B),
-    evt and four flags (8 B), writes d(o, d, thr) (36 B), plus the (L, 34)
-    sums; operations: ~450 per continuing lane (replay and reverse sweep)
-    and its 34 adds into the per-leaf sums; other lanes copy."""
-    return _bound(128 * B + 4 * 34 * L, continuing * (450 + 34))
+def bound_k2(B, continuing, sum_words):
+    """K2 (and K6): reads o, d, thr, u_sel and three cotangents (21 floats,
+    84 B), evt and four flags (8 B), writes d(o, d, thr) (36 B), plus the
+    ``sum_words`` floats of the scene's sums (K2's ``d_packed``, L·26 +
+    M·8; K6's (L, 34)); operations: ~450 per continuing lane (replay and
+    reverse sweep) and its 34 adds into the per-leaf sums; other lanes
+    copy."""
+    return _bound(128 * B + 4 * sum_words, continuing * (450 + 34))
 
 
 def bound_k3(yi, inb, ct, shape):
@@ -1089,40 +1125,77 @@ def bound_k3(yi, inb, ct, shape):
     return _bound((17 + 4 * C) * N + 4 * texels, C * int(inb.sum()))
 
 
+def _library_hists(yi, xi, inb, ct, shape):
+    """The two PyTorch calls that compute the gather's transpose:
+    ``index_put_(accumulate=True)`` on the (H, W, C) image and
+    ``index_add_`` on its flat (H·W, C) view (masked cotangents and flat
+    indices made beforehand)."""
+    import torch
+
+    ct_m = torch.where(inb[:, None], ct, 0.0)
+    flat = yi * shape[1] + xi
+    put = lambda: torch.zeros(shape, device=ct.device).index_put_((yi, xi), ct_m,
+                                                                  accumulate=True)
+    add = lambda: torch.zeros((shape[0] * shape[1], shape[2]), device=ct.device).index_add_(
+        0, flat, ct_m)
+    return put, add
+
+
 def phase_timing_backward(scene, k2_in, k3_in):
     """K2 and K3 as the main path calls them against their plain versions
-    (and K3 against ``index_put_``), in turns: plain, kernel, kernel, plain."""
+    (K3 also against ``index_put_`` and ``index_add_``), in turns: plain,
+    kernel, kernel, plain.  K2: the per-bounce wrapper as
+    ``ManualBounce.backward`` calls it (input checks, allocations, the two
+    launches), the once-per-call pack + VJP (``pack_bwd`` of the params with
+    history, then its VJP on one ``d_packed``), and for a step's 16
+    backward bounces 16 wrappers + one pack + VJP beside 16 times the
+    per-bounce params route (launch, pack and VJP on every bounce, as the
+    wrapper did before ``d_packed``)."""
     import torch
     from ptx_torch.ops import bounce_kernel as bk, imagegrad
 
+    kern = scene.bounce_bwd_fn
     o, d, thr, dec, cts = k2_in
-    k2 = lambda: scene.bounce_bwd_fn(scene.params, o, d, thr, dec, *cts)
-    k2p = lambda: bk.bounce_bwd_reference(scene, scene.params, o, d, thr, dec, *cts)
-    packed = scene.bounce_bwd_fn.pack(scene.params).detach()
-    k2_bare = lambda: scene.bounce_bwd_fn.launch(packed, o, d, thr, dec, *cts)
-    p1 = _time_ms(k2p)
+    packed = bk.pack_bwd(kern.rows, scene.material_fn, scene.params).detach()
+    d_packed = kern(packed, o, d, thr, dec, *cts)[3]
+    k2 = lambda: kern(packed, o, d, thr, dec, *cts)
+    k2p = lambda: kern.reference(packed, o, d, thr, dec, *cts)
+    k2_bare = lambda: kern.launch(packed, o, d, thr, dec, *cts)
+    pack_vjp = lambda: kern.params_grad(*kern.pack_leaves(scene.params), d_packed)
+    route = lambda: kern.params_grad(*kern.pack_leaves(scene.params),
+                                     kern(packed, o, d, thr, dec, *cts)[3])
+    whole = lambda: bk.bounce_bwd_reference(scene, scene.params, o, d, thr, dec, *cts)
+    p1, a1 = _time_ms(k2p), _time_ms(whole)
     w1, w2 = _time_ms(k2), _time_ms(k2)
+    v1, r1, r2, v2 = _time_ms(pack_vjp), _time_ms(route), _time_ms(route), _time_ms(pack_vjp)
     b1, b2 = _time_back_to_back_ms(k2_bare), _time_back_to_back_ms(k2_bare)
-    p2 = _time_ms(k2p)
+    a2, p2 = _time_ms(whole), _time_ms(k2p)
+    n_bwd = DEPTH
+    step_new, step_old = n_bwd * min(w1, w2) + min(v1, v2), n_bwd * min(r1, r2)
     yi, xi, inb, ct, shape = k3_in
-    ct_m = torch.where(inb[:, None], ct, 0.0)
     k3 = lambda: imagegrad.hist(yi, xi, inb, ct, shape)
     k3p = lambda: imagegrad.hist_reference(yi, xi, inb, ct, shape)
-    lib = lambda: torch.zeros(shape, device=ct.device).index_put_((yi, xi), ct_m,
-                                                                  accumulate=True)
-    q1, l1 = _time_ms(k3p), _time_ms(lib)
+    put, add = _library_hists(yi, xi, inb, ct, shape)
+    q1, l1, m1 = _time_ms(k3p), _time_ms(put), _time_ms(add)
     h1, h2 = _time_ms(k3), _time_ms(k3)
-    l2, q2 = _time_ms(lib), _time_ms(k3p)
-    log(f"[10 timing] K2 at B={o.shape[0]} (wrapper: pack_bwd, launch, params "
-        f"mapping) {w1:.4f} / {w2:.4f} ms; plain {p1:.4f} / {p2:.4f} ms; K2 bare "
-        f"launch {b1:.4f} / {b2:.4f} ms (mean of 20 back to back)")
+    m2, l2, q2 = _time_ms(add), _time_ms(put), _time_ms(k3p)
+    log(f"[10 timing] K2 at B={o.shape[0]}: per-bounce wrapper (checks, allocations, "
+        f"two launches) {w1:.4f} / {w2:.4f} ms; bare launch {b1:.4f} / {b2:.4f} ms (mean "
+        f"of 20 back to back); plain (lanes + fold) {p1:.4f} / {p2:.4f} ms; whole-bounce "
+        f"plain (autograd of the replay to the params) {a1:.4f} / {a2:.4f} ms")
+    log(f"[10 timing] K2 pack + VJP once per trace_rays call {v1:.4f} / {v2:.4f} ms; "
+        f"per-bounce params route (launch + pack + VJP) {r1:.4f} / {r2:.4f} ms; a step's "
+        f"{n_bwd} backward bounces: {n_bwd} wrappers + one pack + VJP {step_new:.4f} ms, "
+        f"{n_bwd} x the per-bounce params route {step_old:.4f} ms")
     log(f"[10 timing] K3 at N={yi.numel()} on {tuple(shape)}: wrapper {h1:.4f} / "
         f"{h2:.4f} ms; plain {q1:.4f} / {q2:.4f} ms; index_put_(accumulate=True) "
-        f"{l1:.4f} / {l2:.4f} ms (each the median of 20 single calls)")
+        f"{l1:.4f} / {l2:.4f} ms; index_add_ (flat) {m1:.4f} / {m2:.4f} ms (each the "
+        f"median of 20 single calls)")
     continuing = int((dec["take_transmit"] | dec["scatter_alive"]).sum())
-    return ((min(w1, w2), min(p1, p2), bound_k2(o.shape[0], continuing,
-                                                scene.bounce_bwd_fn.aux.shape[0])),
-            (min(h1, h2), min(q1, q2), min(l1, l2), bound_k3(yi, inb, ct, shape)))
+    return ((min(w1, w2), min(p1, p2), bound_k2(o.shape[0], continuing, packed.numel()),
+             min(v1, v2), step_new, step_old),
+            (min(h1, h2), min(q1, q2), min(l1, l2), bound_k3(yi, inb, ct, shape),
+             min(m1, m2)))
 
 
 # ---------------------------------------------------------------------------
@@ -1342,7 +1415,7 @@ def phase_train_k7(scene):
     call and every histogram held against its plain version."""
     calls, hists, outs = [], [], []
     c, secs, peak, _ = phase_train(
-        scene, "C2 K7 train", _expect(K1=3 * (DEPTH + 1), K2=3 * DEPTH, K7=3, K3=3),
+        scene, "C2 K7 train", _expect(3, K1=3 * (DEPTH + 1), K2=3 * DEPTH, K7=3, K3=3),
         _all(_swapped(scene, "emission_fn", _recording_em(scene.emission_fn, calls)),
              _recording_hists(hists, outs)))
     err7, near = _check_k7(scene, calls, "C2 train-width K7 vs plain")
@@ -1357,7 +1430,7 @@ def phase_probe(pb):
     held against ``hist_reference`` within the reordered-sum bound."""
     hists, outs = [], []
     c, secs, peak, _ = phase_train(
-        pb, "B1 probe train", _expect(K1=3 * (DEPTH + 1), K2=3 * DEPTH, K8=9),
+        pb, "B1 probe train", _expect(3, K1=3 * (DEPTH + 1), K2=3 * DEPTH, K8=9),
         _recording_hists(hists, outs))
     err8 = _check_hists(hists, "B2 probe K8 vs plain", "K8", 9, outs)
     k8_in = max(hists, key=lambda h: h[0].numel())
@@ -1405,18 +1478,21 @@ def phase_timing_small(c4, k4_in, pe, k7_in, k8_in):
     k7_t = (min(v1, v2), min(q1, q2), bound_k7(pos.shape[0], pe.params["images"][kern.img_id]))
 
     yi, xi, inb, ct, shape = k8_in
-    ct_m = torch.where(inb[:, None], ct, 0.0)
     k8 = lambda: imagegrad.hist(yi, xi, inb, ct, shape)
     k8p = lambda: imagegrad.hist_reference(yi, xi, inb, ct, shape)
-    lib = lambda: torch.zeros(shape, device=ct.device).index_put_((yi, xi), ct_m,
-                                                                  accumulate=True)
-    r1, l1 = _time_ms(k8p), _time_ms(lib)
+    put, add = _library_hists(yi, xi, inb, ct, shape)
+    r1, l1, m1 = _time_ms(k8p), _time_ms(put), _time_ms(add)
     h1, h2 = _time_ms(k8), _time_ms(k8)
-    l2, r2 = _time_ms(lib), _time_ms(k8p)
-    log(f"[10 timing] K8 at N={yi.numel()} on {tuple(shape)} (wrapper: lane sort + "
+    m2, l2, r2 = _time_ms(add), _time_ms(put), _time_ms(k8p)
+    log(f"[10 timing] K8 at N={yi.numel()} on {tuple(shape)} (wrapper: zero-fill + "
         f"launch) {h1:.4f} / {h2:.4f} ms; plain {r1:.4f} / {r2:.4f} ms; "
-        f"index_put_(accumulate=True) {l1:.4f} / {l2:.4f} ms")
-    k8_t = (min(h1, h2), min(r1, r2), bound_k3(yi, inb, ct, shape), min(l1, l2))
+        f"index_put_(accumulate=True) {l1:.4f} / {l2:.4f} ms; index_add_ (flat) "
+        f"{m1:.4f} / {m2:.4f} ms")
+    k8_t = (min(h1, h2), min(r1, r2), bound_k3(yi, inb, ct, shape), min(l1, l2),
+            min(m1, m2))
+    if not k8_t[0] <= 0.5 * k8_t[3]:
+        raise AssertionError(f"K8's wrapper {k8_t[0]:.4f} ms is more than half of "
+                             f"index_put_'s {k8_t[3]:.4f} ms")
     return k4_t, k7_t, k8_t
 
 
@@ -1671,13 +1747,13 @@ def phase_timing_large(scene, tag, k5_in, k6_in, k6_wide):
     c1, c2 = _time_back_to_back_ms(k6b), _time_back_to_back_ms(k6b)
     L = len(kern.leaves)
     cont = int((dec["take_transmit"] | dec["scatter_alive"]).sum())
-    k6_bound = bound_k2(o.shape[0], cont, L)
+    k6_bound = bound_k2(o.shape[0], cont, 34 * L)
     wide = ""
     if k6_wide is not None:
         o2, d2, thr2, dec2, cts2 = k6_wide
         wb = _time_back_to_back_ms(lambda: kern.launch(p36, o2, d2, thr2, dec2, *cts2))
         wbound = bound_k2(o2.shape[0], int((dec2["take_transmit"] | dec2["scatter_alive"]).sum()),
-                          L)
+                          34 * L)
         wide = (f"; bare launch at B={o2.shape[0]} {wb:.4f} ms, bound {wbound[0]:.4g} ms "
                 f"({wbound[1]})")
     log(f"[{tag}] K6 at B={o.shape[0]} (continuing {cont}): wrapper {v1:.4f} / {v2:.4f} ms; "
@@ -1967,7 +2043,7 @@ def main():
     _timed("6 gradients", phase_gradients, scene)
     train, secs, peak, target = _timed(
         "7 train", phase_train, scene, "7 train",
-        _expect(K1=3 * (DEPTH + 1), K2=3 * DEPTH, K3=3 * 3))
+        _expect(3, K1=3 * (DEPTH + 1), K2=3 * DEPTH, K3=3 * 3))
     flips8, err8_1, err8_2, err8_3 = _timed("8 train-width kernels", phase_train_kernels,
                                             scene, target)
     del target
@@ -2030,7 +2106,8 @@ def main():
 
     fb_rays, f_rays = _timed("9 fwd+bwd", phase_fwd_bwd, scene)
     w_ms, p_ms, dev_ms = _timed("10 K1 timing", phase_timing, scene, inputs)
-    (k2_ms, k2p_ms, k2_bound), (k3_ms, k3p_ms, k3_lib, k3_bound) = _timed(
+    (k2_ms, k2p_ms, k2_bound, k2_pack_ms, k2_step, k2_step_old), (
+        k3_ms, k3p_ms, k3_lib, k3_bound, k3_add) = _timed(
         "10 K2 K3 timing", phase_timing_backward, scene, k2_in, k3_in)
     k4_t, k7_t, k8_t = _timed("10 K4 K7 K8 timing", phase_timing_small, c4, k4_in, pe,
                               k7_in, k8_in)
@@ -2044,11 +2121,14 @@ def main():
         f"another texel at a boundary {near_a} + {near_b} + {near_m}; fwd+bwd chunk {fb_rays:.4g} "
         f"rays/s, fwd {f_rays:.4g} rays/s; K1 {w_ms:.4f} ms vs plain {p_ms:.4f} ms "
         f"(bound {k1_bound[0]:.4g} ms, {k1_bound[1]}); K2 {k2_ms:.4f} vs {k2p_ms:.4f} ms "
-        f"(bound {k2_bound[0]:.4g} ms); K3 {k3_ms:.4f} vs {k3p_ms:.4f} ms, index_put_ "
-        f"{k3_lib:.4f} ms (bound {k3_bound[0]:.4g} ms); K4 {k4_t[0]:.4f} vs "
+        f"(bound {k2_bound[0]:.4g} ms), pack + VJP {k2_pack_ms:.4f} ms once per call, "
+        f"per step {k2_step:.4f} ms against {k2_step_old:.4f} ms per bounce; K3 "
+        f"{k3_ms:.4f} vs {k3p_ms:.4f} ms, index_put_ {k3_lib:.4f} ms, index_add_ "
+        f"{k3_add:.4f} ms (bound {k3_bound[0]:.4g} ms); K4 {k4_t[0]:.4f} vs "
         f"{k4_t[1]:.4f} ms (bound {k4_t[2][0]:.4g} ms); K7 {k7_t[0]:.4f} vs "
         f"{k7_t[1]:.4f} ms (bound {k7_t[2][0]:.4g} ms); K8 {k8_t[0]:.4f} vs "
-        f"{k8_t[1]:.4f} ms, index_put_ {k8_t[3]:.4f} ms (bound {k8_t[2][0]:.4g} ms); "
+        f"{k8_t[1]:.4f} ms, index_put_ {k8_t[3]:.4f} ms, index_add_ {k8_t[4]:.4f} ms "
+        f"(bound {k8_t[2][0]:.4g} ms); "
         f"large scenes: flips {flipsD}, train step "
         + ", ".join(f"{nm} {min(v[1]):.3f} s / {v[2]:.3f} GiB" for nm, v in trainD.items())
         + f", render --scene {composed_rays_s:.4g} rays/s; K5 {k5_ms:.4f} vs {k5p_ms:.4f} ms "
@@ -2086,7 +2166,7 @@ def main():
         entry("emission_forward (K7: fused emission chain)",
               "ptx_torch/csrc/emission_kernel.cu", "ptx/ops/emission_kernel.py:98",
               trainC["K7"], max(err7a, err7b, err7m), k7_t[0], k7_t[1], k7_t[2], None),
-        entry("image_hist_banded (K8: banded image-gather transpose)",
+        entry("image_hist_atomic (K8: image-gather transpose by device-memory atomics)",
               "ptx_torch/csrc/image_hist_kernel.cu", "ptx/ops/imagegrad.py:218",
               trainB["K8"], max(err8, err_k8a), k8_t[0], k8_t[1], k8_t[2], k8_t[3]),
         entry("sweep_select (K9: union-sweep prefix max, break minima, payload match, S1)",

@@ -4,20 +4,20 @@
 // Replaces ptx/ops/bounce_kernel.py:578 build_bounce_bwd_kernel, the Pallas
 // TPU kernel that ran jax.vjp on replay_lane_math inside its body.  Here the
 // adjoint is written by hand (replay_lane.cuh).  Its plain PyTorch version is
-// ptx_torch/ops/bounce_kernel.py bounce_bwd_lanes_reference (autograd through
-// replay_lane_math); the wrapper, BounceBwdKernel, maps the per-leaf sums back
-// to the scene params.
+// ptx_torch/ops/bounce_kernel.py BounceBwdKernel.reference (autograd through
+// replay_lane_math, then the per-material fold below).
 //
 // Per lane: reads o, d, thr, u_sel and the three carry cotangents (21 floats),
 // evt and four flag bytes (8 bytes); writes d(o), d(d), d(thr) (9 floats):
-// 128 bytes.  Per leaf: the sum over its lanes of the 26 row cotangents and
-// the 8 material cotangents, an (L, 34) accumulator.
+// 128 bytes.  Per scene: d_packed, the cotangent of pack_bwd's vector (the
+// L x 26 leaf rows, then M x 8 material scalars).
 //
 // What bounds it on this card.  At B = 65,536 the lane traffic is ~8.4 MB,
 // ~2.5 us at 3.35 TB/s, and the arithmetic ~400 float operations per lane,
 // ~0.4 us at 67 TFLOP/s: far below a launch.  So the kernel is latency- and
 // register-bound: one long dependent chain per thread (forward replay, then
-// the reverse sweep) and a block reduction per tile.  What the design does:
+// the reverse sweep) and a block reduction per tile.  Its device time is
+// ~5.8x the bound.  What the design does:
 // - the scene (pack_bwd: L*26 + M*8 floats) and the per-leaf kind, parity and
 //   material sit in shared memory; a lane reads its leaf's row by index from
 //   evt (the Pallas kernel's one-hot select chain existed for the TPU's vector
@@ -30,7 +30,14 @@
 //   thread that owns entry (leaf, column) adds them up in that order into a
 //   register; each block writes its partial sums, and a second launch sums
 //   the partials of every entry in a fixed tree.  The same inputs give the
-//   same bits.
+//   same bits;
+// - the second launch writes the scene vector's cotangent itself: the leaf
+//   rows' entries, and each material's entries as the sum of its leaves'
+//   material columns in ascending leaf order (the JAX package's one-hot
+//   leaf -> material product, done here in the reduction).  The wrapper so
+//   hands autograd one vector per bounce, and the caller (trace_rays) maps
+//   the sum over bounces to the params once per call, through the packing's
+//   VJP, in place of a params mapping per bounce.
 // Later work: structure-of-arrays inputs for 16-byte loads; a warp-level
 // segmented reduction instead of the owned-entry loop.
 
@@ -149,13 +156,10 @@ bounce_bwd_kernel(const float* __restrict__ scene, int scene_words, int L,
   }
 }
 
-// Second pass: entry e of the accumulator is the sum of every block's partial,
-// each thread summing a fixed stride of blocks, then a fixed tree.
-__global__ void __launch_bounds__(kReduceThreads)
-reduce_partials_kernel(const float* __restrict__ partial, int n_blocks, int E,
-                       float* __restrict__ acc) {
-  __shared__ float s[kReduceThreads];
-  const int e = blockIdx.x;
+// The sum of every block's partial of entry e: each thread sums a fixed
+// stride of blocks, then a fixed tree; the result is thread 0's.
+__device__ float sum_partials(const float* __restrict__ partial, int n_blocks, int E,
+                              int e, float* s) {
   float sum = 0.f;
   for (int b = threadIdx.x; b < n_blocks; b += kReduceThreads)
     sum += partial[(size_t)b * E + e];
@@ -165,7 +169,33 @@ reduce_partials_kernel(const float* __restrict__ partial, int n_blocks, int E,
     if (threadIdx.x < h) s[threadIdx.x] += s[threadIdx.x + h];
     __syncthreads();
   }
-  if (threadIdx.x == 0) acc[e] = s[0];
+  const float total = s[0];
+  __syncthreads();              // s is rewritten by the next call
+  return total;
+}
+
+// Second pass: one block per entry of d_packed, the cotangent of pack_bwd's
+// vector.  Entries below L*26 are leaf-row entries (leaf k, column c): the
+// per-leaf sum of (k, c).  Entry L*26 + 8m + c is material m's column c: the
+// per-leaf sums of column 26 + c of the leaves of m, added in ascending leaf
+// order (mat_leaves[mat_start[m] .. mat_start[m + 1]]); 0 for a material
+// without leaves.
+__global__ void __launch_bounds__(kReduceThreads)
+reduce_partials_kernel(const float* __restrict__ partial, int n_blocks, int L,
+                       const int* __restrict__ mat_start,
+                       const int* __restrict__ mat_leaves, float* __restrict__ d_packed) {
+  __shared__ float s[kReduceThreads];
+  const int E = L * kCols, j = blockIdx.x;
+  float out = 0.f;
+  if (j < L * kRow) {
+    const int k = j / kRow;
+    out = sum_partials(partial, n_blocks, E, k * kCols + (j - k * kRow), s);
+  } else {
+    const int m = (j - L * kRow) / kMat, c = (j - L * kRow) % kMat;
+    for (int i = mat_start[m]; i < mat_start[m + 1]; ++i)
+      out += sum_partials(partial, n_blocks, E, mat_leaves[i] * kCols + kRow + c, s);
+  }
+  if (threadIdx.x == 0) d_packed[j] = out;
 }
 
 }  // namespace
@@ -178,16 +208,20 @@ extern "C" int ptx_bounce_backward_smem(int scene_words, int L) {
 }
 
 // C entry point (ctypes): two launches on `stream` (per-block partial sums,
-// then their reduction into acc (L, 34)), no synchronisation; returns
-// cudaGetLastError().  `partial` holds n_blocks * L * 34 floats.
+// then their reduction into d_packed, the cotangent of the scene vector's
+// L*26 + M*8 words), no synchronisation; returns cudaGetLastError().
+// `partial` holds n_blocks * L * 34 floats; mat_start (M + 1) and mat_leaves
+// (L) list each material's leaves in ascending order.
 extern "C" int ptx_bounce_backward(
     const float* scene, int scene_words, int L, const float* aux, const float* o,
     const float* d, const float* thr, const int* evt, const uint8_t* hit,
     const uint8_t* entering, const uint8_t* take_transmit, const uint8_t* scatter_alive,
     const float* u_sel, const float* ct_o2, const float* ct_d2, const float* ct_thr2,
     int B, float* d_o, float* d_d, float* d_thr, float* partial, int n_blocks,
-    float* acc, void* stream) {
-  if (L < 1 || L > kMaxLeaves || B < 1 || n_blocks < 1) return (int)cudaErrorInvalidValue;
+    const int* mat_start, const int* mat_leaves, int M, float* d_packed, void* stream) {
+  if (L < 1 || L > kMaxLeaves || B < 1 || n_blocks < 1 || M < 0 ||
+      scene_words != L * kRow + M * kMat)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)ptx_bounce_backward_smem(scene_words, L);
   cudaStream_t s = (cudaStream_t)stream;
   bounce_bwd_kernel<<<n_blocks, kThreads, smem, s>>>(
@@ -195,7 +229,7 @@ extern "C" int ptx_bounce_backward(
       scatter_alive, u_sel, ct_o2, ct_d2, ct_thr2, B, d_o, d_d, d_thr, partial);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  reduce_partials_kernel<<<L * kCols, kReduceThreads, 0, s>>>(partial, n_blocks,
-                                                               L * kCols, acc);
+  reduce_partials_kernel<<<scene_words, kReduceThreads, 0, s>>>(
+      partial, n_blocks, L, mat_start, mat_leaves, d_packed);
   return (int)cudaGetLastError();
 }

@@ -20,25 +20,33 @@
 //   per SM and at least 4,096 lanes per block, so the flush (one global
 //   atomic per touched texel per block) stays small beside the lanes.
 //
-// K8, hist_banded_kernel, for every larger image (the 1536x3072x4 probe sky
+// K8, hist_atomic_kernel, for every larger image (the 1536x3072x4 probe sky
 // is 75.5 MB).  Replaces ptx/ops/imagegrad.py:218 _build_banded_hist /
 // _binned_kernel (:156, pallas_call :274).
-// - Bound: the output, written once (75.5 MB for the probe: 22.5 us at
-//   3.35 TB/s), plus (2 + C) floats per lane of the sorted rows.
-// - Design: the wrapper sorts the lanes by image block (bin id per lane,
-//   skipped lanes last, a stable argsort, searchsorted for the per-block
-//   offsets, one packed row gather), as the JAX package does outside Pallas.
-//   One block per image block of kBH x kBW texels zeroes its tile in shared
-//   memory, walks its contiguous lane range with all threads adding by
-//   shared-memory atomics, and writes its tile once.  Every texel is owned by
-//   exactly one block: no global atomics and no separate zero-fill of the
-//   output.  The TPU's 64x512 block is 512 KB at C = 4, over the 227 KB a
-//   block can have; 32x256 is 128 KB at C = 4 (96 KB at C = 3), which leaves
-//   one block per SM and 576 blocks for the probe (4.4 waves on 132 SMs).
-//
+// - Why no sort: the TPU has no scatter-add, so the JAX package sorts the
+//   lanes into 64x512 image blocks outside Pallas (imagegrad.py:229-256) and
+//   each grid step owns one block.  Hopper adds into device memory with
+//   atomics, 16 bytes at once since sm_90 (atomicAdd(float4*, float4), a
+//   red.global.add.v4.f32), so the lanes need no order: one thread per lane
+//   adds its C cotangents straight into its texel of the output.
+// - Bound: unchanged, bound_k3's count: per lane yi, xi (int64), inb and C
+//   floats of cotangent, (17 + 4C) B, plus one write of the image.  For the
+//   probe's 4,194,304 sky-select lanes at C = 4 that is 138 MB + 75.5 MB,
+//   64 us at 3.35 TB/s.  The wrapper zero-fills the output (one memset);
+//   the adds land in the 50 MB L2 as atomics, scattered over 4.7 M texels.
+// - Design: one thread per lane in a grid-stride loop; lanes with inb false
+//   or an all-zero cotangent make no atomic; at C = 4 (a 16-byte aligned ct)
+//   one 16-byte load and one vector atomic a lane (it compiles to
+//   REDG.E.ADD.F32x4.FTZ: a subnormal sum, below 1.2e-38, is flushed to 0),
+//   else scalar loads and one atomicAdd per nonzero channel.  No scratch, no
+//   shared memory, no sort, no row table.  Summing the lanes of a warp that
+//   hit the same texel first (__match_any_sync, then shuffles) was measured
+//   slower on the probe's lanes (0.1250 against 0.1158 ms a call, NVIDIA
+//   H100 80GB HBM3 at 700 W) and is not done.
+
 // Float atomics add in a varying order, so both results vary in the last
-// bits from run to run: a texel's error is bounded by its sum of |ct| times
-// a few ulps, the tolerance the checks use.
+// bits from run to run: a texel of n lanes is within the reordered-sum
+// bound 2*n*2^-24*sum|ct| of the exact sum, the tolerance the checks use.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,8 +55,6 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kMinLanesPerBlock = 4096;
-constexpr int kBH = 32;         // K8's image block: kBH x kBW texels (BLOCK_H,
-constexpr int kBW = 256;        // BLOCK_W in ptx_torch/ops/imagegrad.py)
 constexpr int kMaxC = 4;
 
 __global__ void __launch_bounds__(kThreads)
@@ -74,33 +80,34 @@ hist_shared_kernel(const int64_t* __restrict__ yi, const int64_t* __restrict__ x
   }
 }
 
-// rows: (n, 2 + C) float32 sorted by image block, [y, x, ct_0 .. ct_{C-1}];
-// offs: (n_by * n_bx + 1) lane offsets of the blocks in that order.
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
-hist_banded_kernel(const float* __restrict__ rows, const int* __restrict__ offs, int H,
-                   int W, int C, int n_bx, float* __restrict__ out) {
-  extern __shared__ float s_tile[];                 // kBH x kBW x C
-  const int b = blockIdx.x;
-  const int y0 = (b / n_bx) * kBH, x0 = (b % n_bx) * kBW;
-  const int tile = kBH * kBW * C;
-  for (int i = threadIdx.x; i < tile; i += kThreads) s_tile[i] = 0.f;
-  __syncthreads();
-  const int lo = offs[b], hi = offs[b + 1];
-  const int stride = 2 + C;
-  for (int i = lo + threadIdx.x; i < hi; i += kThreads) {
-    const float* r = rows + (size_t)i * stride;
-    const int base = (((int)r[0] - y0) * kBW + ((int)r[1] - x0)) * C;
-    for (int c = 0; c < C; ++c) {
-      const float v = r[2 + c];
-      if (v != 0.f) atomicAdd(&s_tile[base + c], v);
+hist_atomic_kernel(const int64_t* __restrict__ yi, const int64_t* __restrict__ xi,
+                   const uint8_t* __restrict__ inb, const float* __restrict__ ct, int N,
+                   int W, int C, float* __restrict__ out) {
+  for (int lane = blockIdx.x * kThreads + threadIdx.x; lane < N;
+       lane += gridDim.x * kThreads) {
+    if (!inb[lane]) continue;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (kVec) {
+      v = reinterpret_cast<const float4*>(ct)[lane];
+    } else {
+      const float* r = ct + (size_t)lane * C;
+      v.x = r[0];
+      if (C > 1) v.y = r[1];
+      if (C > 2) v.z = r[2];
+      if (C > 3) v.w = r[3];
     }
-  }
-  __syncthreads();
-  const int rows_in = min(kBH, H - y0), cols_in = min(kBW, W - x0);
-  const int row_words = cols_in * C;
-  for (int i = threadIdx.x; i < rows_in * row_words; i += kThreads) {
-    const int ty = i / row_words, rest = i - ty * row_words;
-    out[((size_t)(y0 + ty) * W + x0) * C + rest] = s_tile[ty * kBW * C + rest];
+    if (v.x == 0.f && v.y == 0.f && v.z == 0.f && v.w == 0.f) continue;
+    float* dst = out + ((int)yi[lane] * W + (int)xi[lane]) * C;   // < 2^31: the entry checks
+    if (kVec) {
+      atomicAdd(reinterpret_cast<float4*>(dst), v);
+    } else {
+      if (v.x != 0.f) atomicAdd(dst, v.x);
+      if (C > 1 && v.y != 0.f) atomicAdd(dst + 1, v.y);
+      if (C > 2 && v.z != 0.f) atomicAdd(dst + 2, v.z);
+      if (C > 3 && v.w != 0.f) atomicAdd(dst + 3, v.w);
+    }
   }
 }
 
@@ -130,19 +137,24 @@ extern "C" int ptx_image_hist(const int64_t* yi, const int64_t* xi, const uint8_
   return (int)cudaGetLastError();
 }
 
-// C entry point of K8 (ctypes): one launch on `stream` writing every texel of
-// `out` (no zero-fill needed), no synchronisation; returns
-// cudaGetLastError().
-extern "C" int ptx_image_hist_banded(const float* rows, const int* offs, int H, int W,
-                                     int C, float* out, void* stream) {
-  if (H < 1 || W < 1 || C < 1 || C > kMaxC) return (int)cudaErrorInvalidValue;
-  const int n_by = (H + kBH - 1) / kBH, n_bx = (W + kBW - 1) / kBW;
-  const int smem = (int)sizeof(float) * kBH * kBW * C;
-  cudaError_t err = cudaFuncSetAttribute(
-      hist_banded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  hist_banded_kernel<<<n_by * n_bx, kThreads, smem, (cudaStream_t)stream>>>(
-      rows, offs, H, W, C, n_bx, out);
+// C entry point of K8 (ctypes): one launch on `stream` adding into `out`
+// (zeroed by the caller), no synchronisation; returns cudaGetLastError(),
+// or cudaErrorInvalidValue for C past 4 or an image of 2^31 floats or more.
+extern "C" int ptx_image_hist_atomic(const int64_t* yi, const int64_t* xi,
+                                     const uint8_t* inb, const float* ct, int N, int H,
+                                     int W, int C, float* out, void* stream) {
+  if (N < 1 || H < 1 || W < 1 || C < 1 || C > kMaxC ||
+      (long long)H * W * C >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int blocks = (N + kThreads - 1) / kThreads;
+  blocks = blocks < 4 * sms ? blocks : 4 * sms;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (C == 4 && ((uintptr_t)ct & 15) == 0)
+    hist_atomic_kernel<true><<<blocks, kThreads, 0, s>>>(yi, xi, inb, ct, N, W, C, out);
+  else
+    hist_atomic_kernel<false><<<blocks, kThreads, 0, s>>>(yi, xi, inb, ct, N, W, C, out);
   return (int)cudaGetLastError();
 }
-

@@ -23,7 +23,9 @@ decision-frozen replay.  ``compile_scene`` routes as the JAX package's
 
 - at most 24 leaves, every non-emissive slot Constant: the fused bounce
   kernels K1 and K2 (:mod:`ptx_torch.ops.bounce_kernel`), one launch each
-  per bounce;
+  per bounce; K2 returns the cotangent of its scene vector, which
+  ``trace_rays`` packs once per call, so the params mapping runs once per
+  call;
 - more than 24 leaves: the hit is :func:`~ptx_torch.geom.fasthit.
   compile_fast_hit`'s — on a union of small groups the sweep, in the mode
   :func:`~ptx_torch.geom.fasthit.resolve_sweep_mode` picks (``mega``: K5 in
@@ -423,19 +425,29 @@ def replay_vjp(scene, params, o, d, thr, dec, ct_o2, ct_d2, ct_thr2):
     return (*grads[:3], {k: d_params[k] for k in scene.diff_keys})
 
 
+def _takes_packed(scene):
+    """Whether the scene's replay backward takes its packed scene vector
+    (K2: ``BounceBwdKernel.takes_packed``) instead of the params."""
+    return getattr(scene.bounce_bwd_fn, "takes_packed", False)
+
+
 class ManualBounce(torch.autograd.Function):
     """One bounce with a decision-frozen replay backward (port of
     ``_make_manual_bounce``, ``ptx/integrate/trace.py:660``).
 
     ``apply(scene, params, packed, in_depth, o, d, thr, strength, alive,
-    u_coin, u3, *_diff_inputs(scene, params))`` returns ``(o2, d2, thr2,
-    strength2, alive2)`` and then the decisions ``_DEC_KEYS``.  The
-    forward is ``scene.bounce_fn`` (with the scene buffer ``packed``); it
-    saves the carry and the decisions, not the uniforms (the replay reads
-    the accepted draw ``u_sel``).  The backward is ``scene.bounce_bwd_fn``
-    on the cotangents of o2, d2 and thr2.  strength2, alive2 and the
-    decisions are not differentiable; the param tensors the replay reads
-    are explicit inputs so that autograd reaches them."""
+    u_coin, u3, *diff)`` returns ``(o2, d2, thr2, strength2, alive2)`` and
+    then the decisions ``_DEC_KEYS``.  The forward is ``scene.bounce_fn``
+    (with the scene buffer ``packed``); it saves the carry and the
+    decisions, not the uniforms (the replay reads the accepted draw
+    ``u_sel``).  The backward is ``scene.bounce_bwd_fn`` on the cotangents
+    of o2, d2 and thr2.  strength2, alive2 and the decisions are not
+    differentiable.  ``diff`` are the scene inputs autograd reaches the
+    params through: where the backward takes the packed scene vector (K2,
+    :func:`_takes_packed`), that one vector, packed once per ``trace_rays``
+    call (None when no param needs a gradient), and the backward returns
+    its cotangent; else ``_diff_inputs(scene, params)``, and the backward
+    returns their cotangents."""
 
     @staticmethod
     def forward(ctx, scene, params, packed, in_depth, o, d, thr, strength, alive,
@@ -455,17 +467,34 @@ class ManualBounce(torch.autograd.Function):
         n_dec = len(_DEC_KEYS) - 1
         dec = dict(zip(_DEC_KEYS[1:], rest[:n_dec]))
         scene = ctx.scene
+        cts = (ct_o2.contiguous(), ct_d2.contiguous(), ct_thr2.contiguous())
+        if _takes_packed(scene):
+            packed = rest[n_dec]        # None: only the rays need a gradient
+            vec = scene.bounce_bwd_fn.pack(ctx.params) if packed is None else packed
+            d_o, d_d, d_thr, d_packed = scene.bounce_bwd_fn(vec.detach(), o, d, thr,
+                                                            dec, *cts)
+            return ((None,) * 4 + (d_o, d_d, d_thr) + (None,) * 4
+                    + (None if packed is None else d_packed,))
         params = _with_diff(scene, ctx.params, rest[n_dec:])
-        d_o, d_d, d_thr, d_params = scene.bounce_bwd_fn(
-            params, o, d, thr, dec, ct_o2.contiguous(), ct_d2.contiguous(),
-            ct_thr2.contiguous())
+        d_o, d_d, d_thr, d_params = scene.bounce_bwd_fn(params, o, d, thr, dec, *cts)
         return ((None,) * 4 + (d_o, d_d, d_thr) + (None,) * 4
                 + tuple(_diff_inputs(scene, d_params)))
 
 
-def _bounce(scene: CompiledScene, params, packed, carry, in_depth, u_coin, u3):
-    outs = ManualBounce.apply(scene, params, packed, in_depth, *carry, u_coin, u3,
-                              *_diff_inputs(scene, params))
+def _replay_pack(scene, params):
+    """The replay backward's packed scene vector for one ``trace_rays``
+    call, with autograd history from ``params``, or None where the backward
+    takes the params or no param needs a gradient."""
+    if not (_takes_packed(scene) and torch.is_grad_enabled()
+            and any(x.requires_grad for x in _diff_inputs(scene, params))):
+        return None
+    return scene.bounce_bwd_fn.pack(params)
+
+
+def _bounce(scene: CompiledScene, params, packed, packed_bwd, carry, in_depth, u_coin,
+            u3):
+    diff = (packed_bwd,) if _takes_packed(scene) else _diff_inputs(scene, params)
+    outs = ManualBounce.apply(scene, params, packed, in_depth, *carry, u_coin, u3, *diff)
     return outs[:5], dict(zip(_DEC_KEYS, outs[5:]))
 
 
@@ -590,6 +619,10 @@ def trace_rays(scene: CompiledScene, params, origin, direction, key,
     # without a kernel buffer packs None)
     pack = getattr(scene.bounce_fn, "pack", None)
     packed = pack(params) if pack is not None and device.type == "cuda" else None
+    # K2's scene vector, packed once per call on every device with autograd
+    # history: each bounce's backward returns its cotangent, autograd sums
+    # them and runs the packing's VJP once
+    packed_bwd = _replay_pack(scene, params)
     orig = torch.arange(B, dtype=torch.int64, device=device)
     saved = []                  # per phase: (pos, thr, mat_id, live, orig)
     for pi, (start, div) in enumerate(phases):
@@ -601,7 +634,7 @@ def trace_rays(scene: CompiledScene, params, origin, direction, key,
         rows = []
         for b in range(start, end):
             o, d, thr, _, alive = carry
-            carry, dec = _bounce(scene, params, packed, carry, b < depth,
+            carry, dec = _bounce(scene, params, packed, packed_bwd, carry, b < depth,
                                  u_coins[b - start], u3s[b - start])
             # the emission record: hit position (no gradient: emission is
             # piecewise constant in it through nearest-texel gathers), the

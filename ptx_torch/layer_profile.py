@@ -27,7 +27,7 @@ Chrome trace goes to ``--out`` and is parsed here (:func:`summarize`):
   ``reduce_partials_kernel`` launched after it; ``hist_shared_kernel``;
   ``first_hit_kernel``; ``megasweep_kernel``; ``replay_bwd_kernel`` and
   ``replay_bwd_reduce_kernel``; ``emission_forward_kernel``;
-  ``hist_banded_kernel``; ``sweep_select_kernel`` (the union sweep's
+  ``hist_atomic_kernel``; ``sweep_select_kernel`` (the union sweep's
   ``kernel`` mode: ``PTX_SWEEP_MODE=kernel PTX_MEGAB=0`` with ``--large``);
 - the ``TOP`` kernels by total device time, with their calls;
 - peak device memory (``max_memory_allocated``) over the unprofiled runs.
@@ -38,8 +38,10 @@ forward and backward, against a target rendered before the timing, with
 the backward ranges of ``--grad``.
 
 ``--grad`` runs each chunk forward and backward (``radiance.mean()``,
-then ``backward()``) and adds one range per backward layer: the replay
-backward (``bounce_bwd``: K2 and its params mapping), the compaction
+then ``backward()``) and adds one range per backward layer: K2's scene
+vector, packed once per ``trace_rays`` call (``replay_pack``), and its VJP
+to the params (``replay_pack_bwd``), the replay backward (``bounce_bwd``:
+K2, or K6 and its params mapping), the compaction
 transpose (``compaction_bwd``), the emission backward (``emission_bwd``)
 and the sky image's histogram (``sky_hist``: K3).  The backward runs in
 autograd's engine, so those ranges open and close in hooks on the
@@ -64,11 +66,13 @@ import time
 LAYERS = (                      # (range name, module, function)
     ("camera", "ptx_torch.integrate.render", "sample_rays"),
     ("rng_draws", "ptx_torch.integrate.trace", "_phase_uniforms"),
+    ("replay_pack", "ptx_torch.integrate.trace", "_replay_pack"),
     ("bounce", "ptx_torch.integrate.trace", "_bounce"),
     ("compaction", "ptx_torch.integrate.trace", "_compact_wavefront"),
     ("emission", "ptx_torch.integrate.trace", "_emission"),
 )
 GRAD_LAYERS = (                 # (range name, module, function, its backward range)
+    ("replay_pack", "ptx_torch.integrate.trace", "_replay_pack", "replay_pack_bwd"),
     ("bounce", "ptx_torch.integrate.trace", "_bounce", "bounce_bwd"),
     ("compaction", "ptx_torch.integrate.trace", "_compact_wavefront", "compaction_bwd"),
     ("emission", "ptx_torch.integrate.trace", "_emission", "emission_bwd"),
@@ -83,7 +87,7 @@ KERNELS = {"k1": ("bounce_forward_kernel",),
            "k5": ("megasweep_kernel",),
            "k6": ("replay_bwd_kernel", "replay_bwd_reduce_kernel"),
            "k7": ("emission_forward_kernel",),
-           "k8": ("hist_banded_kernel",),
+           "k8": ("hist_atomic_kernel",),
            "k9": ("sweep_select_kernel",)}
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 TOP = 8                         # kernels listed by total device time

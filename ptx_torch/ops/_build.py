@@ -57,9 +57,10 @@ def _entry_points():
         ("ptx_bounce_backward",
          [vp, i, i, vp]                 # scene buffer, words, L, leaf aux
          + [vp] * 12 + [i]              # inputs, cotangents, B
-         + [vp] * 4 + [i, vp, vp], i),  # d_o d_d d_thr partial, blocks, acc, stream
+         + [vp] * 4 + [i]               # d_o d_d d_thr partial, blocks
+         + [vp, vp, i, vp, vp], i),     # mat_start mat_leaves M, d_packed, stream
         ("ptx_image_hist", [vp] * 4 + [i] * 4 + [vp, vp], i),
-        ("ptx_image_hist_banded", [vp, vp, i, i, i, vp, vp], i),
+        ("ptx_image_hist_atomic", [vp] * 4 + [i] * 4 + [vp, vp], i),
         ("ptx_first_hit",
          [vp, i, i, i, i, vp, vp, i]      # scene buffer, words, layout, o, d, B
          + [vp] * 4 + [vp], i),           # t normal flags evt, stream

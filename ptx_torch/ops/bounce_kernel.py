@@ -11,14 +11,16 @@ kernels, ``ptx_torch/csrc/bounce_kernel.cu`` and ``bounce_bwd_kernel.cu``.
   one small float32 buffer, :func:`pack_scene`, which ``trace_rays`` packs
   once per call from the params it is given.
 - :class:`BounceBwdKernel` is K2's wrapper, called once per bounce by the
-  manual bounce VJP (``trace.ManualBounce``).  The kernel returns per-lane
-  d(o, d, thr) and the (L, 34) per-leaf sums of the row and material
-  cotangents; the wrapper maps those to the params through autograd of
-  :func:`pack_bwd` (13 rows of plain PyTorch, outside the kernel, as the
-  JAX package does it in XLA).  Its plain versions:
-  :func:`bounce_bwd_reference` (autograd through ``trace._bounce_replay``,
-  the whole backward of a bounce) and :func:`bounce_bwd_lanes_reference`
-  (autograd through :func:`replay_lane_math`, the kernel's raw outputs).
+  manual bounce VJP (``trace.ManualBounce``) on the scene vector of
+  :func:`pack_bwd`, which ``trace_rays`` packs once per call.  The kernel
+  returns per-lane d(o, d, thr) and ``d_packed``, that vector's cotangent
+  (the per-leaf sums of the row cotangents, and per material the sums of
+  its leaves' material cotangents); autograd maps the bounces' sum to the
+  params once per call.  Its plain versions: ``BounceBwdKernel.reference``
+  (autograd through :func:`replay_lane_math`, the lanes of
+  :func:`bounce_bwd_lanes_reference`, and :func:`fold_packed`) and, for the
+  whole bounce, :func:`bounce_bwd_reference` (autograd through
+  ``trace._bounce_replay`` to the params).
 - For CUDA tensors a wrapper launches its kernel or raises; for CPU
   tensors, and only for those, it runs the plain version.  ``LAUNCHES`` /
   ``REFERENCE_CALLS`` (K1) and ``BounceBwdKernel.LAUNCHES`` /
@@ -363,40 +365,79 @@ def bounce_bwd_lanes_reference(packed, aux, o, d, thr, dec, ct_o2, ct_d2, ct_thr
 
 
 def bounce_bwd_reference(scene, params, o, d, thr, dec, ct_o2, ct_d2, ct_thr2):
-    """K2's plain PyTorch version, on any device: autograd through
-    ``trace._bounce_replay`` (``trace.replay_vjp``).  Returns ``(d_o, d_d,
-    d_thr, d_params)``, ``d_params`` a dict over ``scene.diff_keys``."""
+    """The whole replay backward of a bounce in plain PyTorch, on any
+    device: autograd through ``trace._bounce_replay`` (``trace.replay_vjp``).
+    Returns ``(d_o, d_d, d_thr, d_params)``, ``d_params`` a dict over
+    ``scene.diff_keys``.  The reference K2's route is held against, end to
+    end, through the params."""
     global BWD_REFERENCE_CALLS
     BWD_REFERENCE_CALLS += 1
     return trace.replay_vjp(scene, params, o, d, thr, dec, ct_o2, ct_d2, ct_thr2)
 
 
+def fold_packed(acc, leaf_mat, n_materials):
+    """``d_packed`` (L·26 + M·8,) from the (L, 34) per-leaf sums: the leaf
+    rows' columns as they are, then per material the sum of its leaves'
+    material columns in ascending leaf order (an exact 0 for a material
+    without leaves).  The fold K2's second launch does on the card."""
+    d_mat = acc.new_zeros((n_materials, _BMAT_STRIDE)).index_add_(0, leaf_mat, acc[:, _ROW:])
+    return torch.cat([acc[:, :_ROW].reshape(-1), d_mat.reshape(-1)])
+
+
+def fold_table(leaf_mat, n_materials):
+    """K2's static fold table from the leaves' material ids: ``(start,
+    order)``, material m's leaves in ascending order at
+    ``order[start[m]:start[m + 1]]``."""
+    order = sorted(range(len(leaf_mat)), key=lambda k: (leaf_mat[k], k))
+    start = [0]
+    for m in range(n_materials):
+        start.append(start[-1] + list(leaf_mat).count(m))
+    return start, order
+
+
+def _count_pack_vjp(grad):
+    BounceBwdKernel.PACK_VJPS += 1
+
+
 class BounceBwdKernel:
     """K2 for one compiled scene.
 
-    ``bwd(params, o, d, thr, dec, ct_o2, ct_d2, ct_thr2)`` → ``(d_o, d_d,
-    d_thr, d_params)``, as :func:`bounce_bwd_reference` returns them: on
-    CUDA one launch of K2 (:meth:`launch`), then the per-leaf sums back to
-    ``d_params`` through autograd of :func:`pack_bwd` and the static
-    leaf → material fold."""
+    ``bwd(packed, o, d, thr, dec, ct_o2, ct_d2, ct_thr2)`` → ``(d_o, d_d,
+    d_thr, d_packed)``: ``packed`` is :meth:`pack`'s scene vector and
+    ``d_packed`` its cotangent from this bounce.  On CUDA that is the input
+    checks and one K2 call (:meth:`launch`); on the CPU its plain version
+    (:meth:`reference`).  ``trace_rays`` packs once per call with autograd
+    history (``takes_packed``), so autograd sums the bounces' ``d_packed``
+    and runs the packing's VJP once.  :meth:`params_grad` is that mapping
+    for one ``d_packed``.  ``PACKS`` counts :meth:`pack` calls, ``PACK_VJPS``
+    the backward passes through a packed vector with history."""
 
     LAUNCHES = 0
+    PACKS = 0
+    PACK_VJPS = 0
+    takes_packed = True
 
     def __init__(self, scene):
         self.scene = scene
         self.leaves = collect_leaves(scene.plan)
         self.rows = hitreplay.LeafRows(self.leaves)
-        L, M = len(self.leaves), scene.material_fn.n_materials
+        self.n_materials = M = scene.material_fn.n_materials
         self.aux = torch.tensor(
             [[float(lf.kind == "sphere"), p, float(lf.mat_id)] for lf, p in self.leaves],
             dtype=torch.float32, device=scene.device)
-        leaf_mat = torch.tensor([lf.mat_id for lf, _ in self.leaves])
-        self.mat_of_leaf = torch.zeros((M, L), dtype=torch.float32)
-        self.mat_of_leaf[leaf_mat, torch.arange(L)] = 1.0
-        self.mat_of_leaf = self.mat_of_leaf.to(scene.device)
+        mats = [lf.mat_id for lf, _ in self.leaves]
+        self.leaf_mat = torch.tensor(mats, dtype=torch.int64, device=scene.device)
+        start, order = fold_table(mats, M)
+        self.mat_start = torch.tensor(start, dtype=torch.int32, device=scene.device)
+        self.mat_leaves = torch.tensor(order, dtype=torch.int32, device=scene.device)
 
     def pack(self, params):
-        return pack_bwd(self.rows, self.scene.material_fn, params)
+        """:func:`pack_bwd` of ``params``, with their autograd history."""
+        BounceBwdKernel.PACKS += 1
+        packed = pack_bwd(self.rows, self.scene.material_fn, params)
+        if packed.requires_grad:
+            packed.register_hook(_count_pack_vjp)
+        return packed
 
     def pack_leaves(self, params):
         """``(packed, leaves)``: :meth:`pack` of fresh leaf copies of the
@@ -405,41 +446,41 @@ class BounceBwdKernel:
             leaves = [params[k].detach().requires_grad_(True) for k in trace.DIFF_KEYS]
             return self.pack(dict(params, **dict(zip(trace.DIFF_KEYS, leaves)))), leaves
 
-    def __call__(self, params, o, d, thr, dec, ct_o2, ct_d2, ct_thr2):
+    def __call__(self, packed, o, d, thr, dec, ct_o2, ct_d2, ct_thr2):
         if o.device.type == "cpu":
-            return bounce_bwd_reference(self.scene, params, o, d, thr, dec,
-                                        ct_o2, ct_d2, ct_thr2)
+            return self.reference(packed, o, d, thr, dec, ct_o2, ct_d2, ct_thr2)
         if o.device.type != "cuda":
             raise ValueError(f"bounce backward kernel: no kernel for {o.device}")
-        packed, leaves = self.pack_leaves(params)
-        d_o, d_d, d_thr, acc = self.launch(packed.detach(), o, d, thr, dec,
-                                           ct_o2, ct_d2, ct_thr2)
-        return d_o, d_d, d_thr, self.params_grad(packed, leaves, acc)
+        return self.launch(packed, o, d, thr, dec, ct_o2, ct_d2, ct_thr2)
 
-    def params_grad(self, packed, leaves, acc):
-        """``d_params`` from the (L, 34) per-leaf sums: the leaf-wise
-        material columns fold onto their materials (a static one-hot
-        product in full float32, as the JAX package does in XLA), then
-        autograd of ``packed = pack_bwd(leaves)`` maps the packed vector's
-        cotangent to the param tensors ``leaves`` (``DIFF_KEYS`` order)."""
-        d_mat = self.mat_of_leaf @ acc[:, _ROW:]
-        d_packed = torch.cat([acc[:, :_ROW].reshape(-1), d_mat.reshape(-1)])
+    def reference(self, packed, o, d, thr, dec, ct_o2, ct_d2, ct_thr2):
+        """K2's plain version: :func:`bounce_bwd_lanes_reference`'s per-leaf
+        sums, folded by :func:`fold_packed`."""
+        global BWD_REFERENCE_CALLS
+        BWD_REFERENCE_CALLS += 1
+        d_o, d_d, d_thr, acc, _ = bounce_bwd_lanes_reference(
+            packed, self.aux, o, d, thr, dec, ct_o2, ct_d2, ct_thr2)
+        return d_o, d_d, d_thr, fold_packed(acc, self.leaf_mat, self.n_materials)
+
+    def params_grad(self, packed, leaves, d_packed):
+        """``d_params`` (a dict over ``DIFF_KEYS``) from one ``d_packed``:
+        autograd of ``packed = pack_bwd(leaves)`` (:meth:`pack_leaves`)."""
         grads = torch.autograd.grad(packed, leaves, d_packed, allow_unused=True)
         return {k: (torch.zeros_like(x) if g is None else g)
                 for k, x, g in zip(trace.DIFF_KEYS, leaves, grads)}
 
     def launch(self, packed, o, d, thr, dec, ct_o2, ct_d2, ct_thr2):
         """One K2 call on the current stream (its two launches), no
-        synchronisation: ``(d_o, d_d, d_thr, acc)`` with ``acc`` the (L, 34)
-        per-leaf sums."""
+        synchronisation: ``(d_o, d_d, d_thr, d_packed)``."""
         B = o.shape[0]
-        device = packed.device
+        device = o.device
         L = self.aux.shape[0]
         f3 = lambda x: (x, (B, 3), torch.float32)
         expect = {"o": f3(o), "d": f3(d), "thr": f3(thr), "u_sel": f3(dec["u_sel"]),
                   "ct_o2": f3(ct_o2), "ct_d2": f3(ct_d2), "ct_thr2": f3(ct_thr2),
                   "evt": (dec["evt"], (B,), torch.int32),
-                  "packed": (packed, (packed.numel(),), torch.float32)}
+                  "packed": (packed, (L * _ROW + self.n_materials * _BMAT_STRIDE,),
+                             torch.float32)}
         for k in ("hit", "entering", "take_transmit", "scatter_alive"):
             expect[k] = (dec[k], (B,), torch.bool)
         _check_inputs("bounce backward kernel", device, expect)
@@ -455,14 +496,15 @@ class BounceBwdKernel:
         n_blocks = min(-(-B // 128), _MAX_BWD_BLOCKS)
         empty = lambda *s: torch.empty(s, dtype=torch.float32, device=device)
         d_o, d_d, d_thr = empty(B, 3), empty(B, 3), empty(B, 3)
-        partial, acc = empty(n_blocks, L * _COLS), empty(L, _COLS)
+        partial, d_packed = empty(n_blocks, L * _COLS), empty(packed.numel())
         p = _ptr
         err = lib.ptx_bounce_backward(
             p(packed), packed.numel(), L, p(self.aux), p(o), p(d), p(thr),
             p(dec["evt"]), p(dec["hit"]), p(dec["entering"]),
             p(dec["take_transmit"]), p(dec["scatter_alive"]), p(dec["u_sel"]),
             p(ct_o2), p(ct_d2), p(ct_thr2), B, p(d_o), p(d_d), p(d_thr),
-            p(partial), n_blocks, p(acc), _stream(device))
+            p(partial), n_blocks, p(self.mat_start), p(self.mat_leaves),
+            self.n_materials, p(d_packed), _stream(device))
         _raise_on(err, lib, "bounce backward kernel")
         BounceBwdKernel.LAUNCHES += 1
-        return d_o, d_d, d_thr, acc
+        return d_o, d_d, d_thr, d_packed

@@ -12,7 +12,7 @@ package wrote that transpose as two Pallas TPU kernels; here they are
   (``ptx/ops/imagegrad.py:324-384``): K3 (:class:`HistKernel`, the port of
   ``_build_hist``, :91) where the image fits one block's shared memory,
   K8 (:class:`BandedHistKernel`, the port of ``_build_banded_hist``,
-  :218) for every larger image;
+  :218, as one pass of device-memory atomics) for every larger image;
 - each wrapper launches its kernel on CUDA tensors (or raises) and runs
   :func:`hist_reference`, the plain version of both, on CPU tensors
   only; ``LAUNCHES`` (K3), ``BandedHistKernel.LAUNCHES`` (K8) and
@@ -36,7 +36,6 @@ LAUNCHES = 0
 REFERENCE_CALLS = 0
 
 K3_MAX_BYTES = 232_448        # a block's opt-in shared memory on Hopper (227 KB)
-BLOCK_H, BLOCK_W = 32, 256    # K8's image block (kBH, kBW in the kernel)
 COARSE = int(os.environ.get("PTX_IMG_GRAD_COARSE", "0"))
 
 
@@ -91,11 +90,11 @@ class HistKernel:
 
 
 class BandedHistKernel:
-    """K8's wrapper: :class:`HistKernel`'s call for images of any size.
-    Outside the kernel, as the JAX package does it outside Pallas
-    (``imagegrad.py:229-256``): a bin id per lane (its 32×256 image block,
-    skipped lanes last), a stable argsort, ``searchsorted`` for the
-    per-block offsets and one packed row gather ``[y, x, ct]``."""
+    """K8's wrapper: :class:`HistKernel`'s call for images of any size
+    below 2³¹ floats and at most 4 channels.  One launch adds each lane
+    into the zero-filled output with device-memory atomics: no lane sort
+    (the JAX package sorts outside Pallas, ``imagegrad.py:229-256``, because
+    a TPU kernel has no scatter-add)."""
 
     LAUNCHES = 0
 
@@ -103,38 +102,25 @@ class BandedHistKernel:
         if ct.device.type == "cpu":
             return hist_reference(yi, xi, inb, ct, shape)
         if ct.device.type != "cuda":
-            raise ValueError(f"banded histogram kernel: no kernel for {ct.device}")
+            raise ValueError(f"atomic histogram kernel: no kernel for {ct.device}")
         return self.launch(yi, xi, inb, ct, shape)
-
-    @staticmethod
-    def sort_lanes(yi, xi, inb, ct, shape):
-        """``(rows, offs)``: the lanes' ``[y, x, ct]`` rows (N, 2 + C)
-        float32 in image-block order and the (n_blocks + 1,) int32 lane
-        offsets of the blocks."""
-        H, W, _ = shape
-        n_bx = -(-W // BLOCK_W)
-        n_bins = -(-H // BLOCK_H) * n_bx
-        bins = torch.where(inb, (yi // BLOCK_H) * n_bx + xi // BLOCK_W, n_bins)
-        order = torch.argsort(bins, stable=True)
-        offs = torch.searchsorted(bins[order], torch.arange(n_bins + 1, device=ct.device))
-        rows = torch.cat([yi[:, None].float(), xi[:, None].float(), ct], dim=1)[order]
-        return rows, offs.to(torch.int32)
 
     def launch(self, yi, xi, inb, ct, shape):
         from ptx_torch.ops import _build
         from ptx_torch.ops.bounce_kernel import _ptr, _raise_on, _stream
 
-        _check("banded histogram kernel", yi, xi, inb, ct, shape)
-        if shape[0] >= 1 << 24 or shape[1] >= 1 << 24:
-            raise ValueError("banded histogram kernel: texel indices must be exact "
-                             "in float32")
-        lib = _build.library()
-        rows, offs = self.sort_lanes(yi, xi, inb, ct, shape)
-        out = torch.empty(shape, dtype=torch.float32, device=ct.device)
         H, W, C = shape
-        err = lib.ptx_image_hist_banded(_ptr(rows), _ptr(offs), H, W, C, _ptr(out),
-                                        _stream(ct.device))
-        _raise_on(err, lib, "banded histogram kernel")
+        if H * W * C >= 1 << 31:
+            raise ValueError(f"atomic histogram kernel: an image of {H * W * C} floats "
+                             "(2^31 or more) overflows the kernel's int32 offsets")
+        if C > 4:
+            raise ValueError(f"atomic histogram kernel: {C} channels (at most 4)")
+        _check("atomic histogram kernel", yi, xi, inb, ct, shape)
+        lib = _build.library()
+        out = torch.zeros(shape, dtype=torch.float32, device=ct.device)
+        err = lib.ptx_image_hist_atomic(_ptr(yi), _ptr(xi), _ptr(inb), _ptr(ct),
+                                        ct.shape[0], H, W, C, _ptr(out), _stream(ct.device))
+        _raise_on(err, lib, "atomic histogram kernel")
         BandedHistKernel.LAUNCHES += 1
         return out
 

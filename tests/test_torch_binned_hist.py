@@ -1,13 +1,14 @@
-"""The banded image-gradient histogram K8's plain side, its lane sort, and
-the coarse estimator, against the JAX package's ``ptx.ops.imagegrad``.
+"""The image-gradient histogram K8's plain side, its wrapper's refusals,
+the routing, and the coarse estimator, against the JAX package's
+``ptx.ops.imagegrad``.
 
 - ``hist_reference`` (K8's plain version) against ``_build_banded_hist``
   run in interpret mode on a 130×600×4 image, one call: sums of the same
   float32 terms, the TPU kernel's hi/lo bf16 split good to ~2⁻¹⁷
   relative, hence ``rtol 1e-4, atol 3e-5`` as in tests/test_torch_imagegrad.py.
-- The wrapper's lane sort (bin ids, stable argsort, searchsorted offsets,
-  the packed row gather): walking each image block's lane range, as the
-  kernel does, gives ``hist_reference``'s histogram.
+- K8's wrapper refuses what its kernel cannot take (an image of 2³¹
+  floats or more, more than 4 channels, another device), and ``hist``
+  routes at K3's shared-memory edge.
 - ``PTX_IMG_GRAD_COARSE``: equal to the JAX estimator when k divides H
   and W; where it does not, every coarse bin's total is exact (the JAX
   estimator undercounts the edge bins).
@@ -47,24 +48,46 @@ def test_hist_reference_matches_the_banded_tpu_kernel_interpreted():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=3e-5)
 
 
-def test_lane_sort_feeds_each_block_its_lanes():
-    shape = (70, 530, 3)                              # ragged blocks on both axes
-    yi, xi, inb, ct = _case(*shape[:2], C=3, seed=1)
-    rows, offs = imagegrad.BandedHistKernel.sort_lanes(yi, xi, inb, ct, shape)
-    H, W, C = shape
-    n_bx = -(-W // imagegrad.BLOCK_W)
-    assert offs.dtype == torch.int32 and offs.numel() == -(-H // imagegrad.BLOCK_H) * n_bx + 1
-    assert int(offs[-1]) == int(inb.sum())            # skipped lanes sort last
-    out = torch.zeros(shape)
-    for b in range(offs.numel() - 1):                 # the kernel's walk, block by block
-        y0, x0 = (b // n_bx) * imagegrad.BLOCK_H, (b % n_bx) * imagegrad.BLOCK_W
-        blk = rows[int(offs[b]):int(offs[b + 1])]
-        y, x = blk[:, 0].long(), blk[:, 1].long()
-        assert bool(((y >= y0) & (y < y0 + imagegrad.BLOCK_H) & (x >= x0)
-                     & (x < x0 + imagegrad.BLOCK_W)).all())
-        out.index_put_((y, x), blk[:, 2:], accumulate=True)
-    want = imagegrad.hist_reference(yi, xi, inb, ct, shape)
-    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+@pytest.mark.parametrize("case", ["image-2^31-floats", "five-channels", "meta-device"])
+def test_k8_wrapper_refuses(case):
+    """K8's wrapper raises, before any build or launch, for an image of
+    2³¹ floats or more (its texel index is int32), for more than 4
+    channels, and for a device that is neither CUDA nor the CPU."""
+    yi, xi, inb, ct = _case(8, 8, C=5 if case == "five-channels" else 4, N=64)
+    shape = {"image-2^31-floats": (1 << 15, 1 << 14, 4), "five-channels": (8, 8, 5),
+             "meta-device": (8, 8, 4)}[case]
+    launches = imagegrad.BandedHistKernel.LAUNCHES
+    with pytest.raises(ValueError, match="2\\^31|channels|no kernel"):
+        if case == "meta-device":
+            imagegrad.k8(*(x.to("meta") for x in (yi, xi, inb, ct)), shape)
+        else:
+            imagegrad.k8.launch(yi, xi, inb, ct, shape)
+    assert imagegrad.BandedHistKernel.LAUNCHES == launches
+
+
+@pytest.mark.parametrize("grow", [0, 1], ids=["at-the-edge", "one-texel-past"])
+def test_hist_routes_at_the_k3_edge(grow, monkeypatch):
+    """``hist`` gives K3 an image of exactly ``K3_MAX_BYTES`` and K8 one
+    texel row more; with ``PTX_IMG_GRAD_COARSE`` a coarse image that fits
+    K3 goes to the coarse estimator instead of K8."""
+    C = 4
+    W = imagegrad.K3_MAX_BYTES // (4 * C * 454)       # 454 x 32 x 4 floats = 227 KB
+    shape = (454 + grow, W, C)
+    assert imagegrad.fits_k3(shape) == (grow == 0)
+    yi, xi, inb, ct = _case(*shape[:2], seed=3)
+    calls = []
+    monkeypatch.setattr(imagegrad, "k3", lambda *a: calls.append("K3") or
+                        imagegrad.hist_reference(*a))
+    monkeypatch.setattr(imagegrad, "k8", lambda *a: calls.append("K8") or
+                        imagegrad.hist_reference(*a))
+    got = imagegrad.hist(yi, xi, inb, ct, shape)
+    assert calls == ["K3" if grow == 0 else "K8"]
+    np.testing.assert_array_equal(got.numpy(), imagegrad.hist_reference(
+        yi, xi, inb, ct, shape).numpy())
+    monkeypatch.setattr(imagegrad, "COARSE", 2)
+    calls.clear()
+    imagegrad.hist(yi, xi, inb, ct, shape)
+    assert calls == ["K3"]                           # grow 0: K3 itself; 1: the coarse K3
 
 
 def _jax_coarse(yi, xi, inb, ct, shape, k):

@@ -17,7 +17,8 @@ K2's hand adjoint orders its float32 operations unlike autograd: an
 element passes within ``rtol 1e-5, atol 1e-6`` or within twice the plain
 value's error against a float64 recompute plus 1e-4 relative (near-grazing
 lanes are ill-conditioned).  K3 and K8 add with atomics in a varying
-order: ``1e-5`` of each texel's sum of |ct|.  K4 must equal the dense hit
+order: ``1e-5`` of each texel's sum of |ct|, or, for K8's degenerate
+cases, the reordered-sum bound ``2·n·2⁻²⁴·Σ|ct|``.  K4 must equal the dense hit
 as K1 does; K7 its plain lanes, with texel indices equal except where a
 float64 recompute puts the lane within 1e-6 of a texel boundary.  K5 must
 equal its plain version as K1 does, and culling must not change a bit;
@@ -148,7 +149,11 @@ def test_k2_matches_its_plain_version(cuda_scene):
     assert bounce_kernel.BounceBwdKernel.LAUNCHES == launches + 2
     for g, w, t in zip(got[:3], ref[:3], ref64[:3]):
         _close(g, w, t)
-    _close(got[3], ref[3], ref64[3], ref64[4])
+    # d_packed against the per-leaf sums folded onto the materials, the
+    # float64 fold as truth, at the scale of the folded sums of |term|
+    fold = lambda acc: bounce_kernel.fold_packed(acc, kern.leaf_mat, kern.n_materials)
+    assert got[3].shape == packed.shape
+    _close(got[3], fold(ref[3]), fold(ref64[3]), fold(ref64[4]))
     for a, b in zip(got, again):            # the two-pass reduction is deterministic
         assert torch.equal(a, b)
 
@@ -214,6 +219,48 @@ def test_k8_matches_its_plain_version(shape):
     torch.cuda.synchronize()
     assert (imagegrad.LAUNCHES, imagegrad.BandedHistKernel.LAUNCHES) == (k3, k8 + 1)
     assert bool(((got - want).abs() <= 1e-5 * scale + 1e-7).all())
+
+
+def _reordered_sum_ok(got, yi, xi, inb, ct, shape):
+    """Within the reordered-sum bound ``2·n·2⁻²⁴·Σ|ct|`` per texel of n
+    lanes (float atomics add in a varying order)."""
+    from ptx_torch.ops import imagegrad
+
+    want = imagegrad.hist_reference(yi, xi, inb, ct, shape)
+    mag = imagegrad.hist_reference(yi, xi, inb, ct.abs(), shape)
+    n = imagegrad.hist_reference(yi, xi, inb, torch.ones_like(ct), shape)
+    return bool(torch.isfinite(got).all()) and bool(
+        ((got - want).abs() <= 2 * n * 2.0 ** -24 * mag).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [3, 4])
+@pytest.mark.parametrize("case", ["one-texel", "all-skipped", "ragged-offset"])
+def test_k8_degenerate_lanes(case, C):
+    """K8 with every lane on one texel (all atomics on one address), with
+    every lane skipped (an all-zero image), and on a ragged 250×530 image
+    with ``ct`` a view one float into its storage (no 16-byte loads)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the histogram kernel has no CPU mode")
+    from ptx_torch.ops import imagegrad
+
+    shape = (250, 530, C) if case == "ragged-offset" else (600, 500, C)
+    yi, xi, inb, ct = _hist_case(shape, N=65_536, seed=2)
+    if case == "one-texel":
+        yi, xi = torch.full_like(yi, 123), torch.full_like(xi, 321)
+    elif case == "all-skipped":
+        inb = torch.zeros_like(inb)
+    else:
+        ct = torch.randn(ct.numel() + 1, device=ct.device)[1:].view(ct.shape)
+    launches = imagegrad.BandedHistKernel.LAUNCHES
+    got = imagegrad.hist(yi, xi, inb, ct, shape)
+    torch.cuda.synchronize()
+    assert imagegrad.BandedHistKernel.LAUNCHES == launches + 1
+    assert _reordered_sum_ok(got, yi, xi, inb, ct, shape)
+    if case == "all-skipped":
+        assert not bool(got.any())
+    if case == "one-texel":
+        assert int((got != 0).any(dim=-1).sum()) == 1
 
 
 @pytest.fixture(scope="module")

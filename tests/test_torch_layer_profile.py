@@ -48,13 +48,17 @@ def test_summarize_empty_trace():
 
 def test_summarize_backward_ranges_and_kernels():
     """The --grad mode's ranges (opened in autograd hooks) attribute the
-    backward's launches, and K2 / K3 are counted by name: a K2 call is its
-    two launches."""
+    backward's launches (the packing's VJP among them), and K2 / K3 are
+    counted by name: a K2 call is its two launches."""
     from ptx_torch.layer_profile import GRAD_LAYERS, SKY_HIST
 
     names = tuple(g for *_, g in GRAD_LAYERS) + (SKY_HIST,)
-    assert names == ("bounce_bwd", "compaction_bwd", "emission_bwd", "sky_hist")
+    assert names == ("replay_pack_bwd", "bounce_bwd", "compaction_bwd", "emission_bwd",
+                     "sky_hist")
     events = [
+        _x("user_annotation", "replay_pack_bwd", 60.0, 10.0),
+        _x("cuda_runtime", "cudaLaunchKernel", 62.0, 1.0, correlation=5),
+        _x("kernel", "index_add_kernel", 140.0, 3.0, correlation=5),
         _x("user_annotation", "bounce_bwd", 0.0, 20.0),
         _x("cuda_runtime", "cudaLaunchKernel", 5.0, 1.0, correlation=1),
         _x("cuda_runtime", "cudaLaunchKernel", 8.0, 1.0, correlation=2),
@@ -75,6 +79,8 @@ def test_summarize_backward_ranges_and_kernels():
     assert s["layers"]["bounce_bwd"]["device_ms"] == pytest.approx(0.010)
     assert s["layers"]["sky_hist"]["kernels"] == 1
     assert s["layers"]["compaction_bwd"]["kernels"] == 1
+    assert s["layers"]["replay_pack_bwd"]["kernels"] == 1
+    assert s["layers"]["replay_pack_bwd"]["device_ms"] == pytest.approx(0.003)
     assert s["layers"]["emission_bwd"] == {"kernels": 0, "device_ms": 0.0,
                                            "host_share": 0.0}
 
@@ -102,7 +108,7 @@ def test_backward_ranges_tag_the_layers_nodes():
         trace.trace_rays(scene, params, o, d, rng.PRNGKey(0), 3, compact=False).mean().backward()
     assert trace._bounce is before
     names = {e.name for e in prof.events()}
-    assert {"bounce_bwd", "emission_bwd", "sky_hist"} <= names
+    assert {"replay_pack_bwd", "bounce_bwd", "emission_bwd", "sky_hist"} <= names
 
 
 def test_summarize_counts_the_large_scene_kernels_apart_from_k2():

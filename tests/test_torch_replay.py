@@ -8,8 +8,10 @@
   pallas=False)``), the function ``tests/test_bounce_kernel.py`` holds the
   JAX K2 against, on 256 lanes with compaction filler lanes among them;
 - K2's raw outputs in plain PyTorch (per-lane cotangents and (L, 34)
-  per-leaf sums) mapped to the params as the wrapper maps the kernel's,
-  against ``bounce_bwd_reference``;
+  per-leaf sums), folded into the scene vector's cotangent and mapped to
+  the params, and K2's call on the CPU (its plain version), against
+  ``bounce_bwd_reference``; the fold and its static table; one pack and
+  one packing VJP per ``trace_rays`` call;
 - the kernel's own adjoint source (``csrc/replay_lane.cuh``), built for the
   host with the system C++ compiler, against autograd.
 
@@ -170,9 +172,10 @@ def test_bounce_bwd_reference_matches_jax_vjp(pair, seed):
 
 
 def test_k2_lanes_reference_maps_to_bounce_bwd_reference(pair):
-    """K2's raw outputs in plain PyTorch, taken to the params the way the
-    wrapper takes the kernel's (``BounceBwdKernel.params_grad``), equal
-    the whole-bounce plain backward."""
+    """K2's raw outputs in plain PyTorch, folded into the scene vector's
+    cotangent (``fold_packed``) and taken to the params by the packing's
+    VJP (``BounceBwdKernel.params_grad``), equal the whole-bounce plain
+    backward."""
     _, ts = pair
     js, _ = pair
     o, d, thr, st, alive, uc, u3, cts = _lanes(2)
@@ -185,10 +188,99 @@ def test_k2_lanes_reference_maps_to_bounce_bwd_reference(pair):
     want = bk.bounce_bwd_reference(ts, ts.params, t(o), t(d), t(thr), dec, *map(t, cts))
     for g, w in zip((lo, ld, lt), want[:3]):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
-    got = kern.params_grad(packed, leaves, acc)
+    got = kern.params_grad(packed, leaves, bk.fold_packed(acc, kern.leaf_mat,
+                                                          kern.n_materials))
     for k in ttr.DIFF_KEYS:
         torch.testing.assert_close(got[k], want[3][k], rtol=1e-4, atol=1e-5)
     assert float(acc_abs.sum()) > 0
+
+
+@pytest.mark.parametrize("seed", [6, 7])
+def test_k2_call_on_the_cpu_gives_the_packed_cotangent(pair, seed):
+    """K2's per-bounce call on CPU tensors runs its plain version (counted)
+    and returns ``d_packed``: mapped through ``params_grad`` it equals
+    ``bounce_bwd_reference``'s ``d_params`` at the tolerances above; per
+    lane ``_close`` against that reference and its float64 recompute (a
+    near-grazing lane is ill-conditioned, module docstring)."""
+    js, ts = pair
+    o, d, thr, st, alive, uc, u3, cts = _lanes(seed)
+    dec = _torch_dec(_jax_decisions(js, o, d, thr, st, alive, uc, u3)[0])
+    t = torch.from_numpy
+    kern = bk.BounceBwdKernel(ts)
+    packed, leaves = kern.pack_leaves(ts.params)
+    calls = bk.BWD_REFERENCE_CALLS
+    d_o, d_d, d_thr, d_packed = kern(packed.detach(), t(o), t(d), t(thr), dec,
+                                     *map(t, cts))
+    assert bk.BWD_REFERENCE_CALLS == calls + 1
+    assert d_packed.shape == packed.shape
+    want = bk.bounce_bwd_reference(ts, ts.params, t(o), t(d), t(thr), dec, *map(t, cts))
+    truth = bk.bounce_bwd_reference(
+        ts, _f64(ts.params), *(t(x).double() for x in (o, d, thr)),
+        _torch_dec(_jax_decisions(js, o, d, thr, st, alive, uc, u3)[0], torch.float64),
+        *(t(c).double() for c in cts))
+    for name, g, w, tr in zip(("d_o", "d_d", "d_thr"), (d_o, d_d, d_thr), want[:3], truth[:3]):
+        _close(g.numpy(), w.numpy(), tr.numpy(), name)
+    got = kern.params_grad(packed, leaves, d_packed)
+    for k in ttr.DIFF_KEYS:
+        torch.testing.assert_close(got[k], want[3][k], rtol=1e-4, atol=1e-5)
+
+
+def test_fold_sums_shared_materials_and_zeroes_leafless_ones(pair):
+    """``fold_packed`` adds the material columns of the leaves that share a
+    material in ascending leaf order and gives a material without leaves an
+    exact 0; the static table the kernel folds with (``fold_table``) lists
+    each material's leaves in that order.  On the demo (its six sky planes
+    share one material) and on a synthetic table where materials 1 and 4
+    have no leaf."""
+    _, ts = pair
+    kern = bk.BounceBwdKernel(ts)
+    demo = kern.leaf_mat.tolist()
+    assert max(demo.count(m) for m in set(demo)) > 1
+    r = np.random.default_rng(8)
+    for leaf_mat, M in ((demo, kern.n_materials), ([2, 0, 2, 2, 3, 0, 2], 5)):
+        L = len(leaf_mat)
+        acc = torch.from_numpy(r.normal(size=(L, 34)).astype(np.float32))
+        got = bk.fold_packed(acc, torch.tensor(leaf_mat), M)
+        assert got.shape == (L * 26 + M * 8,)
+        assert torch.equal(got[:L * 26], acc[:, :26].reshape(-1))
+        start, order = bk.fold_table(leaf_mat, M)
+        mats = got[L * 26:].reshape(M, 8)
+        for m in range(M):
+            mine = [k for k in range(L) if leaf_mat[k] == m]
+            assert order[start[m]:start[m + 1]] == mine
+            want = torch.zeros(8)
+            for k in mine:                      # the kernel's order
+                want = want + acc[k, 26:]
+            assert torch.equal(mats[m], want)
+            if not mine:
+                assert not bool(mats[m].any())
+    start, _ = bk.fold_table([2, 0, 2, 2, 3, 0, 2], 5)
+    assert start == [0, 2, 2, 6, 7, 7]
+
+
+def test_pack_and_its_vjp_run_once_per_trace_rays_call(pair):
+    """On the demo at depth 16 (17 bounces, 16 backward), ``trace_rays``
+    packs K2's scene vector once and the packing's VJP runs once per
+    backward, while K2's plain version runs once per backward bounce; no
+    pack without a param that needs a gradient."""
+    _, ts = pair
+    from ptx_torch.core import rng
+    from ptx_torch.integrate.camera import Camera, sample_rays
+
+    o, d = sample_rays(Camera.reference_demo(8, 8), rng.PRNGKey(0), range(8), range(8), 1,
+                       "cpu")
+    K = bk.BounceBwdKernel
+    before = (K.PACKS, K.PACK_VJPS, bk.BWD_REFERENCE_CALLS)
+    with torch.no_grad():
+        ttr.trace_rays(ts, ts.params, o, d, rng.PRNGKey(0), 16)
+    ttr.trace_rays(ts, ts.params, o, d, rng.PRNGKey(0), 16)      # no param needs a gradient
+    assert (K.PACKS, K.PACK_VJPS, bk.BWD_REFERENCE_CALLS) == before
+    p = {k: ([x.clone().requires_grad_(True) for x in v] if isinstance(v, list)
+             else v.clone().requires_grad_(True)) for k, v in ts.params.items()}
+    ttr.trace_rays(ts, p, o, d, rng.PRNGKey(0), 16).mean().backward()
+    assert (K.PACKS, K.PACK_VJPS, bk.BWD_REFERENCE_CALLS) == (
+        before[0] + 1, before[1] + 1, before[2] + 16)
+    assert float(p["sphere_radius"].grad.abs().sum()) > 0
 
 
 _SHIM = r'''
