@@ -167,9 +167,10 @@ Then:
     for K2 also the once-per-call pack + VJP and a step's sum (16 wrappers
     and one pack + VJP) beside 16 times the per-bounce params route; for K3
     and K8 also the library calls ``index_put_(accumulate=True)`` and
-    ``index_add_`` on the flat (H·W, C) view, and K8's wrapper at most half
-    of ``index_put_``'s time; the least time the card could take
-    (``bound_ms``) from this run's inputs;
+    ``index_add_`` on the flat (H·W, C) view (the faster, each one's
+    ``library_ms``), K3's wrapper at most 1.25 × ``index_add_``'s time at
+    the demo's two widths and K8's at most half of ``index_put_``'s; the
+    least time the card could take (``bound_ms``) from this run's inputs;
 11. the JSON lines: the nine kernels (launches from the paths' train
     steps: the demo's for K1-K3, config 4's for K4, S1's for K5 and K6,
     C2's for K7, the probe's for K8, E3's S1 for K9), then the device.
@@ -550,6 +551,32 @@ def _time_back_to_back_ms(fn, reps=20, warmup=3):
     return a.elapsed_time(b) / reps
 
 
+def _time_queued_ms(fn, reps=20, warmup=3):
+    """Mean device time of ``reps`` calls queued behind a device sleep of
+    some 25 ms, so that all are enqueued before the first runs: the card's
+    time per call without the host's.  Fails where the host took longer
+    than the sleep to enqueue them."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    s, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    s.record()
+    torch.cuda._sleep(50_000_000)
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    b.record()
+    b.synchronize()
+    if host_ms >= s.elapsed_time(a):
+        raise AssertionError(f"queued timing: the host took {host_ms:.3f} ms to enqueue "
+                             f"{reps} calls, past the {s.elapsed_time(a):.3f} ms sleep")
+    return a.elapsed_time(b) / reps
+
+
 def phase_timing(scene, inputs):
     """K1 as the main path calls it (the wrapper: launch and flag decode)
     against the plain bounce, both timed alike; the bare launch (no flag
@@ -708,10 +735,10 @@ def _check_k2(scene, recorded, tag, name="K2"):
     """K2 (or K6, ``name``) against its plain versions on each recorded
     backward bounce (the same saved carry, decisions and cotangents): per
     lane by :func:`_close_f64` against ``bounce_bwd_lanes_reference`` and
-    its float64 recompute; K2's ``d_packed`` against those per-leaf sums
-    folded onto the materials (``fold_packed``; K6's (L, 34) sums as they
-    are), the float64 fold as truth, at the scale of the folded sums of
-    |term|; ``d_params`` (``d_packed`` through the packing's VJP) by
+    its float64 recompute; ``d_packed`` against those per-leaf sums
+    folded onto the materials (``fold_packed``), the float64 fold as truth,
+    at the scale of the folded sums of |term|; ``d_params`` (``d_packed``
+    through the packing's VJP) by
     :func:`_close_f64` against ``bounce_bwd_reference`` (autograd through
     ``trace._bounce_replay``), the float64 sums mapped to the params as
     truth, at each tensor's largest entry; two launches the same bits.
@@ -720,11 +747,7 @@ def _check_k2(scene, recorded, tag, name="K2"):
     from ptx_torch.ops import bounce_kernel as bk
 
     kern = scene.bounce_bwd_fn
-    if getattr(kern, "takes_packed", False):
-        sums, sums_name = (lambda a: bk.fold_packed(a, kern.leaf_mat, kern.n_materials),
-                           "d_packed")
-    else:
-        sums, sums_name = (lambda a: a), "per-leaf sums"
+    sums = lambda a: bk.fold_packed(a, kern.leaf_mat, kern.n_materials)
     err2, offs = 0.0, []
     for o_, d_, thr_, dec, cts in reversed(recorded):
         packed, leaves = kern.pack_leaves(scene.params)
@@ -744,7 +767,7 @@ def _check_k2(scene, recorded, tag, name="K2"):
         Bw = o_.shape[0]
         checks = [_close_f64(f"{name} B={Bw} {n}", g, w, t) for n, g, w, t in
                   zip(("d_o", "d_d", "d_thr"), got[:3], ref[:3], ref64[:3])]
-        checks.append(_close_f64(f"{name} B={Bw} {sums_name}", got[3], want_s, truth_s,
+        checks.append(_close_f64(f"{name} B={Bw} d_packed", got[3], want_s, truth_s,
                                  scale_s))
         got_p = kern.params_grad(packed, leaves, got[3])
         want_p = bk.bounce_bwd_reference(scene, scene.params, o_, d_, thr_, dec, *cts)[3]
@@ -766,7 +789,7 @@ def _check_k2(scene, recorded, tag, name="K2"):
             f"{int((dec['take_transmit'] | dec['scatter_alive']).sum())} max_abs_err "
             f"{e:.3g}: per lane {lane_e:.3g} (largest |d_o| "
             f"{float(ref64[0].abs().max()):.4g}, |d_d| {float(ref64[1].abs().max()):.4g}), "
-            f"{sums_name} {float((got[3] - want_s).abs().max()):.3g} (at most "
+            f"d_packed {float((got[3] - want_s).abs().max()):.3g} (at most "
             f"{sums_rel:.3g} of their Σ|term|), d_params max diff "
             f"{max(c[0] for c in checks[4:]):.3g}; two launches bit-identical; "
             "no NaN/Inf")
@@ -910,7 +933,7 @@ def _reset_counters():
     fk.LAUNCHES = fk.REFERENCE_CALLS = 0
     ek.LAUNCHES = ek.REFERENCE_CALLS = 0
     megasweep.MegaSweepKernel.LAUNCHES = megasweep.REFERENCE_CALLS = 0
-    RowFedReplayBwd.LAUNCHES = 0
+    RowFedReplayBwd.LAUNCHES = RowFedReplayBwd.PACKS = RowFedReplayBwd.PACK_VJPS = 0
     sweep_kernel.LAUNCHES = sweep_kernel.REFERENCE_CALLS = 0
 
 
@@ -924,6 +947,7 @@ def _counters():
             "K2 pack VJPs": bk.BounceBwdKernel.PACK_VJPS,
             "K3": imagegrad.LAUNCHES, "K4": fk.LAUNCHES,
             "K5": megasweep.MegaSweepKernel.LAUNCHES, "K6": RowFedReplayBwd.LAUNCHES,
+            "K6 packs": RowFedReplayBwd.PACKS, "K6 pack VJPs": RowFedReplayBwd.PACK_VJPS,
             "K7": ek.LAUNCHES, "K8": imagegrad.BandedHistKernel.LAUNCHES,
             "K9": sweep_kernel.LAUNCHES,
             "plain": (bk.REFERENCE_CALLS + bk.BWD_REFERENCE_CALLS + imagegrad.REFERENCE_CALLS
@@ -931,13 +955,15 @@ def _counters():
                       + sweep_kernel.REFERENCE_CALLS)}
 
 
-def _expect(steps=0, **per_kernel):
+def _expect(steps=0, k6_steps=0, **per_kernel):
     """Exact launch counts: the given kernels, every other kernel 0, and
-    no plain-version call; ``steps`` K2 train steps or backward passes,
-    each packing K2's scene vector once and running its VJP once."""
+    no plain-version call; ``steps`` K2 (``k6_steps`` K6) train steps or
+    backward passes, each packing the replay backward's scene vector once
+    and running its VJP once."""
     out = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "plain"), 0)
     out.update(per_kernel)
     out["K2 packs"] = out["K2 pack VJPs"] = steps
+    out["K6 packs"] = out["K6 pack VJPs"] = k6_steps
     return out
 
 
@@ -1047,7 +1073,7 @@ def phase_train_kernels(scene, target):
     log(f"[8 train-width timing] K2 bare launch at B={N} (continuing {continuing}): "
         f"{bare[0]:.4f} / {bare[1]:.4f} ms (mean of 20 back to back); bound "
         f"{bound[0]:.4g} ms ({bound[1]})")
-    return flips, err1, err2, err3
+    return flips, err1, err2, err3, max(hists, key=lambda h: h[0].numel())
 
 
 def phase_fwd_bwd(scene):
@@ -1118,11 +1144,16 @@ def bound_k2(B, continuing, sum_words):
 
 
 def bound_k3(yi, inb, ct, shape):
-    """K3: reads yi, xi (int64), inb and C floats per lane, writes the
-    image once; one add per channel of each in-bounds lane."""
+    """K3 (and K8): reads every lane's inb (1 B), the C floats of an
+    in-bounds lane's cotangent and the two int64 indices of a lane that
+    adds (in bounds, a nonzero cotangent; at C > 4 every in-bounds lane,
+    as the kernels load them), writes the image once; one add per channel
+    of each in-bounds lane."""
     N, C = ct.shape
     texels = shape[0] * shape[1] * shape[2]
-    return _bound((17 + 4 * C) * N + 4 * texels, C * int(inb.sum()))
+    n_inb = int(inb.sum())
+    n_add = int((inb & (ct != 0).any(dim=1)).sum()) if C <= 4 else n_inb
+    return _bound(N + 4 * C * n_inb + 16 * n_add + 4 * texels, C * n_inb)
 
 
 def _library_hists(yi, xi, inb, ct, shape):
@@ -1141,10 +1172,9 @@ def _library_hists(yi, xi, inb, ct, shape):
     return put, add
 
 
-def phase_timing_backward(scene, k2_in, k3_in):
-    """K2 and K3 as the main path calls them against their plain versions
-    (K3 also against ``index_put_`` and ``index_add_``), in turns: plain,
-    kernel, kernel, plain.  K2: the per-bounce wrapper as
+def phase_timing_backward(scene, k2_in):
+    """K2 as the main path calls it against its plain versions, in turns:
+    plain, kernel, kernel, plain: the per-bounce wrapper as
     ``ManualBounce.backward`` calls it (input checks, allocations, the two
     launches), the once-per-call pack + VJP (``pack_bwd`` of the params with
     history, then its VJP on one ``d_packed``), and for a step's 16
@@ -1172,13 +1202,6 @@ def phase_timing_backward(scene, k2_in, k3_in):
     a2, p2 = _time_ms(whole), _time_ms(k2p)
     n_bwd = DEPTH
     step_new, step_old = n_bwd * min(w1, w2) + min(v1, v2), n_bwd * min(r1, r2)
-    yi, xi, inb, ct, shape = k3_in
-    k3 = lambda: imagegrad.hist(yi, xi, inb, ct, shape)
-    k3p = lambda: imagegrad.hist_reference(yi, xi, inb, ct, shape)
-    put, add = _library_hists(yi, xi, inb, ct, shape)
-    q1, l1, m1 = _time_ms(k3p), _time_ms(put), _time_ms(add)
-    h1, h2 = _time_ms(k3), _time_ms(k3)
-    m2, l2, q2 = _time_ms(add), _time_ms(put), _time_ms(k3p)
     log(f"[10 timing] K2 at B={o.shape[0]}: per-bounce wrapper (checks, allocations, "
         f"two launches) {w1:.4f} / {w2:.4f} ms; bare launch {b1:.4f} / {b2:.4f} ms (mean "
         f"of 20 back to back); plain (lanes + fold) {p1:.4f} / {p2:.4f} ms; whole-bounce "
@@ -1187,15 +1210,88 @@ def phase_timing_backward(scene, k2_in, k3_in):
         f"per-bounce params route (launch + pack + VJP) {r1:.4f} / {r2:.4f} ms; a step's "
         f"{n_bwd} backward bounces: {n_bwd} wrappers + one pack + VJP {step_new:.4f} ms, "
         f"{n_bwd} x the per-bounce params route {step_old:.4f} ms")
-    log(f"[10 timing] K3 at N={yi.numel()} on {tuple(shape)}: wrapper {h1:.4f} / "
-        f"{h2:.4f} ms; plain {q1:.4f} / {q2:.4f} ms; index_put_(accumulate=True) "
-        f"{l1:.4f} / {l2:.4f} ms; index_add_ (flat) {m1:.4f} / {m2:.4f} ms (each the "
-        f"median of 20 single calls)")
     continuing = int((dec["take_transmit"] | dec["scatter_alive"]).sum())
-    return ((min(w1, w2), min(p1, p2), bound_k2(o.shape[0], continuing, packed.numel()),
-             min(v1, v2), step_new, step_old),
-            (min(h1, h2), min(q1, q2), min(l1, l2), bound_k3(yi, inb, ct, shape),
-             min(m1, m2)))
+    return (min(w1, w2), min(p1, p2), bound_k2(o.shape[0], continuing, packed.numel()),
+            min(v1, v2), step_new, step_old)
+
+
+def _hist_stats(yi, xi, inb, ct, shape):
+    """K3's input in figures: N; the lanes that add (inb and a nonzero
+    cotangent); the texels they touch and the mean and largest lanes on a
+    touched texel; the mean distinct texels a warp of 32 consecutive lanes
+    adds into, over the warps with a lane that adds; lanes per image entry
+    (N / H·W·C)."""
+    import torch
+
+    N = yi.numel()
+    adds = inb & (ct != 0).any(dim=1)
+    t = torch.where(adds, yi * shape[1] + xi, -1)
+    counts = torch.bincount(t[adds], minlength=shape[0] * shape[1])
+    touched = counts[counts > 0].float()
+    w = torch.cat([t, t.new_full(((-N) % 32,), -1)]).reshape(-1, 32).sort(dim=1).values
+    distinct = ((w[:, 1:] != w[:, :-1]) & (w[:, 1:] >= 0)).sum(1) + (w[:, 0] >= 0).long()
+    active = distinct > 0
+    return (f"N={N} adding {int(adds.sum())} on {touched.numel()} texels, lanes per "
+            f"texel mean {float(touched.mean()) if touched.numel() else 0.0:.1f} max "
+            f"{int(touched.max()) if touched.numel() else 0}, distinct texels per warp "
+            f"{float(distinct[active].float().mean()) if bool(active.any()) else 0.0:.2f} "
+            f"over {int(active.sum())} warps, {N / (shape[0] * shape[1] * shape[2]):.2f} "
+            "lanes per image entry")
+
+
+def phase_timing_k3(k3_ins):
+    """K3 at the chunk width (phase 5's widest call), the train width
+    (phase 8's) and on config 4's checker (A3's widest): each input's
+    figures (:func:`_hist_stats`); the wrapper as the main path calls it
+    beside ``hist_reference``, ``index_put_(accumulate=True)`` and
+    ``index_add_`` on the flat view, in turns (plain, library, kernel,
+    kernel, library, plain), each the median of 20 single calls; then,
+    back to back (the device's time per call where launches queue faster
+    than they run, else the host's), the wrapper in each regime (forced
+    through ``launch(plan=)``, each output held within the reordered-sum
+    bound) and K8's plain atomic pass on the same lanes; and the routed
+    wrapper queued behind a device sleep, the card's time alone.
+    Fails if K3's wrapper takes more than 1.25 × ``index_add_``'s time at a
+    demo width (the margin is for run-to-run noise)."""
+    import torch
+    from ptx_torch.ops import imagegrad
+
+    out = {}
+    for name, (yi, xi, inb, ct, shape) in k3_ins.items():
+        N = yi.numel()
+        H, W_, C = shape
+        sms = torch.cuda.get_device_properties(yi.device).multi_processor_count
+        entries = imagegrad.K3_PRIVATE_LANES * H * W_ * C
+        plans = {"direct": (0, min(-(-N // 512), imagegrad.K3_BLOCKS_PER_SM * sms)),
+                 "private": imagegrad.k3_plan(max(N, entries), shape, sms)}
+        routed = imagegrad.k3_plan(N, shape, sms)
+        k3 = lambda: imagegrad.hist(yi, xi, inb, ct, shape)
+        k3p = lambda: imagegrad.hist_reference(yi, xi, inb, ct, shape)
+        put, add = _library_hists(yi, xi, inb, ct, shape)
+        q1, l1, m1 = _time_ms(k3p), _time_ms(put), _time_ms(add)
+        h1, h2 = _time_ms(k3), _time_ms(k3)
+        m2, l2, q2 = _time_ms(add), _time_ms(put), _time_ms(k3p)
+        regimes = []
+        for rname, plan in plans.items():
+            run = lambda: imagegrad.k3.launch(yi, xi, inb, ct, shape, plan=plan)
+            _hist_bound_ok(f"K3 {rname} N={N}", run(), yi, xi, inb, ct, shape)
+            regimes.append(f"{rname} {plan} {_time_back_to_back_ms(run):.4f} ms"
+                           + (" (routed)" if plan == routed else ""))
+        k8 = _time_back_to_back_ms(lambda: imagegrad.k8.launch(yi, xi, inb, ct, shape))
+        queued = _time_queued_ms(k3)
+        bound = bound_k3(yi, inb, ct, shape)
+        log(f"[10 K3 {name}] {tuple(shape)} {_hist_stats(yi, xi, inb, ct, shape)}")
+        log(f"[10 K3 {name}] wrapper {h1:.4f} / {h2:.4f} ms; plain {q1:.4f} / {q2:.4f} ms; "
+            f"index_put_(accumulate=True) {l1:.4f} / {l2:.4f} ms; index_add_ (flat) "
+            f"{m1:.4f} / {m2:.4f} ms (each the median of 20 single calls); back to back: "
+            f"{'; '.join(regimes)}; K8's atomic pass {k8:.4f} ms; queued behind a sleep "
+            f"(the card's time) {queued:.4f} ms; bound {bound[0]:.4g} ms ({bound[1]})")
+        out[name] = (min(h1, h2), min(q1, q2), min(l1, l2), bound, min(m1, m2))
+    for name in ("chunk", "train"):
+        if out[name][0] > 1.25 * out[name][4]:
+            raise AssertionError(f"K3's wrapper at the {name} width {out[name][0]:.4f} ms "
+                                 f"is more than 1.25 x index_add_'s {out[name][4]:.4f} ms")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1421,6 +1517,24 @@ def phase_train_k7(scene):
     err7, near = _check_k7(scene, calls, "C2 train-width K7 vs plain")
     err3 = _check_hists(hists, "C2 train-width K3 (K7 backward) vs plain", "K3", 3, outs)
     return c, secs, peak, err7, near, err3
+
+
+def phase_train_config4(c4):
+    """A3: 3 train steps of config 4, K4 17 and K3 19 per step (16 backward
+    bounces each transpose the checker gather, 3 phases each the
+    sky-select's), K1 = K2 = 0; every K3 call's output held against
+    ``hist_reference`` within the reordered-sum bound (the recorded
+    inputs and outputs count in the peak memory).  Returns the widest
+    checker input (of those, the one with most lanes that add) beside the
+    step's figures."""
+    hists, outs = [], []
+    c, secs, peak, _ = phase_train(
+        c4, "A3 config4 train", _expect(K4=3 * (DEPTH + 1), K3=3 * (DEPTH + 3)),
+        _recording_hists(hists, outs))
+    err3 = _check_hists(hists, "A3 train-width K3 vs plain", "K3", 3 * (DEPTH + 3), outs)
+    checker = max((h for h in hists if h[4][0] * h[4][1] <= 64),
+                  key=lambda h: (h[0].numel(), int((h[2] & (h[3] != 0).any(1)).sum())))
+    return c, secs, peak, err3, checker
 
 
 def phase_probe(pb):
@@ -1659,10 +1773,10 @@ class _WidestBwd:
     def __getattr__(self, name):
         return getattr(self.kern, name)
 
-    def __call__(self, params, o, d, thr, dec, *cts):
+    def __call__(self, packed, o, d, thr, dec, *cts):
         if o.shape[0] == self.width:
             self.calls.append((o, d, thr, dec, cts))
-        return self.kern(params, o, d, thr, dec, *cts)
+        return self.kern(packed, o, d, thr, dec, *cts)
 
 
 def phase_train_large(scene, tag, expect, keep_widest=False):
@@ -1718,9 +1832,12 @@ def bound_k5(B, n_rows):
 
 
 def phase_timing_large(scene, tag, k5_in, k6_in, k6_wide):
-    """D7: K5 (wrapper, bare launch, plain) at 65,536 lanes; K6 (wrapper,
-    bare launch, plain) at 65,536 and the bare launch at 4,194,304 lanes;
-    in turns plain, kernel, kernel, plain."""
+    """D7: K5 (wrapper, bare launch, plain) at 65,536 lanes; K6 at 65,536
+    lanes as K2 in phase 10 (the per-bounce wrapper, the bare launch, the
+    plain lanes + fold, the whole-bounce plain, the once-per-call pack +
+    VJP, and a step's 16 wrappers + one pack + VJP beside 16 per-bounce
+    params routes) and its bare launch at 4,194,304 lanes; in turns plain,
+    kernel, kernel, plain."""
     from ptx_torch.ops import bounce_kernel as bk
 
     inputs = k5_in
@@ -1739,28 +1856,45 @@ def phase_timing_large(scene, tag, k5_in, k6_in, k6_wide):
         f"back); plain {p1:.4f} / {p2:.4f} ms; bound {k5_bound[0]:.4g} ms ({k5_bound[1]})")
     kern = scene.bounce_bwd_fn
     o, d, thr, dec, cts = k6_in
-    k6 = lambda: kern(scene.params, o, d, thr, dec, *cts)
-    k6p = lambda: bk.bounce_bwd_reference(scene, scene.params, o, d, thr, dec, *cts)
-    p36 = kern.pack36(scene.params).detach()
-    k6b = lambda: kern.launch(p36, o, d, thr, dec, *cts)
-    q1, v1, v2, q2 = _time_ms(k6p), _time_ms(k6), _time_ms(k6), _time_ms(k6p)
+    vec = kern.pack(scene.params).detach()
+    d_packed = kern(vec, o, d, thr, dec, *cts)[3]
+    k6 = lambda: kern(vec, o, d, thr, dec, *cts)
+    k6p = lambda: kern.reference(vec, o, d, thr, dec, *cts)
+    k6b = lambda: kern.launch(vec, o, d, thr, dec, *cts)
+    whole = lambda: bk.bounce_bwd_reference(scene, scene.params, o, d, thr, dec, *cts)
+    pack_vjp = lambda: kern.params_grad(*kern.pack_leaves(scene.params), d_packed)
+    route = lambda: kern.params_grad(*kern.pack_leaves(scene.params),
+                                     kern(vec, o, d, thr, dec, *cts)[3])
+    q1, a1 = _time_ms(k6p), _time_ms(whole)
+    v1, v2 = _time_ms(k6), _time_ms(k6)
+    u1, r1, r2, u2 = _time_ms(pack_vjp), _time_ms(route), _time_ms(route), _time_ms(pack_vjp)
     c1, c2 = _time_back_to_back_ms(k6b), _time_back_to_back_ms(k6b)
-    L = len(kern.leaves)
+    c3 = _time_queued_ms(k6b)
+    a2, q2 = _time_ms(whole), _time_ms(k6p)
+    step_new, step_old = DEPTH * min(v1, v2) + min(u1, u2), DEPTH * min(r1, r2)
     cont = int((dec["take_transmit"] | dec["scatter_alive"]).sum())
-    k6_bound = bound_k2(o.shape[0], cont, 34 * L)
+    k6_bound = bound_k2(o.shape[0], cont, vec.numel())
     wide = ""
     if k6_wide is not None:
         o2, d2, thr2, dec2, cts2 = k6_wide
-        wb = _time_back_to_back_ms(lambda: kern.launch(p36, o2, d2, thr2, dec2, *cts2))
+        wb = _time_back_to_back_ms(lambda: kern.launch(vec, o2, d2, thr2, dec2, *cts2))
         wbound = bound_k2(o2.shape[0], int((dec2["take_transmit"] | dec2["scatter_alive"]).sum()),
-                          34 * L)
+                          vec.numel())
         wide = (f"; bare launch at B={o2.shape[0]} {wb:.4f} ms, bound {wbound[0]:.4g} ms "
                 f"({wbound[1]})")
-    log(f"[{tag}] K6 at B={o.shape[0]} (continuing {cont}): wrapper {v1:.4f} / {v2:.4f} ms; "
-        f"bare launch {c1:.4f} / {c2:.4f} ms; plain {q1:.4f} / {q2:.4f} ms; bound "
-        f"{k6_bound[0]:.4g} ms ({k6_bound[1]}){wide}")
+    log(f"[{tag}] K6 at B={o.shape[0]} (continuing {cont}, L={len(kern.leaves)}): "
+        f"per-bounce wrapper {v1:.4f} / {v2:.4f} ms; bare launch {c1:.4f} / {c2:.4f} ms, "
+        f"queued behind a sleep (the card's time) {c3:.4f} ms; "
+        f"plain (lanes + fold) {q1:.4f} / {q2:.4f} ms; whole-bounce plain (autograd of the "
+        f"replay to the params) {a1:.4f} / {a2:.4f} ms; bound {k6_bound[0]:.4g} ms "
+        f"({k6_bound[1]}){wide}")
+    log(f"[{tag}] K6 pack + VJP once per trace_rays call {u1:.4f} / {u2:.4f} ms; "
+        f"per-bounce params route (launch + pack + VJP) {r1:.4f} / {r2:.4f} ms; a step's "
+        f"{DEPTH} backward bounces: {DEPTH} wrappers + one pack + VJP {step_new:.4f} ms, "
+        f"{DEPTH} x the per-bounce params route {step_old:.4f} ms")
     return ((min(w1, w2), min(p1, p2), k5_bound, min(b1, b2)),
-            (min(v1, v2), min(q1, q2), k6_bound, min(c1, c2)))
+            (min(v1, v2), min(q1, q2), k6_bound, min(c1, c2), min(u1, u2), step_new,
+             step_old))
 
 
 # ---------------------------------------------------------------------------
@@ -1997,7 +2131,7 @@ def run_path_e(dev):
         sc = _compile_e(nm, dev)
         k9 = {"K9": 3 * (DEPTH + 1)} if getattr(sc.hit_fn, "mode", None) == "kernel" else {}
         trainE[nm] = _timed(f"E3 {nm} train", phase_train, sc, f"E3 {nm} train",
-                            _expect(K6=3 * DEPTH, **k9), None, SPP_E)
+                            _expect(k6_steps=3, K6=3 * DEPTH, **k9), None, SPP_E)
         del sc
     with _env(PTX_SWEEP_MODE="kernel", PTX_MEGAB="0"):
         rays_s = _timed("E4 render --scene", phase_render_scene, "E4 render --scene", "K9")
@@ -2044,8 +2178,8 @@ def main():
     train, secs, peak, target = _timed(
         "7 train", phase_train, scene, "7 train",
         _expect(3, K1=3 * (DEPTH + 1), K2=3 * DEPTH, K3=3 * 3))
-    flips8, err8_1, err8_2, err8_3 = _timed("8 train-width kernels", phase_train_kernels,
-                                            scene, target)
+    flips8, err8_1, err8_2, err8_3, k3_train_in = _timed(
+        "8 train-width kernels", phase_train_kernels, scene, target)
     del target
 
     # path A, config 4: the unfused bounce on K4, the checker's gradient on K3
@@ -2053,9 +2187,8 @@ def main():
     flipsA, err4, k4_in = _timed("A1 K4 chunk", phase_k4_chunk, c4)
     c4_rays_s = _timed("A2 render config4", phase_render_cli, "config4", "A2 render",
                        _expect(K4=(H // BAND_ROWS) * SPP * (DEPTH + 1)))
-    train4, secs4, peak4, _ = _timed(
-        "A3 config4 train", phase_train, c4, "A3 config4 train",
-        _expect(K4=3 * (DEPTH + 1), K3=3 * (DEPTH + 3)))
+    train4, secs4, peak4, err3a, k3_checker_in = _timed("A3 config4 train",
+                                                        phase_train_config4, c4)
     _timed("A4 config4 gradients", phase_gradients, c4, "A4 config4 gradients")
 
     # path B, the 1536x3072 probe: the sky's gradient on K8
@@ -2091,13 +2224,15 @@ def main():
             large[nm] = sc
         extra = {"K8": 3 * 3} if nm == "S4" else {}
         trainD[nm] = _timed(f"D5 {nm} train", phase_train_large, sc, f"D5 {nm} train",
-                            _expect(K5=3 * (DEPTH + 1), K6=3 * DEPTH, **extra), nm == "S1")
+                            _expect(k6_steps=3, K5=3 * (DEPTH + 1), K6=3 * DEPTH, **extra),
+                            nm == "S1")
         del sc
     composed_rays_s = _timed("D6 render --scene", phase_render_scene, "D6 render --scene")
     timeD = {nm: _timed(f"D7 {nm} timing", phase_timing_large, large[nm], f"D7 {nm} timing",
                         k5_in[nm], k6_in[nm], trainD["S1"][3] if nm == "S1" else None)
              for nm in ("S1", "S2")}
-    (k5_ms, k5p_ms, k5_bound, _), (k6_ms, k6p_ms, k6_bound, _) = timeD["S1"]
+    (k5_ms, k5p_ms, k5_bound, _), (k6_ms, k6p_ms, k6_bound, _, k6_pack_ms, k6_step,
+                                   k6_step_old) = timeD["S1"]
     del large, k5_in, k6_in
 
     # path E, the union sweep's other modes: K9, the local fold, the blocked hit
@@ -2106,9 +2241,11 @@ def main():
 
     fb_rays, f_rays = _timed("9 fwd+bwd", phase_fwd_bwd, scene)
     w_ms, p_ms, dev_ms = _timed("10 K1 timing", phase_timing, scene, inputs)
-    (k2_ms, k2p_ms, k2_bound, k2_pack_ms, k2_step, k2_step_old), (
-        k3_ms, k3p_ms, k3_lib, k3_bound, k3_add) = _timed(
-        "10 K2 K3 timing", phase_timing_backward, scene, k2_in, k3_in)
+    k2_ms, k2p_ms, k2_bound, k2_pack_ms, k2_step, k2_step_old = _timed(
+        "10 K2 timing", phase_timing_backward, scene, k2_in)
+    time3 = _timed("10 K3 timing", phase_timing_k3,
+                   {"chunk": k3_in, "train": k3_train_in, "checker": k3_checker_in})
+    k3_ms, k3p_ms, k3_lib, k3_bound, k3_add = time3["chunk"]
     k4_t, k7_t, k8_t = _timed("10 K4 K7 K8 timing", phase_timing_small, c4, k4_in, pe,
                               k7_in, k8_in)
     k1_bound = bound_k1(inputs[0].shape[0], scene.bounce_fn.layout[0])
@@ -2124,7 +2261,10 @@ def main():
         f"(bound {k2_bound[0]:.4g} ms), pack + VJP {k2_pack_ms:.4f} ms once per call, "
         f"per step {k2_step:.4f} ms against {k2_step_old:.4f} ms per bounce; K3 "
         f"{k3_ms:.4f} vs {k3p_ms:.4f} ms, index_put_ {k3_lib:.4f} ms, index_add_ "
-        f"{k3_add:.4f} ms (bound {k3_bound[0]:.4g} ms); K4 {k4_t[0]:.4f} vs "
+        f"{k3_add:.4f} ms (bound {k3_bound[0]:.4g} ms), at the train width "
+        f"{time3['train'][0]:.4f} ms against index_add_ {time3['train'][4]:.4f} ms, on the "
+        f"checker {time3['checker'][0]:.4f} ms against {time3['checker'][4]:.4f} ms; K4 "
+        f"{k4_t[0]:.4f} vs "
         f"{k4_t[1]:.4f} ms (bound {k4_t[2][0]:.4g} ms); K7 {k7_t[0]:.4f} vs "
         f"{k7_t[1]:.4f} ms (bound {k7_t[2][0]:.4g} ms); K8 {k8_t[0]:.4f} vs "
         f"{k8_t[1]:.4f} ms, index_put_ {k8_t[3]:.4f} ms, index_add_ {k8_t[4]:.4f} ms "
@@ -2133,7 +2273,8 @@ def main():
         + ", ".join(f"{nm} {min(v[1]):.3f} s / {v[2]:.3f} GiB" for nm, v in trainD.items())
         + f", render --scene {composed_rays_s:.4g} rays/s; K5 {k5_ms:.4f} vs {k5p_ms:.4f} ms "
         f"(bound {k5_bound[0]:.4g} ms); K6 {k6_ms:.4f} vs {k6p_ms:.4f} ms (bound "
-        f"{k6_bound[0]:.4g} ms); path E: K9 == plain on {k9_lanes} lanes, flips vs K5's "
+        f"{k6_bound[0]:.4g} ms), pack + VJP {k6_pack_ms:.4f} ms once per call, per step "
+        f"{k6_step:.4f} ms against {k6_step_old:.4f} ms per bounce; path E: K9 == plain on {k9_lanes} lanes, flips vs K5's "
         f"plain version {flipsE}, train step (spp {SPP_E}) "
         + ", ".join(f"{nm} {min(v[1]):.3f} s / {v[2]:.3f} GiB" for nm, v in trainE.items())
         + f", render --scene (kernel mode) {composed_k9_rays_s:.4g} rays/s; K9 {k9_ms:.4f} vs "
@@ -2153,7 +2294,7 @@ def main():
               train["K2"], max(err_k2, err8_2), k2_ms, k2p_ms, k2_bound, None),
         entry("image_hist (K3: image-gather transpose)",
               "ptx_torch/csrc/image_hist_kernel.cu", "ptx/ops/imagegrad.py:91",
-              train["K3"], max(err_k3, err8_3, err3c7), k3_ms, k3p_ms, k3_bound, k3_lib),
+              train["K3"], max(err_k3, err8_3, err3a, err3c7), k3_ms, k3p_ms, k3_bound, k3_add),
         entry("first_hit (K4: hit-only CSG fold)",
               "ptx_torch/csrc/fasthit_kernel.cu", "ptx/ops/fasthit_kernel.py:233",
               train4["K4"], err4, k4_t[0], k4_t[1], k4_t[2], None),
@@ -2168,7 +2309,7 @@ def main():
               trainC["K7"], max(err7a, err7b, err7m), k7_t[0], k7_t[1], k7_t[2], None),
         entry("image_hist_atomic (K8: image-gather transpose by device-memory atomics)",
               "ptx_torch/csrc/image_hist_kernel.cu", "ptx/ops/imagegrad.py:218",
-              trainB["K8"], max(err8, err_k8a), k8_t[0], k8_t[1], k8_t[2], k8_t[3]),
+              trainB["K8"], max(err8, err_k8a), k8_t[0], k8_t[1], k8_t[2], k8_t[4]),
         entry("sweep_select (K9: union-sweep prefix max, break minima, payload match, S1)",
               "ptx_torch/csrc/sweep_kernel.cu", "ptx/ops/sweep_kernel.py:164",
               trainE["S1"][0]["K9"], err9, k9_ms, k9p_ms, k9_bound, None),

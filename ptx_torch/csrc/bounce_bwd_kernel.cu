@@ -31,10 +31,11 @@
 //   register; each block writes its partial sums, and a second launch sums
 //   the partials of every entry in a fixed tree.  The same inputs give the
 //   same bits;
-// - the second launch writes the scene vector's cotangent itself: the leaf
-//   rows' entries, and each material's entries as the sum of its leaves'
-//   material columns in ascending leaf order (the JAX package's one-hot
-//   leaf -> material product, done here in the reduction).  The wrapper so
+// - the second launch (replay_reduce.cuh, shared with K6) writes the scene
+//   vector's cotangent itself: the leaf rows' entries, and, after a grid
+//   barrier, each material's entries as the sum of its leaves' material
+//   columns in ascending leaf order (the JAX package's one-hot leaf ->
+//   material product, done here in the reduction).  The wrapper so
 //   hands autograd one vector per bounce, and the caller (trace_rays) maps
 //   the sum over bounces to the params once per call, through the packing's
 //   VJP, in place of a params mapping per bounce.
@@ -45,6 +46,7 @@
 #include <stdint.h>
 
 #include "replay_lane.cuh"
+#include "replay_reduce.cuh"
 
 namespace {
 
@@ -58,7 +60,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxLeaves = 24;
 constexpr int kMaxOwned = (kMaxLeaves * kCols + kThreads - 1) / kThreads;
 constexpr int kStride = kCols + 1;        // odd lane stride: no bank conflicts
-constexpr int kReduceThreads = 256;
 
 __device__ __forceinline__ V3 load3(const float* p, int lane) {
   return {p[3 * lane], p[3 * lane + 1], p[3 * lane + 2]};
@@ -156,48 +157,6 @@ bounce_bwd_kernel(const float* __restrict__ scene, int scene_words, int L,
   }
 }
 
-// The sum of every block's partial of entry e: each thread sums a fixed
-// stride of blocks, then a fixed tree; the result is thread 0's.
-__device__ float sum_partials(const float* __restrict__ partial, int n_blocks, int E,
-                              int e, float* s) {
-  float sum = 0.f;
-  for (int b = threadIdx.x; b < n_blocks; b += kReduceThreads)
-    sum += partial[(size_t)b * E + e];
-  s[threadIdx.x] = sum;
-  __syncthreads();
-  for (int h = kReduceThreads / 2; h > 0; h /= 2) {
-    if (threadIdx.x < h) s[threadIdx.x] += s[threadIdx.x + h];
-    __syncthreads();
-  }
-  const float total = s[0];
-  __syncthreads();              // s is rewritten by the next call
-  return total;
-}
-
-// Second pass: one block per entry of d_packed, the cotangent of pack_bwd's
-// vector.  Entries below L*26 are leaf-row entries (leaf k, column c): the
-// per-leaf sum of (k, c).  Entry L*26 + 8m + c is material m's column c: the
-// per-leaf sums of column 26 + c of the leaves of m, added in ascending leaf
-// order (mat_leaves[mat_start[m] .. mat_start[m + 1]]); 0 for a material
-// without leaves.
-__global__ void __launch_bounds__(kReduceThreads)
-reduce_partials_kernel(const float* __restrict__ partial, int n_blocks, int L,
-                       const int* __restrict__ mat_start,
-                       const int* __restrict__ mat_leaves, float* __restrict__ d_packed) {
-  __shared__ float s[kReduceThreads];
-  const int E = L * kCols, j = blockIdx.x;
-  float out = 0.f;
-  if (j < L * kRow) {
-    const int k = j / kRow;
-    out = sum_partials(partial, n_blocks, E, k * kCols + (j - k * kRow), s);
-  } else {
-    const int m = (j - L * kRow) / kMat, c = (j - L * kRow) % kMat;
-    for (int i = mat_start[m]; i < mat_start[m + 1]; ++i)
-      out += sum_partials(partial, n_blocks, E, mat_leaves[i] * kCols + kRow + c, s);
-  }
-  if (threadIdx.x == 0) d_packed[j] = out;
-}
-
 }  // namespace
 
 // Shared memory one block of K2 needs for a scene buffer of `scene_words`
@@ -210,8 +169,9 @@ extern "C" int ptx_bounce_backward_smem(int scene_words, int L) {
 // C entry point (ctypes): two launches on `stream` (per-block partial sums,
 // then their reduction into d_packed, the cotangent of the scene vector's
 // L*26 + M*8 words), no synchronisation; returns cudaGetLastError().
-// `partial` holds n_blocks * L * 34 floats; mat_start (M + 1) and mat_leaves
-// (L) list each material's leaves in ascending order.
+// `partial` holds n_blocks * L * 34 floats, then L * 8 of scratch;
+// mat_start (M + 1) and mat_leaves (L) list each material's leaves in
+// ascending order.
 extern "C" int ptx_bounce_backward(
     const float* scene, int scene_words, int L, const float* aux, const float* o,
     const float* d, const float* thr, const int* evt, const uint8_t* hit,
@@ -229,7 +189,7 @@ extern "C" int ptx_bounce_backward(
       scatter_alive, u_sel, ct_o2, ct_d2, ct_thr2, B, d_o, d_d, d_thr, partial);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  reduce_partials_kernel<<<scene_words, kReduceThreads, 0, s>>>(
-      partial, n_blocks, L, mat_start, mat_leaves, d_packed);
+  err = launch_reduce_partials(partial, n_blocks, L, M, mat_start, mat_leaves, d_packed, s);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

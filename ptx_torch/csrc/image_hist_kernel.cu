@@ -1,24 +1,64 @@
 // Image-gather transpose kernels for NVIDIA Hopper (sm_90a):
 //   d_img[y, x, c] = sum over lanes with inb of ct[lane, c] where (yi, xi) = (y, x)
 // for an (H, W, C) float32 image, the backward of the nearest-texel gather.
-// Two kernels, routed by image size in ptx_torch/ops/imagegrad.py hist:
+// Two kernels' entry points, routed by image size in ptx_torch/ops/imagegrad.py
+// hist:
 //
-// K3, hist_shared_kernel, for images whose H*W*C floats fit one block's
-// shared memory (at most 227 KB, opted in above 48 KB).  Replaces
-// ptx/ops/imagegrad.py:91 _build_hist / _hist_kernel (:45), the Pallas TPU
-// kernel that built one-hot matrices for the MXU with a hi/lo bf16 split;
-// that is a TPU workaround and is not carried over.
-// - Bound: per lane it reads yi, xi (int64), inb (1 B) and C floats of
-//   cotangent, 33 B at C = 4; the output is written once.  For the ~91 k
-//   sky-select lanes of a 65,536-ray chunk that is ~3 MB, ~1 us at
-//   3.35 TB/s.  One add per channel: bound by memory latency and by atomic
-//   contention on popular texels.
-// - Design: each block zeroes a private histogram, adds its share of the
-//   lanes with shared-memory atomics, then adds the nonzero texels to the
-//   output (zeroed by the wrapper) with global atomics.  The demo's
-//   64x128x4 sky is 128 KB, one block per SM; the grid is at most one block
-//   per SM and at least 4,096 lanes per block, so the flush (one global
-//   atomic per touched texel per block) stays small beside the lanes.
+// K3, for images whose H*W*C floats fit one block's shared memory (at most
+// 227 KB).  Replaces ptx/ops/imagegrad.py:91 _build_hist / _hist_kernel
+// (:45), the Pallas TPU kernel that built one-hot matrices for the MXU with a
+// hi/lo bf16 split; that is a TPU workaround and is not carried over.
+// - Bound (chip_smoke.py bound_k3): every lane's inb (1 B), the C floats
+//   of cotangent of an in-bounds lane and the two int64 indices of a lane
+//   that adds (in bounds, a nonzero cotangent); the output is written once.
+//   A train step's widest sky input (4,194,304 lanes, 218,852 adding) is
+//   about 11 MB, some 3.4 us at 3.35 TB/s.  One add per channel of an
+//   in-bounds lane.  What limits it instead is the launch and host work at
+//   chunk width, and at train width the contention of many lanes on few
+//   texels (the demo's 64x128 sky, config 4's 8x8 checker).
+// - Both regimes first merge the lanes of a warp that add into one texel
+//   (__match_any_sync on the texel, a shuffle tree to the group's lowest
+//   lane, sum_peers), so each warp issues one add per distinct texel it
+//   touches; lanes with inb false or an all-zero cotangent add nothing and
+//   load no index.
+// - Direct (hist_direct_kernel; fewer than 1,024 lanes per image entry: the
+//   demo's sky at every width): one pass, the leader of each group adds
+//   straight into the output in device memory (128 KB: it stays in L2),
+//   with one 16-byte atomic at C = 4 (atomicAdd(float4*, float4), a
+//   red.global.add.v4.f32: REDG.E.ADD.F32x4.FTZ, which flushes a subnormal
+//   sum, below 1.2e-38, to 0), else one scalar atomic per nonzero channel.
+//   The grid covers every lane, at most four blocks an SM.
+// - Private (hist_private_kernel; 1,024 lanes per image entry or more:
+//   config 4's 8x8 checker): the sums are privatised in shared memory, one
+//   copy of the image a block; a leader adds with scalar shared-memory
+//   atomics, and after a block barrier the block adds its nonzero texels to
+//   the output, with 16-byte atomics at C = 4.  As many blocks an SM as
+//   their copies leave room for, at most four (four for the checker's 1 KB).
+// - The plan (imagegrad.k3_plan) rests on chip_smoke.py phase 10, the
+//   wrapper back to back in each regime (NVIDIA H100 80GB HBM3 at 700 W):
+//   - a train step's widest sky input (4,194,304 lanes, 218,852 adding on
+//     6,232 texels, 1.82 distinct texels a warp, 128 lanes an entry):
+//     direct 0.0391 ms, private 0.1069 ms (one 128 KB copy a block, one
+//     block an SM);
+//   - config 4's widest checker input (4,194,304 lanes, 2,527,518 adding on
+//     26 texels, 1.52 a warp, 16,384 an entry): private 0.0510 ms, direct
+//     0.0877 ms, K8's pass without the warp merge 1.6972 ms;
+//   - the demo chunk (65,536 lanes, 29,908 adding on 1,433 texels, 2.37 a
+//     warp, 2 an entry): every variant 0.014-0.019 ms, the host's time.
+//   So the copy pays only where lanes crowd onto few entries; 1,024 lanes
+//   an entry lies between the two measured densities.  Splitting the copy
+//   over a thread-block cluster of 2, 4 or 8 blocks (distributed shared
+//   memory, each texel flushed once a cluster) was measured in the same
+//   runs and never paid where the plan routes: 0.0621-0.1157 ms on the
+//   checker; on the sky 0.0540-0.0723 ms, still slower than direct.  So
+//   each block holds a whole copy.
+// - Host work: at the demo chunk's width the card's work is ~2 us and the
+//   call is host-bound, so the wrapper allocates the output uninitialised
+//   and the direct regime zero-fills it in its one cooperative launch, a
+//   grid barrier between the zeros and the adds, with no memset call before
+//   it; the private regime, which runs at widths where the card's work
+//   dominates, memsets it first.  The device's shared-memory limit is read,
+//   and the private kernels opted in to it, once per process and device.
 //
 // K8, hist_atomic_kernel, for every larger image (the 1536x3072x4 probe sky
 // is 75.5 MB).  Replaces ptx/ops/imagegrad.py:218 _build_banded_hist /
@@ -29,11 +69,12 @@
 //   atomics, 16 bytes at once since sm_90 (atomicAdd(float4*, float4), a
 //   red.global.add.v4.f32), so the lanes need no order: one thread per lane
 //   adds its C cotangents straight into its texel of the output.
-// - Bound: unchanged, bound_k3's count: per lane yi, xi (int64), inb and C
-//   floats of cotangent, (17 + 4C) B, plus one write of the image.  For the
-//   probe's 4,194,304 sky-select lanes at C = 4 that is 138 MB + 75.5 MB,
-//   64 us at 3.35 TB/s.  The wrapper zero-fills the output (one memset);
-//   the adds land in the 50 MB L2 as atomics, scattered over 4.7 M texels.
+// - Bound: bound_k3's count, as for K3: every lane's inb, the C floats of
+//   an in-bounds lane's cotangent, the two int64 indices of a lane that
+//   adds, plus one write of the image (75.5 MB for the probe, 23 us at
+//   3.35 TB/s, before the lanes).  The wrapper zero-fills the output (one
+//   memset); the adds land in the 50 MB L2 as atomics, scattered over 4.7 M
+//   texels.
 // - Design: one thread per lane in a grid-stride loop; lanes with inb false
 //   or an all-zero cotangent make no atomic; at C = 4 (a 16-byte aligned ct)
 //   one 16-byte load and one vector atomic a lane (it compiles to
@@ -48,38 +89,167 @@
 // bits from run to run: a texel of n lanes is within the reordered-sum
 // bound 2*n*2^-24*sum|ct| of the exact sum, the tolerance the checks use.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 512;
-constexpr int kMinLanesPerBlock = 4096;
 constexpr int kMaxC = 4;
+constexpr int kMaxDevices = 64;
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(kThreads)
-hist_shared_kernel(const int64_t* __restrict__ yi, const int64_t* __restrict__ xi,
-                   const uint8_t* __restrict__ inb, const float* __restrict__ ct, int N,
-                   int W, int C, int texels, float* __restrict__ out) {
-  extern __shared__ float s_hist[];
-  for (int i = threadIdx.x; i < texels; i += kThreads) s_hist[i] = 0.f;
-  __syncthreads();
-  for (int lane = blockIdx.x * kThreads + threadIdx.x; lane < N;
-       lane += gridDim.x * kThreads) {
-    if (!inb[lane]) continue;
-    const int base = ((int)yi[lane] * W + (int)xi[lane]) * C;
-    for (int c = 0; c < C; ++c) {
-      const float v = ct[(size_t)lane * C + c];
-      if (v != 0.f) atomicAdd(&s_hist[base + c], v);
+__device__ __forceinline__ bool nonzero(float4 v) {
+  return v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f;
+}
+
+// Channels c0 .. c0 + 3 of lane `lane`'s cotangent, 0 past C; kVec: C = 4 and
+// ct on a 16-byte boundary, one 16-byte load.
+template <bool kVec>
+__device__ __forceinline__ float4 load_ct(const float* __restrict__ ct, int lane, int C,
+                                          int c0) {
+  if (kVec) return reinterpret_cast<const float4*>(ct)[lane];
+  const float* r = ct + (size_t)lane * C + c0;
+  const int n = C - c0;
+  return make_float4(r[0], n > 1 ? r[1] : 0.f, n > 2 ? r[2] : 0.f, n > 3 ? r[3] : 0.f);
+}
+
+// Lane `lane`'s texel y * W + x and its first four channels in v, or -1 when
+// the lane adds nothing: past N, inb false or, at C <= 4, a zero cotangent.
+// The indices are loaded only for a lane that adds.
+template <bool kVec>
+__device__ __forceinline__ int lane_texel(const int64_t* __restrict__ yi,
+                                          const int64_t* __restrict__ xi,
+                                          const uint8_t* __restrict__ inb,
+                                          const float* __restrict__ ct, long long lane,
+                                          int N, int W, int C, float4& v) {
+  v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (lane >= N || !inb[lane]) return -1;
+  v = load_ct<kVec>(ct, (int)lane, C, 0);
+  if (C <= kMaxC && !nonzero(v)) return -1;
+  return (int)yi[lane] * W + (int)xi[lane];       // < 2^31: the entry checks
+}
+
+// The sum of v over the lanes of `group` (this lane's peers: the lanes of the
+// warp with its texel), complete in the group's lowest lane.  A tree over the
+// group's lanes in lane order, log2(group size) rounds of shuffles; every
+// lane of the warp calls it, a lane that adds nothing with a group of itself.
+__device__ __forceinline__ float4 sum_peers(unsigned group, int lid, float4 v) {
+  int rel = __popc(group & ((1u << lid) - 1u));     // the group's lanes below this one
+  unsigned above = group & ~((2u << lid) - 1u);     // and above it, still unmerged
+  while (__any_sync(kFull, above)) {
+    const int src = __ffs(above) - 1;               // the next lane of the group
+    const float tx = __shfl_sync(kFull, v.x, src & 31);
+    const float ty = __shfl_sync(kFull, v.y, src & 31);
+    const float tz = __shfl_sync(kFull, v.z, src & 31);
+    const float tw = __shfl_sync(kFull, v.w, src & 31);
+    if (src >= 0) {
+      v.x += tx;
+      v.y += ty;
+      v.z += tz;
+      v.w += tw;
     }
+    above &= ~__ballot_sync(kFull, rel & 1);        // odd positions are merged
+    rel >>= 1;
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < texels; i += kThreads) {
-    const float v = s_hist[i];
-    if (v != 0.f) atomicAdd(&out[i], v);
+  return v;
+}
+
+// n = min(4, C - c0) channels of v added at dst: one 16-byte atomic (kVec),
+// else one scalar atomic per nonzero channel.  dst in device memory or, for
+// the scalar form, in (distributed) shared memory.
+template <bool kVec>
+__device__ __forceinline__ void add4(float* dst, float4 v, int n) {
+  if (kVec) {
+    atomicAdd(reinterpret_cast<float4*>(dst), v);
+    return;
+  }
+  if (v.x != 0.f) atomicAdd(dst, v.x);
+  if (n > 1 && v.y != 0.f) atomicAdd(dst + 1, v.y);
+  if (n > 2 && v.z != 0.f) atomicAdd(dst + 2, v.z);
+  if (n > 3 && v.w != 0.f) atomicAdd(dst + 3, v.w);
+}
+
+// The lane loop both K3 regimes share: warps walk the lanes 32 at a time
+// (a grid-stride loop over warps, so the trip count is warp-uniform); each
+// group of lanes with one texel is summed into its leader, which calls
+// add(texel, c0, v) per group of four channels.
+template <bool kVec, typename Add>
+__device__ __forceinline__ void for_each_texel_sum(
+    const int64_t* __restrict__ yi, const int64_t* __restrict__ xi,
+    const uint8_t* __restrict__ inb, const float* __restrict__ ct, int N, int W, int C,
+    Add add) {
+  const int lid = threadIdx.x & 31;
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long base = (long long)blockIdx.x * kThreads + threadIdx.x - lid; base < N;
+       base += stride) {
+    const long long lane = base + lid;
+    float4 v;
+    const int t = lane_texel<kVec>(yi, xi, inb, ct, lane, N, W, C, v);
+    if (__ballot_sync(kFull, t >= 0) == 0u) continue;
+    const unsigned peers = __match_any_sync(kFull, t);
+    const unsigned group = t >= 0 ? peers : 1u << lid;
+    const bool lead = t >= 0 && lid == __ffs(peers) - 1;
+    for (int c0 = 0;;) {
+      v = sum_peers(group, lid, v);
+      if (lead) add(t, c0, v);
+      c0 += kMaxC;
+      if (c0 >= C) break;
+      v = t >= 0 ? load_ct<false>(ct, (int)lane, C, c0) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
   }
 }
 
+// K3, direct regime: the output zero-filled by the grid, a grid-wide barrier
+// (a cooperative launch: every block is resident, at most four an SM, which
+// the launch bounds keep within the SM's registers), then the warp-merged
+// sums straight into it.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 4)
+hist_direct_kernel(const int64_t* __restrict__ yi, const int64_t* __restrict__ xi,
+                   const uint8_t* __restrict__ inb, const float* __restrict__ ct, int N,
+                   int W, int C, int entries, float* __restrict__ out) {
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < entries; i += gridDim.x * kThreads)
+    out[i] = 0.f;
+  cg::this_grid().sync();
+  for_each_texel_sum<kVec>(yi, xi, inb, ct, N, W, C, [&](int t, int c0, float4 v) {
+    add4<kVec>(out + (size_t)t * C + c0, v, C - c0);
+  });
+}
+
+// K3, private regime: the warp-merged sums into the block's private copy
+// of the image in shared memory, then its nonzero texels into the output.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+hist_private_kernel(const int64_t* __restrict__ yi, const int64_t* __restrict__ xi,
+                    const uint8_t* __restrict__ inb, const float* __restrict__ ct, int N,
+                    int W, int C, int texels, float* __restrict__ out) {
+  extern __shared__ float4 s_mem[];
+  float* s_hist = reinterpret_cast<float*>(s_mem);          // texels x C
+  for (int i = threadIdx.x; i < texels * C; i += kThreads) s_hist[i] = 0.f;
+  __syncthreads();
+  for_each_texel_sum<kVec>(yi, xi, inb, ct, N, W, C, [&](int t, int c0, float4 v) {
+    add4<false>(s_hist + t * C + c0, v, C - c0);
+  });
+  __syncthreads();                                          // every add of the block is in
+  for (int j = threadIdx.x; j < texels; j += kThreads) {
+    float* dst = out + (size_t)j * C;
+    if (kVec) {
+      const float4 v = s_mem[j];
+      if (nonzero(v)) atomicAdd(reinterpret_cast<float4*>(dst), v);
+    } else {
+      for (int c = 0; c < C; ++c) {
+        const float v = s_hist[j * C + c];
+        if (v != 0.f) atomicAdd(dst + c, v);
+      }
+    }
+  }
+}
+
+// K8: one thread per lane, each adding into the output (module comment).
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
 hist_atomic_kernel(const int64_t* __restrict__ yi, const int64_t* __restrict__ xi,
@@ -88,52 +258,87 @@ hist_atomic_kernel(const int64_t* __restrict__ yi, const int64_t* __restrict__ x
   for (int lane = blockIdx.x * kThreads + threadIdx.x; lane < N;
        lane += gridDim.x * kThreads) {
     if (!inb[lane]) continue;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (kVec) {
-      v = reinterpret_cast<const float4*>(ct)[lane];
-    } else {
-      const float* r = ct + (size_t)lane * C;
-      v.x = r[0];
-      if (C > 1) v.y = r[1];
-      if (C > 2) v.z = r[2];
-      if (C > 3) v.w = r[3];
-    }
-    if (v.x == 0.f && v.y == 0.f && v.z == 0.f && v.w == 0.f) continue;
-    float* dst = out + ((int)yi[lane] * W + (int)xi[lane]) * C;   // < 2^31: the entry checks
-    if (kVec) {
-      atomicAdd(reinterpret_cast<float4*>(dst), v);
-    } else {
-      if (v.x != 0.f) atomicAdd(dst, v.x);
-      if (C > 1 && v.y != 0.f) atomicAdd(dst + 1, v.y);
-      if (C > 2 && v.z != 0.f) atomicAdd(dst + 2, v.z);
-      if (C > 3 && v.w != 0.f) atomicAdd(dst + 3, v.w);
-    }
+    const float4 v = load_ct<kVec>(ct, lane, C, 0);
+    if (!nonzero(v)) continue;
+    add4<kVec>(out + ((int)yi[lane] * W + (int)xi[lane]) * C, v, C);   // < 2^31: the entry checks
   }
+}
+
+// Per device, read and set once per process: the opt-in shared memory of a
+// block, to which the private kernels are opted in (0: not yet).
+int g_smem_optin[kMaxDevices];
+
+int opt_in_private(int* smem_optin) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (g_smem_optin[dev] == 0) {
+    int optin = 0;
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(hist_private_kernel<true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(hist_private_kernel<false>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err != cudaSuccess) return (int)err;
+    g_smem_optin[dev] = optin;
+  }
+  *smem_optin = g_smem_optin[dev];
+  return (int)cudaSuccess;
 }
 
 }  // namespace
 
-// C entry point of K3 (ctypes): one launch on `stream` adding into `out`
-// (zeroed by the caller), no synchronisation; returns cudaGetLastError(),
-// or cudaErrorInvalidValue for an image past the block's shared memory.
+// C entry point of K3 (ctypes): fills `out` (H*W*C floats, uninitialised)
+// on `stream`, no synchronisation; returns cudaGetLastError(), or
+// cudaErrorInvalidValue for arguments it does not take.  private_copy 0 is
+// the direct regime: one cooperative launch of `blocks` blocks (at most four
+// an SM) that zero-fills `out` itself.  private_copy 1 is the private
+// regime: a memset of `out`, then one launch of `blocks` blocks, each with
+// its copy of the image in shared memory.  The wrapper chooses both
+// (imagegrad.k3_plan).
 extern "C" int ptx_image_hist(const int64_t* yi, const int64_t* xi, const uint8_t* inb,
                               const float* ct, int N, int H, int W, int C, float* out,
-                              void* stream) {
-  if (N < 1 || H < 1 || W < 1 || C < 1) return (int)cudaErrorInvalidValue;
-  int dev = 0, smem_max = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long texels = (long long)H * W * C;
-  const size_t smem = sizeof(float) * (size_t)texels;
-  if (smem > (size_t)smem_max) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      hist_shared_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                              int private_copy, int blocks, void* stream) {
+  const long long entries = (long long)H * W * C;
+  if (N < 1 || H < 1 || W < 1 || C < 1 || entries >= (1LL << 31) || private_copy < 0 ||
+      private_copy > 1 || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool vec = C == 4 && ((uintptr_t)ct & 15) == 0 && ((uintptr_t)out & 15) == 0;
+  if (!private_copy) {
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeCooperative;
+    attr.val.cooperative = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)blocks);
+    cfg.blockDim = dim3(kThreads);
+    cfg.stream = s;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err =
+        vec ? cudaLaunchKernelEx(&cfg, hist_direct_kernel<true>, yi, xi, inb, ct, N, W, C,
+                                 (int)entries, out)
+            : cudaLaunchKernelEx(&cfg, hist_direct_kernel<false>, yi, xi, inb, ct, N, W, C,
+                                 (int)entries, out);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  }
+  int smem_optin = 0;
+  const int opt = opt_in_private(&smem_optin);
+  if (opt != (int)cudaSuccess) return opt;
+  const size_t smem = sizeof(float) * (size_t)entries;
+  if (smem > (size_t)smem_optin) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaMemsetAsync(out, 0, smem, s);
   if (err != cudaSuccess) return (int)err;
-  int blocks = (N + kMinLanesPerBlock - 1) / kMinLanesPerBlock;
-  blocks = blocks < sms ? blocks : sms;
-  hist_shared_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      yi, xi, inb, ct, N, W, C, (int)texels, out);
+  if (vec)
+    hist_private_kernel<true><<<blocks, kThreads, smem, s>>>(yi, xi, inb, ct, N, W, C,
+                                                             H * W, out);
+  else
+    hist_private_kernel<false><<<blocks, kThreads, smem, s>>>(yi, xi, inb, ct, N, W, C,
+                                                              H * W, out);
   return (int)cudaGetLastError();
 }
 

@@ -35,7 +35,8 @@ decision-frozen replay.  ``compile_scene`` routes as the JAX package's
   With every non-emissive slot Constant the bounce is K5's fused mega
   bounce (:class:`~ptx_torch.geom.fasthit.MegaBounce`) in ``mega`` mode
   unless ``PTX_MEGAB=0``, else :class:`UnfusedBounce` on the hit; the
-  backward is the row-fed replay K6 (:mod:`ptx_torch.ops.replay_bwd`);
+  backward is the row-fed replay K6 (:mod:`ptx_torch.ops.replay_bwd`) on
+  K2's scene vector, packed once per ``trace_rays`` call as for K2;
   ``tile_hint`` orders shallow image batches in 16×32-pixel tiles
   (:func:`trace_rays`).  Examples: the stress scenes,
   ``scenes/composed.json``;
@@ -427,7 +428,7 @@ def replay_vjp(scene, params, o, d, thr, dec, ct_o2, ct_d2, ct_thr2):
 
 def _takes_packed(scene):
     """Whether the scene's replay backward takes its packed scene vector
-    (K2: ``BounceBwdKernel.takes_packed``) instead of the params."""
+    (K2 and K6: ``BounceBwdKernel.takes_packed``) instead of the params."""
     return getattr(scene.bounce_bwd_fn, "takes_packed", False)
 
 
@@ -443,7 +444,7 @@ class ManualBounce(torch.autograd.Function):
     ``u_sel``).  The backward is ``scene.bounce_bwd_fn`` on the cotangents
     of o2, d2 and thr2.  strength2, alive2 and the decisions are not
     differentiable.  ``diff`` are the scene inputs autograd reaches the
-    params through: where the backward takes the packed scene vector (K2,
+    params through: where the backward takes the packed scene vector (K2, K6,
     :func:`_takes_packed`), that one vector, packed once per ``trace_rays``
     call (None when no param needs a gradient), and the backward returns
     its cotangent; else ``_diff_inputs(scene, params)``, and the backward
@@ -619,9 +620,9 @@ def trace_rays(scene: CompiledScene, params, origin, direction, key,
     # without a kernel buffer packs None)
     pack = getattr(scene.bounce_fn, "pack", None)
     packed = pack(params) if pack is not None and device.type == "cuda" else None
-    # K2's scene vector, packed once per call on every device with autograd
-    # history: each bounce's backward returns its cotangent, autograd sums
-    # them and runs the packing's VJP once
+    # K2's and K6's scene vector, packed once per call on every device with
+    # autograd history: each bounce's backward returns its cotangent,
+    # autograd sums them and runs the packing's VJP once
     packed_bwd = _replay_pack(scene, params)
     orig = torch.arange(B, dtype=torch.int64, device=device)
     saved = []                  # per phase: (pos, thr, mat_id, live, orig)

@@ -24,9 +24,11 @@ Chrome trace goes to ``--out`` and is parsed here (:func:`summarize`):
   range's share of the profiled host wall;
 - K1-K9: calls and mean device time per call, over all of a kernel's
   launches: ``bounce_forward_kernel``; ``bounce_bwd_kernel`` and the
-  ``reduce_partials_kernel`` launched after it; ``hist_shared_kernel``;
-  ``first_hit_kernel``; ``megasweep_kernel``; ``replay_bwd_kernel`` and
-  ``replay_bwd_reduce_kernel``; ``emission_forward_kernel``;
+  ``reduce_partials_kernel`` launched after it; ``hist_direct_kernel`` or
+  ``hist_private_kernel`` (K3's two regimes); ``first_hit_kernel``;
+  ``megasweep_kernel``; ``replay_bwd_kernel`` and the
+  ``reduce_partials_kernel`` after it (K2's and K6's second launch is one
+  kernel, counted with the launch it follows); ``emission_forward_kernel``;
   ``hist_atomic_kernel``; ``sweep_select_kernel`` (the union sweep's
   ``kernel`` mode: ``PTX_SWEEP_MODE=kernel PTX_MEGAB=0`` with ``--large``);
 - the ``TOP`` kernels by total device time, with their calls;
@@ -38,10 +40,10 @@ forward and backward, against a target rendered before the timing, with
 the backward ranges of ``--grad``.
 
 ``--grad`` runs each chunk forward and backward (``radiance.mean()``,
-then ``backward()``) and adds one range per backward layer: K2's scene
-vector, packed once per ``trace_rays`` call (``replay_pack``), and its VJP
-to the params (``replay_pack_bwd``), the replay backward (``bounce_bwd``:
-K2, or K6 and its params mapping), the compaction
+then ``backward()``) and adds one range per backward layer: K2's or K6's
+scene vector, packed once per ``trace_rays`` call (``replay_pack``), and its
+VJP to the params (``replay_pack_bwd``), the replay backward (``bounce_bwd``:
+K2 or K6), the compaction
 transpose (``compaction_bwd``), the emission backward (``emission_bwd``)
 and the sky image's histogram (``sky_hist``: K3).  The backward runs in
 autograd's engine, so those ranges open and close in hooks on the
@@ -78,17 +80,17 @@ GRAD_LAYERS = (                 # (range name, module, function, its backward ra
     ("emission", "ptx_torch.integrate.trace", "_emission", "emission_bwd"),
 )
 SKY_HIST = "sky_hist"           # the image gather's backward node, inside emission
-# per kernel, the names of its launches; one call launches each once, and
-# the first name counts the calls
-KERNELS = {"k1": ("bounce_forward_kernel",),
-           "k2": ("bounce_bwd_kernel", "reduce_partials_kernel"),
-           "k3": ("hist_shared_kernel",),
-           "k4": ("first_hit_kernel",),
-           "k5": ("megasweep_kernel",),
-           "k6": ("replay_bwd_kernel", "replay_bwd_reduce_kernel"),
-           "k7": ("emission_forward_kernel",),
-           "k8": ("hist_atomic_kernel",),
-           "k9": ("sweep_select_kernel",)}
+# per kernel: the names of the launch that starts a call (one per call),
+# and of the launch that follows it in the same call, if any
+KERNELS = {"k1": (("bounce_forward_kernel",), None),
+           "k2": (("bounce_bwd_kernel",), "reduce_partials_kernel"),
+           "k3": (("hist_direct_kernel", "hist_private_kernel"), None),
+           "k4": (("first_hit_kernel",), None),
+           "k5": (("megasweep_kernel",), None),
+           "k6": (("replay_bwd_kernel",), "reduce_partials_kernel"),
+           "k7": (("emission_forward_kernel",), None),
+           "k8": (("hist_atomic_kernel",), None),
+           "k9": (("sweep_select_kernel",), None)}
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 TOP = 8                         # kernels listed by total device time
 
@@ -122,7 +124,8 @@ def summarize(events, layers=tuple(n for n, _, _ in LAYERS)):
 
     Returns a dict: ``kernels`` (launches), ``busy_ms`` (device),
     ``host_ms`` (profiled host wall, first to last host event),
-    ``k1_calls``, ``k1_mean_us`` (device time per call; also for k2, k3)
+    ``k1_calls``, ``k1_mean_us`` (device time per call; also for k2-k9;
+    ``k2_second_us``, ``k6_second_us``: the second launch's share)
     and ``layers``: per layer
     ``kernels``, ``device_ms`` and ``host_share``."""
     kernels = [e for e in events if e.get("cat") == "kernel"]
@@ -149,11 +152,19 @@ def summarize(events, layers=tuple(n for n, _, _ in LAYERS)):
     out = {"kernels": len(kernels),
            "busy_ms": _union_us((e["ts"], e["ts"] + e["dur"]) for e in device) / 1e3,
            "host_ms": host_us / 1e3}
-    for tag, names in KERNELS.items():
-        calls = sum(names[0] in k["name"] for k in kernels)
-        dur = sum(k["dur"] for k in kernels if any(n in k["name"] for n in names))
+    ordered = sorted(kernels, key=lambda k: k["ts"])
+    for tag, (starts_call, follower) in KERNELS.items():
+        calls, dur, second = 0, 0.0, 0.0
+        for i, k in enumerate(ordered):
+            if any(n in k["name"] for n in starts_call):
+                calls, dur = calls + 1, dur + k["dur"]
+                nxt = ordered[i + 1] if i + 1 < len(ordered) else None
+                if follower and nxt is not None and follower in nxt["name"]:
+                    second += nxt["dur"]
         out[f"{tag}_calls"] = calls
-        out[f"{tag}_mean_us"] = dur / calls if calls else 0.0
+        out[f"{tag}_mean_us"] = (dur + second) / calls if calls else 0.0
+        if follower:
+            out[f"{tag}_second_us"] = second / calls if calls else 0.0
     out["layers"] = per
     by_name: dict = {}
     for k in kernels:
@@ -376,9 +387,12 @@ def main(argv=None):
     print(f"kernels launched {s['kernels']}; device busy {s['busy_ms']:.3f} ms; "
           f"idle share {s['idle_share']:.4f} (1 - busy / unprofiled wall); peak "
           f"memory {s['peak_gib'] if cuda else 'not measured'} GiB")
-    for tag, names in KERNELS.items():
-        print(f"{tag.upper()} ({' + '.join(names)}): {s[f'{tag}_calls']} calls, mean "
-              f"{s[f'{tag}_mean_us']:.2f} us per call")
+    for tag, (starts_call, follower) in KERNELS.items():
+        names = " or ".join(starts_call) + (f" + {follower}" if follower else "")
+        second = (f" (the second launch {s[f'{tag}_second_us']:.2f} us)" if follower
+                  else "")
+        print(f"{tag.upper()} ({names}): {s[f'{tag}_calls']} calls, mean "
+              f"{s[f'{tag}_mean_us']:.2f} us per call{second}")
     for t in s["top"]:
         print(f"top kernel: {t['device_ms']:9.3f} ms in {t['calls']:6d} calls  {t['name']}")
     print("layer            kernels  device_ms  share of profiled host wall")

@@ -8,7 +8,7 @@ sources compile in parallel, one ``nvcc`` each, all started together.
 Nothing here includes PyTorch's headers, so a build takes seconds, not
 minutes.  :func:`library` returns the C entry points of all of them.
 
-Imported only when a CUDA tensor reaches a kernel wrapper.
+Nothing is built or loaded until a CUDA tensor reaches a kernel wrapper.
 """
 
 from __future__ import annotations
@@ -48,18 +48,18 @@ def _nvcc() -> str:
 def _entry_points():
     """(name, argtypes, restype) of every C entry point."""
     vp, i = ctypes.c_void_p, ctypes.c_int
+    replay_bwd = ([vp, i, i, vp]        # scene vector, words, L, leaf aux
+                  + [vp] * 12 + [i]     # inputs, cotangents, B
+                  + [vp] * 4 + [i]      # d_o d_d d_thr partial, blocks
+                  + [vp, vp, i, vp, vp])   # mat_start mat_leaves M, d_packed, stream
     return [
         ("ptx_bounce_forward",
          [vp, i, i, i, i, i]            # scene buffer, words, layout
          + [vp] * 7 + [i, i]            # inputs, in_depth, B
          + [vp] * 8 + [vp], i),         # outputs, stream
         ("ptx_bounce_backward_smem", [i, i], i),
-        ("ptx_bounce_backward",
-         [vp, i, i, vp]                 # scene buffer, words, L, leaf aux
-         + [vp] * 12 + [i]              # inputs, cotangents, B
-         + [vp] * 4 + [i]               # d_o d_d d_thr partial, blocks
-         + [vp, vp, i, vp, vp], i),     # mat_start mat_leaves M, d_packed, stream
-        ("ptx_image_hist", [vp] * 4 + [i] * 4 + [vp, vp], i),
+        ("ptx_bounce_backward", replay_bwd, i),
+        ("ptx_image_hist", [vp] * 4 + [i] * 4 + [vp, i, i, vp], i),   # out, private, blocks
         ("ptx_image_hist_atomic", [vp] * 4 + [i] * 4 + [vp, vp], i),
         ("ptx_first_hit",
          [vp, i, i, i, i, vp, vp, i]      # scene buffer, words, layout, o, d, B
@@ -75,11 +75,8 @@ def _entry_points():
          + [vp, vp, i]                    # o, d, B
          + [vp] * 5 + [i]                 # bounce-mode carry (or null), in_depth
          + [vp] * 11 + [vp], i),          # outputs (null where unused), stream
-        ("ptx_replay_bwd_smem", [i], i),
-        ("ptx_replay_bwd",
-         [vp, i]                          # pack36 scene, L
-         + [vp] * 12 + [i]                # inputs, cotangents, B
-         + [vp] * 4 + [i, vp, vp], i),    # d_o d_d d_thr partial, blocks, acc, stream
+        ("ptx_replay_bwd_smem", [i, i], i),
+        ("ptx_replay_bwd", replay_bwd, i),
         ("ptx_sweep_select_smem", [i, i], i),
         ("ptx_sweep_select",
          [vp, vp, i, vp, vp, i, i]        # s, e, S, t0, t1, L, B
@@ -93,6 +90,8 @@ def library():
     """The kernels' C entry points, as attributes, building the libraries
     on first use."""
     global _lib, BUILD_LOG
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib

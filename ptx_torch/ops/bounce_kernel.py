@@ -30,8 +30,6 @@ kernels, ``ptx_torch/csrc/bounce_kernel.cu`` and ``bounce_bwd_kernel.cu``.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ptx_torch.core import linalg
@@ -77,16 +75,22 @@ def pack_scene(plan, table, params):
 
 
 def _check_inputs(kernel, device, expect):
+    """Raise where a tensor of ``expect`` (name → (tensor, shape, dtype)) is
+    not contiguous, of that shape and dtype, on ``device``; the message is
+    formatted only then, so a call that passes costs a few comparisons."""
     for name, (x, shape, dtype) in expect.items():
-        if (x.device != device or x.dtype != dtype
-                or tuple(x.shape) != shape or not x.is_contiguous()):
+        if (x.dtype is not dtype or x.shape != shape or x.device != device
+                or not x.is_contiguous()):
             raise ValueError(
                 f"{kernel}: {name} must be a contiguous {dtype} tensor of shape "
                 f"{shape} on {device}; got {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
 def _stream(device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    """PyTorch's current stream on CUDA ``device`` (a tensor's: it has an
+    index), as a handle for a C entry point: PyTorch's raw getter, a
+    fraction of a microsecond against several for a ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _raise_on(err, lib, kernel):
@@ -96,7 +100,9 @@ def _raise_on(err, lib, kernel):
 
 
 def _ptr(x):
-    return ctypes.c_void_p(x.data_ptr())
+    """A tensor's data pointer for a ``c_void_p`` argument (ctypes takes
+    the int as it is)."""
+    return x.data_ptr()
 
 
 class BounceKernel:
@@ -395,10 +401,6 @@ def fold_table(leaf_mat, n_materials):
     return start, order
 
 
-def _count_pack_vjp(grad):
-    BounceBwdKernel.PACK_VJPS += 1
-
-
 class BounceBwdKernel:
     """K2 for one compiled scene.
 
@@ -410,12 +412,19 @@ class BounceBwdKernel:
     history (``takes_packed``), so autograd sums the bounces' ``d_packed``
     and runs the packing's VJP once.  :meth:`params_grad` is that mapping
     for one ``d_packed``.  ``PACKS`` counts :meth:`pack` calls, ``PACK_VJPS``
-    the backward passes through a packed vector with history."""
+    the backward passes through a packed vector with history, ``LAUNCHES``
+    the kernel's calls, each class its own (K6,
+    :class:`~ptx_torch.ops.replay_bwd.RowFedReplayBwd`, is this wrapper on
+    another kernel)."""
 
     LAUNCHES = 0
     PACKS = 0
     PACK_VJPS = 0
     takes_packed = True
+    # the kernel: its C entry points, name, shared-memory limit and grid cap
+    entry, smem_entry = "ptx_bounce_backward", "ptx_bounce_backward_smem"
+    kernel_name = "bounce backward kernel"
+    max_smem, max_blocks = _MAX_SMEM, _MAX_BWD_BLOCKS
 
     def __init__(self, scene):
         self.scene = scene
@@ -433,10 +442,13 @@ class BounceBwdKernel:
 
     def pack(self, params):
         """:func:`pack_bwd` of ``params``, with their autograd history."""
-        BounceBwdKernel.PACKS += 1
+        cls = type(self)
+        cls.PACKS += 1
         packed = pack_bwd(self.rows, self.scene.material_fn, params)
         if packed.requires_grad:
-            packed.register_hook(_count_pack_vjp)
+            def count_vjp(grad):
+                cls.PACK_VJPS += 1
+            packed.register_hook(count_vjp)
         return packed
 
     def pack_leaves(self, params):
@@ -450,7 +462,7 @@ class BounceBwdKernel:
         if o.device.type == "cpu":
             return self.reference(packed, o, d, thr, dec, ct_o2, ct_d2, ct_thr2)
         if o.device.type != "cuda":
-            raise ValueError(f"bounce backward kernel: no kernel for {o.device}")
+            raise ValueError(f"{self.kernel_name}: no kernel for {o.device}")
         return self.launch(packed, o, d, thr, dec, ct_o2, ct_d2, ct_thr2)
 
     def reference(self, packed, o, d, thr, dec, ct_o2, ct_d2, ct_thr2):
@@ -470,11 +482,12 @@ class BounceBwdKernel:
                 for k, x, g in zip(trace.DIFF_KEYS, leaves, grads)}
 
     def launch(self, packed, o, d, thr, dec, ct_o2, ct_d2, ct_thr2):
-        """One K2 call on the current stream (its two launches), no
+        """One kernel call on the current stream (its two launches), no
         synchronisation: ``(d_o, d_d, d_thr, d_packed)``."""
         B = o.shape[0]
         device = o.device
         L = self.aux.shape[0]
+        name = self.kernel_name
         f3 = lambda x: (x, (B, 3), torch.float32)
         expect = {"o": f3(o), "d": f3(d), "thr": f3(thr), "u_sel": f3(dec["u_sel"]),
                   "ct_o2": f3(ct_o2), "ct_d2": f3(ct_d2), "ct_thr2": f3(ct_thr2),
@@ -483,28 +496,29 @@ class BounceBwdKernel:
                              torch.float32)}
         for k in ("hit", "entering", "take_transmit", "scatter_alive"):
             expect[k] = (dec[k], (B,), torch.bool)
-        _check_inputs("bounce backward kernel", device, expect)
+        _check_inputs(name, device, expect)
         if B == 0:
-            raise ValueError("bounce backward kernel: empty wavefront")
+            raise ValueError(f"{name}: empty wavefront")
 
         from ptx_torch.ops import _build
         lib = _build.library()
-        if lib.ptx_bounce_backward_smem(packed.numel(), L) > _MAX_SMEM:
-            raise NotImplementedError(
-                f"bounce backward kernel: a scene of {packed.numel()} words "
-                "exceeds the kernel's shared memory")
-        n_blocks = min(-(-B // 128), _MAX_BWD_BLOCKS)
+        if getattr(lib, self.smem_entry)(packed.numel(), L) > self.max_smem:
+            raise NotImplementedError(f"{name}: a scene of {packed.numel()} words and "
+                                      f"{L} leaves exceeds the kernel's shared memory")
+        n_blocks = min(-(-B // 128), self.max_blocks)
         empty = lambda *s: torch.empty(s, dtype=torch.float32, device=device)
         d_o, d_d, d_thr = empty(B, 3), empty(B, 3), empty(B, 3)
-        partial, d_packed = empty(n_blocks, L * _COLS), empty(packed.numel())
+        # the per-block partial sums, then the per-leaf material sums (scratch)
+        partial = empty(n_blocks * L * _COLS + L * _BMAT_STRIDE)
+        d_packed = empty(packed.numel())
         p = _ptr
-        err = lib.ptx_bounce_backward(
+        err = getattr(lib, self.entry)(
             p(packed), packed.numel(), L, p(self.aux), p(o), p(d), p(thr),
             p(dec["evt"]), p(dec["hit"]), p(dec["entering"]),
             p(dec["take_transmit"]), p(dec["scatter_alive"]), p(dec["u_sel"]),
             p(ct_o2), p(ct_d2), p(ct_thr2), B, p(d_o), p(d_d), p(d_thr),
             p(partial), n_blocks, p(self.mat_start), p(self.mat_leaves),
             self.n_materials, p(d_packed), _stream(device))
-        _raise_on(err, lib, "bounce backward kernel")
-        BounceBwdKernel.LAUNCHES += 1
+        _raise_on(err, lib, name)
+        type(self).LAUNCHES += 1
         return d_o, d_d, d_thr, d_packed

@@ -13,6 +13,10 @@ package wrote that transpose as two Pallas TPU kernels; here they are
   ``_build_hist``, :91) where the image fits one block's shared memory,
   K8 (:class:`BandedHistKernel`, the port of ``_build_banded_hist``,
   :218, as one pass of device-memory atomics) for every larger image;
+- K3 has two regimes, which :func:`k3_plan` picks from the lanes per image
+  entry: with few, one pass of warp-merged device-memory atomics; with
+  many, the sums privatised in shared memory, one copy of the image a
+  block, each flushed once;
 - each wrapper launches its kernel on CUDA tensors (or raises) and runs
   :func:`hist_reference`, the plain version of both, on CPU tensors
   only; ``LAUNCHES`` (K3), ``BandedHistKernel.LAUNCHES`` (K8) and
@@ -28,14 +32,24 @@ the per-bin totals stay exact where k divides neither H nor W.
 
 from __future__ import annotations
 
+import functools
 import os
 
 import torch
+
+from ptx_torch.ops import _build
+from ptx_torch.ops.bounce_kernel import _check_inputs, _ptr, _raise_on, _stream
 
 LAUNCHES = 0
 REFERENCE_CALLS = 0
 
 K3_MAX_BYTES = 232_448        # a block's opt-in shared memory on Hopper (227 KB)
+# K3's plan (k3_plan), fixed from measurements on an NVIDIA H100 (the
+# figures are in csrc/image_hist_kernel.cu's header comment)
+K3_PRIVATE_LANES = 1024       # lanes per image entry from which the sums are privatised
+K3_BLOCKS_PER_SM = 4          # the most blocks an SM, either regime (2,048 threads)
+K3_SM_SMEM = 233_472          # an SM's shared memory on Hopper (228 KB), 1 KB a block reserved
+_K3_THREADS = 512             # csrc/image_hist_kernel.cu kThreads
 COARSE = int(os.environ.get("PTX_IMG_GRAD_COARSE", "0"))
 
 
@@ -50,8 +64,6 @@ def hist_reference(yi, xi, inb, ct, shape):
 
 
 def _check(kernel, yi, xi, inb, ct, shape):
-    from ptx_torch.ops.bounce_kernel import _check_inputs
-
     N = ct.shape[0]
     _check_inputs(kernel, ct.device, {
         "yi": (yi, (N,), torch.int64), "xi": (xi, (N,), torch.int64),
@@ -60,11 +72,34 @@ def _check(kernel, yi, xi, inb, ct, shape):
         raise ValueError(f"{kernel}: no lanes")
 
 
+@functools.lru_cache(maxsize=256)
+def k3_plan(N, shape, sms):
+    """K3's launch for ``N`` lanes on an ``(H, W, C)`` image on a card of
+    ``sms`` SMs: ``(private, blocks)``.  Fewer than ``K3_PRIVATE_LANES``
+    lanes per image entry take the direct regime, ``private`` 0; more the
+    private regime, ``private`` 1, one copy of the image a block.  A block
+    takes 512 lanes, and an SM at most ``K3_BLOCKS_PER_SM`` blocks, fewer
+    where the private copies leave no room in its shared memory."""
+    H, W, C = shape
+    private = int(N >= K3_PRIVATE_LANES * H * W * C)
+    per_sm = K3_BLOCKS_PER_SM
+    if private:
+        per_sm = max(1, min(per_sm, K3_SM_SMEM // (H * W * C * 4 + 1024)))
+    return private, min(-(-N // _K3_THREADS), per_sm * sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index):
+    """The SM count of card ``index``, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 class HistKernel:
     """K3's wrapper: ``hist(yi, xi, inb, ct, shape)`` with flat int64
     ``yi``/``xi`` (already clipped into the image), bool ``inb`` and ``ct``
     (N, C) float32 → ``d_img`` (H, W, C), for images of at most
-    ``K3_MAX_BYTES``."""
+    ``K3_MAX_BYTES``.  One call is one zero-fill and one launch, in the
+    regime :func:`k3_plan` picks (``launch(..., plan=)`` forces one)."""
 
     def __call__(self, yi, xi, inb, ct, shape):
         if ct.device.type == "cpu":
@@ -73,17 +108,16 @@ class HistKernel:
             raise ValueError(f"image histogram kernel: no kernel for {ct.device}")
         return self.launch(yi, xi, inb, ct, shape)
 
-    def launch(self, yi, xi, inb, ct, shape):
+    def launch(self, yi, xi, inb, ct, shape, plan=None):
         global LAUNCHES
-        from ptx_torch.ops import _build
-        from ptx_torch.ops.bounce_kernel import _ptr, _raise_on, _stream
-
         _check("image histogram kernel", yi, xi, inb, ct, shape)
         lib = _build.library()
-        out = torch.zeros(shape, dtype=torch.float32, device=ct.device)
-        H, W, C = shape
-        err = lib.ptx_image_hist(_ptr(yi), _ptr(xi), _ptr(inb), _ptr(ct), ct.shape[0],
-                                 H, W, C, _ptr(out), _stream(ct.device))
+        dev = ct.device
+        N = ct.shape[0]
+        private, blocks = plan or k3_plan(N, tuple(shape), _sms(dev.index))
+        out = torch.empty(shape, dtype=torch.float32, device=dev)
+        err = lib.ptx_image_hist(_ptr(yi), _ptr(xi), _ptr(inb), _ptr(ct), N, *shape,
+                                 _ptr(out), private, blocks, _stream(dev))
         _raise_on(err, lib, "image histogram kernel")
         LAUNCHES += 1
         return out
@@ -106,9 +140,6 @@ class BandedHistKernel:
         return self.launch(yi, xi, inb, ct, shape)
 
     def launch(self, yi, xi, inb, ct, shape):
-        from ptx_torch.ops import _build
-        from ptx_torch.ops.bounce_kernel import _ptr, _raise_on, _stream
-
         H, W, C = shape
         if H * W * C >= 1 << 31:
             raise ValueError(f"atomic histogram kernel: an image of {H * W * C} floats "

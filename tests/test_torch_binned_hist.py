@@ -8,7 +8,8 @@ the routing, and the coarse estimator, against the JAX package's
   relative, hence ``rtol 1e-4, atol 3e-5`` as in tests/test_torch_imagegrad.py.
 - K8's wrapper refuses what its kernel cannot take (an image of 2³¹
   floats or more, more than 4 channels, another device), and ``hist``
-  routes at K3's shared-memory edge.
+  routes at K3's shared-memory edge; K3's plan (its regime and grid) is a
+  pure function of N and the shape.
 - ``PTX_IMG_GRAD_COARSE``: equal to the JAX estimator when k divides H
   and W; where it does not, every coarse bin's total is exact (the JAX
   estimator undercounts the edge bins).
@@ -120,3 +121,28 @@ def test_coarse_estimator(shape, monkeypatch):
         np.testing.assert_allclose(got, jax_est, rtol=1e-4, atol=3e-5)
     else:                              # the JAX edge bins lose the mass cut off
         assert not np.allclose(totals(jax_est), totals(exact), rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("N,shape,want", [
+    (65_536, (64, 128, 4), (0, 128)),             # the demo chunk's sky-select: direct
+    (4_194_304, (64, 128, 4), (0, 528)),          # a train step's: direct, 4 blocks an SM
+    (33_554_431, (64, 128, 4), (0, 528)),         # just below 1,024 lanes an entry
+    (33_554_432, (64, 128, 4), (1, 132)),         # at it: private, one 128 KB copy an SM
+    (262_144, (8, 8, 4), (1, 512)),               # config 4's checker: 4 copies an SM
+    (1_000, (454, 32, 4), (0, 2)),                # K3's largest image, few lanes
+    (10**9, (454, 32, 4), (1, 132)),              # and private: one 227 KB copy an SM
+], ids=["chunk", "train", "below", "at", "checker", "edge-direct", "edge-private"])
+def test_k3_plan_routes_by_lanes_per_entry(N, shape, want):
+    """K3's plan is a pure function of N, the shape and the SM count:
+    fewer than ``K3_PRIVATE_LANES`` lanes per image entry take the direct
+    regime (``private`` 0), more the private regime (1); a block per 512
+    lanes, at most 4 an SM, and in the private regime only as many as
+    their copies of the image fit an SM's shared memory."""
+    H, W, C = shape
+    assert imagegrad.k3_plan(N, shape, 132) == want
+    private, blocks = want
+    assert (N >= imagegrad.K3_PRIVATE_LANES * H * W * C) == bool(private)
+    assert blocks <= -(-N // 512)
+    if private:
+        per_sm = -(-blocks // 132)
+        assert per_sm * (H * W * C * 4 + 1024) <= imagegrad.K3_SM_SMEM

@@ -186,21 +186,78 @@ def _hist_case(shape, N=100_000, seed=1):
     return yi, xi, inb, ct
 
 
+def _k3_plan(regime, N, shape):
+    """K3's plan for ``regime``: ``None`` for the one ``k3_plan`` routes
+    to, else the direct or the private regime forced."""
+    from ptx_torch.ops import imagegrad
+
+    H, W, C = shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"routed": None, "direct": (0, min(-(-N // 512), 4 * sms)),
+            "private": imagegrad.k3_plan(max(N, imagegrad.K3_PRIVATE_LANES * H * W * C),
+                                         shape, sms)}[regime]
+
+
+def _k3_case(shape, N, seed=1):
+    """Lanes in runs of 8 on one texel (as neighbouring pixels find one sky
+    texel), 10 % out of bounds, 30 % with a zero cotangent."""
+    yi, xi, inb, ct = _hist_case(shape, N=-(-N // 8), seed=seed)
+    yi, xi, inb = (x.repeat_interleave(8)[:N] for x in (yi, xi, inb))
+    ct = torch.randn((N, shape[2]), device=ct.device, generator=torch.Generator(
+        device=ct.device).manual_seed(seed + 1))
+    return yi, xi, inb, torch.where(torch.rand(N, device=ct.device)[:, None] < 0.3, 0.0, ct)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(64, 128, 4)], ids=["shared"])
-def test_k3_matches_its_plain_version(shape):
+@pytest.mark.parametrize("regime", ["routed", "direct", "private"])
+@pytest.mark.parametrize("shape,N", [((64, 128, 4), 65_536), ((64, 128, 4), 4_194_304),
+                                     ((8, 8, 4), 262_144), ((67, 93, 3), 100_000)],
+                         ids=["sky-65536", "sky-4194304", "checker", "ragged-c3"])
+def test_k3_matches_its_plain_version(shape, N, regime):
+    """K3 in the regime ``k3_plan`` routes to and in each one forced: on
+    the demo sky at the chunk and train widths, the 8x8 checker and a
+    ragged three-channel image, within the reordered-sum bound."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the histogram kernel has no CPU mode")
     from ptx_torch.ops import imagegrad
 
-    yi, xi, inb, ct = _hist_case(shape)
+    yi, xi, inb, ct = _k3_case(shape, N)
     launches = imagegrad.LAUNCHES
-    got = imagegrad.hist(yi, xi, inb, ct, shape)
-    want = imagegrad.hist_reference(yi, xi, inb, ct, shape)
-    scale = imagegrad.hist_reference(yi, xi, inb, ct.abs(), shape)
+    plan = _k3_plan(regime, N, shape)
+    got = (imagegrad.hist(yi, xi, inb, ct, shape) if plan is None
+           else imagegrad.k3.launch(yi, xi, inb, ct, shape, plan=plan))
     torch.cuda.synchronize()
     assert imagegrad.LAUNCHES == launches + 1
-    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-7).all())
+    assert _reordered_sum_ok(got, yi, xi, inb, ct, shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["direct", "private"])
+@pytest.mark.parametrize("C", [3, 4])
+@pytest.mark.parametrize("case", ["one-texel", "all-skipped", "ragged-offset"])
+def test_k3_degenerate_lanes(case, C, regime):
+    """K3 in each regime with every lane on one texel, with every lane
+    skipped (an all-zero image), and on a ragged 67x93 image with ``ct`` a
+    view one float into its storage (no 16-byte loads)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the histogram kernel has no CPU mode")
+    from ptx_torch.ops import imagegrad
+
+    shape = (67, 93, C) if case == "ragged-offset" else (64, 128, C)
+    yi, xi, inb, ct = _k3_case(shape, 65_536, seed=2)
+    if case == "one-texel":
+        yi, xi = torch.full_like(yi, 12), torch.full_like(xi, 34)
+    elif case == "all-skipped":
+        inb = torch.zeros_like(inb)
+    else:
+        ct = torch.randn(ct.numel() + 1, device=ct.device)[1:].view(ct.shape)
+    got = imagegrad.k3.launch(yi, xi, inb, ct, shape, plan=_k3_plan(regime, 65_536, shape))
+    torch.cuda.synchronize()
+    assert _reordered_sum_ok(got, yi, xi, inb, ct, shape)
+    if case == "all-skipped":
+        assert not bool(got.any())
+    if case == "one-texel":
+        assert int((got != 0).any(dim=-1).sum()) == 1
 
 
 @pytest.mark.cuda
@@ -409,16 +466,18 @@ def test_k5_hit_mode_matches_its_plain_version(large_cuda):
 
 @pytest.mark.cuda
 def test_k6_matches_its_plain_version(large_cuda):
+    """K6 on K2's scene vector: per lane as K2, ``d_packed`` against the
+    per-leaf sums folded onto the materials (the float64 fold as truth),
+    two launches the same bits."""
     from ptx_torch.ops.replay_bwd import RowFedReplayBwd
     scene = large_cuda
     carry, dec, cts = _k2_inputs(scene)
     kern = scene.bounce_bwd_fn
-    assert isinstance(kern, RowFedReplayBwd)
-    p36 = kern.pack36(scene.params).detach()
+    assert isinstance(kern, RowFedReplayBwd) and kern.takes_packed
     packed = kern.pack(scene.params).detach()
     launches = RowFedReplayBwd.LAUNCHES
-    got = kern.launch(p36, *carry[:3], dec, *cts)
-    again = kern.launch(p36, *carry[:3], dec, *cts)
+    got = kern.launch(packed, *carry[:3], dec, *cts)
+    again = kern.launch(packed, *carry[:3], dec, *cts)
     ref = bounce_kernel.bounce_bwd_lanes_reference(packed, kern.aux, *carry[:3], dec, *cts)
     ref64 = bounce_kernel.bounce_bwd_lanes_reference(
         packed.double(), kern.aux.double(), *(x.double() for x in carry[:3]),
@@ -427,7 +486,9 @@ def test_k6_matches_its_plain_version(large_cuda):
     assert RowFedReplayBwd.LAUNCHES == launches + 2
     for g, w, t in zip(got[:3], ref[:3], ref64[:3]):
         _close(g, w, t)
-    _close(got[3], ref[3], ref64[3], ref64[4])
+    fold = lambda acc: bounce_kernel.fold_packed(acc, kern.leaf_mat, kern.n_materials)
+    assert got[3].shape == packed.shape
+    _close(got[3], fold(ref[3]), fold(ref64[3]), fold(ref64[4]))
     for a, b in zip(got, again):            # the two-pass reduction is deterministic
         assert torch.equal(a, b)
 

@@ -68,7 +68,8 @@ def test_summarize_backward_ranges_and_kernels():
         _x("cuda_runtime", "cudaLaunchKernel", 52.0, 1.0, correlation=4),
         _x("kernel", "bounce_bwd_kernel(float const*)", 100.0, 8.0, correlation=1),
         _x("kernel", "reduce_partials_kernel(float const*)", 110.0, 2.0, correlation=2),
-        _x("kernel", "hist_shared_kernel(long const*)", 120.0, 4.0, correlation=3),
+        _x("kernel", "void (anonymous namespace)::hist_private_kernel<true>(long const*)",
+           120.0, 4.0, correlation=3),
         _x("kernel", "index_elementwise", 130.0, 1.0, correlation=4),
     ]
     s = summarize(events, names)
@@ -113,12 +114,12 @@ def test_backward_ranges_tag_the_layers_nodes():
 
 def test_summarize_counts_the_large_scene_kernels_apart_from_k2():
     """K5, K6 and K9 are counted by their own names: K6's two launches (the
-    replay and its reduction) apart from K2's."""
+    replay and the reduction after it) apart from K2's, though both
+    reductions are one kernel, ``reduce_partials_kernel``."""
     events = [
         _x("kernel", "(anonymous namespace)::megasweep_kernel(Args)", 0.0, 8.0),
         _x("kernel", "(anonymous namespace)::replay_bwd_kernel(float const*)", 10.0, 6.0),
-        _x("kernel", "(anonymous namespace)::replay_bwd_reduce_kernel(float const*)", 20.0,
-           2.0),
+        _x("kernel", "(anonymous namespace)::reduce_partials_kernel(float const*)", 20.0, 2.0),
         _x("kernel", "(anonymous namespace)::bounce_bwd_kernel(float const*)", 30.0, 3.0),
         _x("kernel", "(anonymous namespace)::reduce_partials_kernel(float const*)", 40.0, 1.0),
         _x("kernel", "(anonymous namespace)::sweep_select_kernel(float const*)", 50.0, 5.0),
@@ -128,6 +129,7 @@ def test_summarize_counts_the_large_scene_kernels_apart_from_k2():
     assert s["k5_calls"] == 1 and s["k5_mean_us"] == pytest.approx(8.0)
     assert s["k6_calls"] == 1 and s["k6_mean_us"] == pytest.approx(8.0)
     assert s["k2_calls"] == 1 and s["k2_mean_us"] == pytest.approx(4.0)
+    assert s["k6_second_us"] == pytest.approx(2.0) and s["k2_second_us"] == pytest.approx(1.0)
 
 
 def test_layer_profile_runs_a_large_scene_on_the_cpu(tmp_path, capsys):

@@ -11,7 +11,7 @@
   per-leaf sums), folded into the scene vector's cotangent and mapped to
   the params, and K2's call on the CPU (its plain version), against
   ``bounce_bwd_reference``; the fold and its static table; one pack and
-  one packing VJP per ``trace_rays`` call;
+  one packing VJP per ``trace_rays`` call, for K2 and for K6;
 - the kernel's own adjoint source (``csrc/replay_lane.cuh``), built for the
   host with the system C++ compiler, against autograd.
 
@@ -258,18 +258,16 @@ def test_fold_sums_shared_materials_and_zeroes_leafless_ones(pair):
     assert start == [0, 2, 2, 6, 7, 7]
 
 
-def test_pack_and_its_vjp_run_once_per_trace_rays_call(pair):
-    """On the demo at depth 16 (17 bounces, 16 backward), ``trace_rays``
-    packs K2's scene vector once and the packing's VJP runs once per
-    backward, while K2's plain version runs once per backward bounce; no
-    pack without a param that needs a gradient."""
-    _, ts = pair
+def _packs_per_trace_rays_call(ts, K):
+    """``trace_rays`` at depth 16 (17 bounces, 16 backward) on 8×8 demo
+    camera rays: no pack without a param that needs a gradient; with one,
+    one pack of the replay backward's scene vector, one VJP of the packing
+    and a plain replay backward call per backward bounce."""
     from ptx_torch.core import rng
     from ptx_torch.integrate.camera import Camera, sample_rays
 
     o, d = sample_rays(Camera.reference_demo(8, 8), rng.PRNGKey(0), range(8), range(8), 1,
                        "cpu")
-    K = bk.BounceBwdKernel
     before = (K.PACKS, K.PACK_VJPS, bk.BWD_REFERENCE_CALLS)
     with torch.no_grad():
         ttr.trace_rays(ts, ts.params, o, d, rng.PRNGKey(0), 16)
@@ -281,6 +279,24 @@ def test_pack_and_its_vjp_run_once_per_trace_rays_call(pair):
     assert (K.PACKS, K.PACK_VJPS, bk.BWD_REFERENCE_CALLS) == (
         before[0] + 1, before[1] + 1, before[2] + 16)
     assert float(p["sphere_radius"].grad.abs().sum()) > 0
+
+
+def test_pack_and_its_vjp_run_once_per_trace_rays_call(pair):
+    """On the demo (K2): :func:`_packs_per_trace_rays_call`."""
+    _packs_per_trace_rays_call(pair[1], bk.BounceBwdKernel)
+
+
+def test_k6_pack_and_its_vjp_run_once_per_trace_rays_call():
+    """On ``stress_spheres(25)`` (32 leaves: K6, ``RowFedReplayBwd``, with
+    its own counts): :func:`_packs_per_trace_rays_call`; K2 packs nothing."""
+    from ptx_torch.ops.replay_bwd import RowFedReplayBwd
+    from ptx_torch.scenes.builders import stress_spheres
+
+    ts = ttr.compile_scene(stress_spheres(25), "cpu")
+    assert type(ts.bounce_bwd_fn) is RowFedReplayBwd
+    k2 = (bk.BounceBwdKernel.PACKS, bk.BounceBwdKernel.PACK_VJPS)
+    _packs_per_trace_rays_call(ts, RowFedReplayBwd)
+    assert (bk.BounceBwdKernel.PACKS, bk.BounceBwdKernel.PACK_VJPS) == k2
 
 
 _SHIM = r'''

@@ -16,12 +16,15 @@ throughput, the decisions of the port's plain bounce, random cotangents:
   to a few 1e-2 there, and XLA contracts multiply-adds, so the two
   float32 results are compared through their error, by quantiles, as
   tests/test_replay_bwd.py gates the JAX kernel;
-- ``d_params`` of the wrapper's CPU path (autograd through
-  ``trace._bounce_replay``) and of K6's own mapping (autograd of
-  ``pack36`` applied to the plain per-leaf sums): per tensor, off the
-  float64 sums mapped to the params by at most twice the JAX kernel's
-  largest error plus 1e-4 of the tensor's largest entry (the sums are
-  dominated by the ill-conditioned lanes above).
+- ``d_params`` of the wrapper's CPU path (its ``d_packed``: the plain
+  per-leaf sums folded onto the materials, ``fold_packed``) mapped
+  through the packing's VJP (``params_grad``): per tensor, off the float64
+  fold mapped to the params by at most twice the JAX kernel's largest
+  error plus 1e-4 of the tensor's largest entry (the sums are dominated by
+  the ill-conditioned lanes above).
+
+The wrapper's call on the CPU gives ``d_packed``, the fold of the plain
+per-leaf sums, and runs the plain version once.
 """
 
 import numpy as np
@@ -97,16 +100,39 @@ def test_plain_k6_matches_the_tpu_kernel_interpreted(name):
 
     want_p = {k: np.asarray(v, np.float64) for k, v in want[3].items()
               if k in kern.scene.diff_keys}
-    cpu_p = kern(ts.params, o, d, thr, dec, *cts)[3]          # the wrapper's CPU path
-    pk, lv = kern.pack_leaves(ts.params)
-    k6_p = kern.params_grad(pk, lv, got[3])                    # K6's mapping, plain sums
+    d_packed = kern(packed, o, d, thr, dec, *cts)[3]          # the wrapper's CPU path
+    cpu_p = kern.params_grad(*kern.pack_leaves(ts.params), d_packed)
     p64 = {k: (v if isinstance(v, list) else v.double()) for k, v in ts.params.items()}
-    truth_p = kern.params_grad(*kern.pack_leaves(p64), truth[3])
+    truth_p = kern.params_grad(*kern.pack_leaves(p64), bk.fold_packed(
+        truth[3], kern.leaf_mat, kern.n_materials))
     for k, w in want_p.items():
         if not w.size:
             continue
         t = truth_p[k].numpy()
         tol = 2 * float(np.abs(w - t).max()) + 1e-4 * float(np.abs(t).max()) + 1e-7
-        for src in (cpu_p, k6_p):
-            err = float(np.abs(src[k].double().numpy() - t).max())
-            assert err <= tol, (k, err, tol)
+        err = float(np.abs(cpu_p[k].double().numpy() - t).max())
+        assert err <= tol, (k, err, tol)
+
+
+@pytest.mark.parametrize("name", ["spheres25", "gadgets12"])
+def test_k6_call_on_the_cpu_gives_the_packed_cotangent(name):
+    """K6's call on CPU tensors takes the scene vector and returns its
+    cotangent: the per-lane cotangents and the per-leaf sums folded onto
+    the materials (``fold_packed``) of ``bounce_bwd_lanes_reference``, bit
+    for bit, through one plain call and no launch; ``d_packed`` has the
+    vector's L·26 + M·8 words."""
+    _, ts = pair_for(name)
+    kern = ts.bounce_bwd_fn
+    assert kern.takes_packed
+    o, d, thr, dec, cts = _inputs(ts, seed=5)
+    packed = kern.pack(ts.params).detach()
+    assert packed.shape == (len(kern.leaves) * 26 + kern.n_materials * 8,)
+    before = (bk.BWD_REFERENCE_CALLS, RowFedReplayBwd.LAUNCHES, bk.BounceBwdKernel.LAUNCHES)
+    got = kern(packed, o, d, thr, dec, *cts)
+    assert (bk.BWD_REFERENCE_CALLS, RowFedReplayBwd.LAUNCHES,
+            bk.BounceBwdKernel.LAUNCHES) == (before[0] + 1, before[1], before[2])
+    ref = bk.bounce_bwd_lanes_reference(packed, kern.aux, o, d, thr, dec, *cts)
+    for g, w in zip(got[:3], ref[:3]):
+        assert torch.equal(g, w)
+    assert torch.equal(got[3], bk.fold_packed(ref[3], kern.leaf_mat, kern.n_materials))
+    assert got[3].shape == packed.shape and bool(got[3].abs().sum() > 0)
