@@ -106,13 +106,18 @@ bounce mode with shade and scatter; K6, the row-fed replay backward):
 S1 ``stress_spheres(249)`` (256 leaves), S2 ``stress_gadgets(112)`` (268
 leaves: lenses, bulbs, bites), S3 ``stress_spheres(249, transformed=True)``
 (the 32-column table), S4 S1 under the 1536×3072 probe (K5 + K6 + K8):
-D1. K5's and K6's registers and stack frame from nvcc's report;
+D1. the registers and stack frame of K1 and K4 (each leaf bucket of the
+    fold), K5 and K6 from nvcc's report;
 D2. S1-S3: K5 on every bounce of one compacted 65,536-ray chunk (every
     4th row of the frame, depth 16: widths 65,536 / 21,845 / 4,096)
     against its plain version (the sweep + the plain shading) as phase 3
-    holds K1, and cull on against cull off bit for bit; on S2 also K5's
-    hit mode against ``megasweep_reference`` on the primary rays; the
-    primary bounce's fixpoint passes per lane and active cull flags;
+    holds K1, and cull on against cull off bit for bit; on every bounce
+    K5's lane counters (fixpoint passes, active cull flags, the sizes of a
+    lane's coverage and row lists, the culled gadgets' rows) and its list
+    route against the recompute route (list capacities 0) and lists of
+    one, bit for bit; on S2 some lanes must read a culled gadget class's
+    live rows, and K5's hit mode is held against ``megasweep_reference``
+    on the primary rays;
 D3. S1, S2: every K6 call of that chunk's forward + backward against its
     plain versions as phase 5 holds K2; two launches the same bits;
 D4. S1, S2: gradients, kernel path vs plain path, as phase 6;
@@ -121,9 +126,11 @@ D5. 3 ``make_train_step`` steps each on S1-S4 at 512², spp 16, d16: K5 17
 D6. ``python -m ptx_torch render --scene scenes/composed.json`` (52 leaves,
     the spec's 512², spp 16, depth 8): K5 4 × 16 × 9 = 576 and the tile
     ordering in every ``trace_rays`` call;
-D7. S1, S2 at 65,536 lanes: K5 (wrapper, bare launch, plain), K6
-    (wrapper, bare launch, plain), and K6's bare launch at 4,194,304
-    lanes (a D5 step's widest backward), each beside its bound.
+D7. S1, S2 at 65,536 lanes: K5 (wrapper, bare launch back to back and
+    queued behind a device sleep, plain, the bound there and summed over
+    a train step's widths), K6 (wrapper, bare launch, plain), and K6's
+    bare launch at 4,194,304 lanes (a D5 step's widest backward), each
+    beside its bound.
 
 Path E, the union sweep's other modes (K9, the sweep-select kernel; the
 local membership fold; the candidate-blocked hit) on S1, S2 under
@@ -164,6 +171,8 @@ Then:
     a chunk's ~263 k emission records for K7, the probe's 4,194,304
     sky-select lanes for K8): the wrapper as the main path calls it and the
     plain version, each the median of 20 single calls between CUDA events;
+    for K1 and K4 also the bare launch queued behind a device sleep (the
+    card's time) and the bound summed over a train step's widths;
     for K2 also the once-per-call pack + VJP and a step's sum (16 wrappers
     and one pack + VJP) beside 16 times the per-bounce params route; for K3
     and K8 also the library calls ``index_put_(accumulate=True)`` and
@@ -578,9 +587,10 @@ def _time_queued_ms(fn, reps=20, warmup=3):
 
 
 def phase_timing(scene, inputs):
-    """K1 as the main path calls it (the wrapper: launch and flag decode)
-    against the plain bounce, both timed alike; the bare launch (no flag
-    decode) is reported beside them under its own name."""
+    """K1 as the main path calls it (the wrapper: checks, allocations, one
+    launch) against the plain bounce, both timed alike; the bare launch
+    back to back and queued behind a device sleep (the card's time), and
+    the bound at this width and summed over a train step's widths."""
     from ptx_torch.ops import bounce_kernel
 
     buf = scene.bounce_fn.pack(scene.params)     # once per trace_rays call
@@ -591,13 +601,25 @@ def phase_timing(scene, inputs):
     p1 = _time_ms(plain)
     w1, d1 = _time_ms(wrapped), _time_back_to_back_ms(raw)
     w2, d2 = _time_ms(wrapped), _time_back_to_back_ms(raw)
+    q = _time_queued_ms(raw)
     p2 = _time_ms(plain)
-    log(f"[10 timing] K1: one bounce at B={inputs[0].shape[0]}: K1 wrapper (launch "
-        f"+ flag decode, as the render calls it) {w1:.4f} / {w2:.4f} ms; plain "
-        f"PyTorch {p1:.4f} / {p2:.4f} ms (each the median of 20 single calls "
-        f"between CUDA events, 3 warm-up); K1 bare launch {d1:.4f} / "
-        f"{d2:.4f} ms (mean of 20 launches back to back)")
-    return min(w1, w2), min(p1, p2), min(d1, d2)
+    B, L = inputs[0].shape[0], scene.bounce_fn.layout[0]
+    bound, step = bound_k1(B, L), _step_bound(bound_k1, L)
+    log(f"[10 timing] K1: one bounce at B={B}: K1 wrapper (checks, allocations, one "
+        f"launch, as the render calls it) {w1:.4f} / {w2:.4f} ms; plain PyTorch {p1:.4f} / "
+        f"{p2:.4f} ms (each the median of 20 single calls between CUDA events, 3 warm-up); "
+        f"K1 bare launch {d1:.4f} / {d2:.4f} ms (mean of 20 launches back to back), queued "
+        f"behind a sleep (the card's time) {q:.4f} ms; bound {bound[0]:.4g} ms ({bound[1]}), "
+        f"summed over a train step's widths {step[0]:.4g} ms ({step[1]})")
+    return min(w1, w2), min(p1, p2), min(d1, d2), q
+
+
+def _step_bound(bound, *args):
+    """A kernel's bound summed over the widths a train step (512², spp 16,
+    depth 16: 4,194,304 rays) gives its 17 calls, and what bounds most of it."""
+    parts = [bound(w, *args) for w in _wavefront_widths(W * H * SPP, DEPTH)]
+    by = max(("bytes", "operations"), key=lambda k: sum(t for t, b in parts if b == k))
+    return sum(t for t, _ in parts), by
 
 
 # ---------------------------------------------------------------------------
@@ -1127,10 +1149,11 @@ def _bound(nbytes, ops):
 
 def bound_k1(B, L):
     """K1 at B lanes: reads o, d, thr, strength, alive, u_coin, u3 (57 B),
-    writes t, o2, d2, thr2, strength2, flags, evt, u_sel (64 B); operations
-    (estimate, every lane): ~25 per leaf interval, 2 compares per (event,
-    leaf) pair of the membership fold, ~250 for shading and the scatter."""
-    return _bound(121 * B, B * (25 * L + 4 * L * L + 250))
+    writes t, o2, d2, thr2, strength2, u_sel, evt (56 B), five decision
+    bytes and mat_id (int64); operations (estimate, every lane): ~25 per
+    leaf interval, 2 compares per (event, leaf) pair of the membership
+    fold, ~250 for shading and the scatter."""
+    return _bound(126 * B, B * (25 * L + 4 * L * L + 250))
 
 
 def bound_k2(B, continuing, sum_words):
@@ -1576,9 +1599,14 @@ def phase_timing_small(c4, k4_in, pe, k7_in, k8_in):
     k4 = lambda: c4.hit_fn(c4.params, o, d, packed=buf)
     k4p = lambda: c4.plain_hit_fn(c4.params, o, d)
     p1, w1, w2, p2 = _time_ms(k4p), _time_ms(k4), _time_ms(k4), _time_ms(k4p)
+    q = _time_queued_ms(lambda: c4.hit_fn.launch(buf, o, d))
+    L4 = c4.hit_fn.layout[0]
+    bound, step = bound_k4(o.shape[0], L4), _step_bound(bound_k4, L4)
     log(f"[10 timing] K4 at B={o.shape[0]} (wrapper: launch + decode) {w1:.4f} / "
-        f"{w2:.4f} ms; plain dense hit {p1:.4f} / {p2:.4f} ms")
-    k4_t = (min(w1, w2), min(p1, p2), bound_k4(o.shape[0], c4.hit_fn.layout[0]))
+        f"{w2:.4f} ms; bare launch queued behind a sleep (the card's time) {q:.4f} ms; "
+        f"plain dense hit {p1:.4f} / {p2:.4f} ms; bound {bound[0]:.4g} ms ({bound[1]}), "
+        f"summed over a train step's widths {step[0]:.4g} ms ({step[1]})")
+    k4_t = (min(w1, w2), min(p1, p2), bound)
 
     pos, mid = k7_in
     kern = pe.emission_fn
@@ -1664,18 +1692,30 @@ def _large_scenes():
 
 
 def phase_build_report():
-    """D1: registers and stack frame of K5 and K6, from nvcc's report."""
+    """D1: registers and stack frame of K1, K4, K5 and K6 (every
+    instantiation of a templated kernel), from nvcc's report."""
     from ptx_torch.ops import _build
 
     lines = _build.BUILD_LOG.splitlines()
-    out = []
-    for kname in ("megasweep_kernel", "replay_bwd_kernel"):
-        # the mangled entry name, length-prefixed: not the file's name in it
-        i = next(j for j, ln in enumerate(lines)
-                 if "Compiling entry function" in ln and f"{len(kname)}{kname}E" in ln)
-        report = " ".join(ln.strip() for ln in lines[i + 1:i + 4])
-        out.append(f"{kname}: {report}")
+    out, frames = [], {}
+    for label, kname in (("K1", "bounce_forward_kernel"), ("K4", "first_hit_kernel"),
+                         ("K5", "megasweep_kernel"), ("K6", "replay_bwd_kernel")):
+        # the mangled entry name, length-prefixed (then E, or I for a
+        # template's arguments): not the file's name in it
+        tag = f"{len(kname)}{kname}"
+        found = [i for i, ln in enumerate(lines) if "Compiling entry function" in ln
+                 and (f"{tag}E" in ln or f"{tag}I" in ln)]
+        if not found:
+            raise AssertionError(f"D1: no ptxas report for {kname}")
+        for i in found:
+            report = " ".join(ln.strip() for ln in lines[i + 1:i + 4])
+            frame = int(report.split(" bytes stack frame")[0].split()[-1])
+            frames[label] = max(frames.get(label, 0), frame)
+            name = lines[i].split("'")[1]
+            out.append(f"{label} {name[name.index(tag) + len(tag):][:12]}: {report}")
     log("[D1 build] " + " | ".join(out))
+    log(f"[D1 build] largest stack frame per kernel (bytes): {frames}")
+    return frames
 
 
 def _full_frame_chunk(scene, key):
@@ -1692,10 +1732,13 @@ def phase_k5_chunk(scene, tag, hit_check=False):
     chunk (full-frame rows, depth 16), recorded as ``trace_rays`` gives
     them (widths 65,536, 21,845, 4,096, fillers included): against its
     plain version (the sweep + the plain shading, ``bounce_reference``)
-    as phase 3 holds K1, and cull on against cull off bit for bit.  With
-    ``hit_check``, K5 in hit mode against ``megasweep_reference`` on the
-    primary rays.  Returns (flips, max_abs_err, the first bounce's inputs,
-    the fixpoint passes and active cull flags of the primary bounce)."""
+    as phase 3 holds K1, and cull on against cull off bit for bit; on every
+    bounce K5's lane counters (:func:`_k5_stats`) and its list route
+    against the recompute route (list capacities 0) and lists of one, bit
+    for bit.  With ``hit_check``, K5 in hit mode against
+    ``megasweep_reference`` on the primary rays.  Returns (flips,
+    max_abs_err, the first bounce's inputs, the lanes that read a culled
+    gadget's live rows)."""
     import torch
     from ptx_torch.core import rng
     from ptx_torch.integrate.trace import trace_rays
@@ -1724,14 +1767,27 @@ def phase_k5_chunk(scene, tag, hit_check=False):
         flips, err = flips + f, max(err, e)
         log(f"[{tag}] bounce {b}: B={widths[b]} alive={int(inputs[4].sum())} "
             f"hit={int(out_k['hit'].sum())} flips={f} max_abs_err={e:.3g}; cull on == off")
-    inputs = rec[0][0]
-    raw = scene.bounce_fn.kernel.launch(packed, *inputs[:2], carry=inputs[2:7],
-                                        in_depth=True, stats=True)
-    stats = raw["stats"].float()
     lay = scene.plain_hit_fn.layout
-    log(f"[{tag}] primary bounce: fixpoint passes per lane mean {float(stats[:, 0].mean()):.3f} "
-        f"max {int(stats[:, 0].max())}; cull flags active per warp mean "
-        f"{float(stats[:, 1].mean()):.3f} of {lay.n_flags}")
+    kern = scene.bounce_fn.kernel
+    culled = 0
+    for b, (inputs, out_k) in enumerate(rec):
+        raw = kern.launch(packed, *inputs[:2], carry=inputs[2:7], in_depth=inputs[7],
+                          stats=True)
+        log(f"[{tag}] bounce {b} stats: " + _k5_stats(raw["stats"], lay))
+        culled += int((raw["stats"][:, 4] > 0).sum())
+        # the recompute route (every lane past its capacities) and a list of one
+        for caps in ((0, 0), (1, 1)):
+            got = kern.launch(packed, *inputs[:2], carry=inputs[2:7], in_depth=inputs[7],
+                              caps=caps, stats=True)
+            over = int(((got["stats"][:, 5] & 6) != 0).sum())
+            if not all(torch.equal(out_k[k], got[k]) for k in out_k):
+                raise AssertionError(f"{tag}: bounce {b}: list capacities {caps} differ from "
+                                     "the list route")
+            if caps == (0, 0) and over != inputs[0].shape[0]:
+                raise AssertionError(f"{tag}: bounce {b}: capacity 0 left lanes on the list")
+    log(f"[{tag}] every bounce: the recompute route (capacities 0) and lists of one equal to "
+        f"the list route bit for bit; lanes with culled gadgets' live rows {culled}")
+    inputs = rec[0][0]
     if hit_check:
         hk = scene.hit_fn(scene.params, *inputs[:2])
         with torch.no_grad():
@@ -1740,7 +1796,30 @@ def phase_k5_chunk(scene, tag, hit_check=False):
         flips, err = flips + f, max(err, e)
         log(f"[{tag}] K5 hit mode vs megasweep_reference on the primary rays: "
             f"hit={int(hk['hit'].sum())} flips={f} max_abs_err={e:.3g}")
-    return flips, err, inputs, stats
+    return flips, err, inputs, culled
+
+
+def _k5_stats(stats, lay):
+    """One line of K5's per-lane counters (``MegaSweepKernel.launch``
+    with ``stats``): fixpoint passes, active cull flags a warp, the sizes
+    of a lane's lists (coverage intervals, rows; counted past their
+    capacities), the culled gadgets' member rows pass 1 evaluates, and the
+    lanes past each capacity (the recompute route), as mean and
+    quantiles."""
+    import torch
+
+    st = stats.float()
+    q = torch.tensor([0.5, 0.9, 0.99, 0.999, 1.0], device=st.device)
+    qs = lambda c: "/".join(f"{v:g}" for v in torch.quantile(st[:, c], q).tolist())
+    passes = torch.bincount(stats[:, 0].long(), minlength=4)[:4].tolist()
+    bits = stats[:, 5]
+    return (f"lanes {st.shape[0]}, hit {int((bits & 1).sum())}; fixpoint passes 0/1/2/3 "
+            f"{passes}, max {int(st[:, 0].max())}; active cull flags a warp mean "
+            f"{float(st[:, 1].mean()):.3f} of {lay.n_flags} ({lay.n_s_clusters} row clusters); "
+            f"coverage list mean {float(st[:, 2].mean()):.3f} p50/p90/p99/p99.9/max {qs(2)}; "
+            f"row list mean {float(st[:, 3].mean()):.3f} {qs(3)}; culled-gadget rows mean "
+            f"{float(st[:, 4].mean()):.3f} max {int(st[:, 4].max())}; lanes past the "
+            f"capacities {int(((bits >> 1) & 1).sum())} / {int(((bits >> 2) & 1).sum())}")
 
 
 def phase_k6_chunk(scene, tag):
@@ -1825,10 +1904,10 @@ def phase_render_scene(tag, kernel="K5"):
 
 def bound_k5(B, n_rows):
     """K5 in bounce mode at B lanes: reads o, d, thr, strength, alive,
-    u_coin, u3 (57 B), writes t, o2, d2, thr2, strength2, flags, evt, mat,
-    u_sel (68 B); operations: one unculled pass of interval arithmetic,
-    ~25 per (row, ray)."""
-    return _bound(125 * B, 25 * n_rows * B)
+    u_coin, u3 (57 B), writes t, o2, d2, thr2, strength2, u_sel, evt
+    (56 B), five decision bytes and mat_id (int64); operations: one
+    unculled pass of interval arithmetic, ~25 per (row, ray)."""
+    return _bound(126 * B, 25 * n_rows * B)
 
 
 def phase_timing_large(scene, tag, k5_in, k6_in, k6_wide):
@@ -1848,12 +1927,16 @@ def phase_timing_large(scene, tag, k5_in, k6_in, k6_wide):
                                                 in_depth=True)
     p1, w1, w2, p2 = _time_ms(k5p), _time_ms(k5), _time_ms(k5), _time_ms(k5p)
     b1, b2 = _time_back_to_back_ms(k5b), _time_back_to_back_ms(k5b)
+    bq = _time_queued_ms(k5b)
     B = inputs[0].shape[0]
     lay = scene.plain_hit_fn.layout
     k5_bound = bound_k5(B, lay.ns + lay.npl)
+    step = _step_bound(bound_k5, lay.ns + lay.npl)
     log(f"[{tag}] K5 bounce mode at B={B} (L={lay.L}, {lay.ns + lay.npl} rows): wrapper "
         f"{w1:.4f} / {w2:.4f} ms; bare launch {b1:.4f} / {b2:.4f} ms (mean of 20 back to "
-        f"back); plain {p1:.4f} / {p2:.4f} ms; bound {k5_bound[0]:.4g} ms ({k5_bound[1]})")
+        f"back), queued behind a sleep (the card's time) {bq:.4f} ms; plain {p1:.4f} / "
+        f"{p2:.4f} ms; bound {k5_bound[0]:.4g} ms ({k5_bound[1]}), summed over a train "
+        f"step's widths {step[0]:.4g} ms ({step[1]})")
     kern = scene.bounce_bwd_fn
     o, d, thr, dec, cts = k6_in
     vec = kern.pack(scene.params).detach()
@@ -1892,7 +1975,7 @@ def phase_timing_large(scene, tag, k5_in, k6_in, k6_wide):
         f"per-bounce params route (launch + pack + VJP) {r1:.4f} / {r2:.4f} ms; a step's "
         f"{DEPTH} backward bounces: {DEPTH} wrappers + one pack + VJP {step_new:.4f} ms, "
         f"{DEPTH} x the per-bounce params route {step_old:.4f} ms")
-    return ((min(w1, w2), min(p1, p2), k5_bound, min(b1, b2)),
+    return ((min(w1, w2), min(p1, p2), k5_bound, min(b1, b2), bq),
             (min(v1, v2), min(q1, q2), k6_bound, min(c1, c2), min(u1, u2), step_new,
              step_old))
 
@@ -2214,9 +2297,11 @@ def main():
     for nm, make in _large_scenes().items():
         sc = compile_scene(make(), dev)
         if nm != "S4":
-            f, e, k5_in[nm], _ = _timed(f"D2 {nm} K5 chunk", phase_k5_chunk, sc,
-                                        f"D2 {nm} K5 vs plain", nm == "S2")
+            f, e, k5_in[nm], culled = _timed(f"D2 {nm} K5 chunk", phase_k5_chunk, sc,
+                                             f"D2 {nm} K5 vs plain", nm == "S2")
             flipsD, err5 = flipsD + f, max(err5, e)
+            if nm == "S2" and not culled:
+                raise AssertionError("D2 S2: no lane read a culled gadget's live rows")
         if nm in ("S1", "S2"):
             e, k6_in[nm] = _timed(f"D3 {nm} K6 chunk", phase_k6_chunk, sc, f"D3 {nm} K6 vs plain")
             err6 = max(err6, e)
@@ -2231,7 +2316,7 @@ def main():
     timeD = {nm: _timed(f"D7 {nm} timing", phase_timing_large, large[nm], f"D7 {nm} timing",
                         k5_in[nm], k6_in[nm], trainD["S1"][3] if nm == "S1" else None)
              for nm in ("S1", "S2")}
-    (k5_ms, k5p_ms, k5_bound, _), (k6_ms, k6p_ms, k6_bound, _, k6_pack_ms, k6_step,
+    (k5_ms, k5p_ms, k5_bound, _, _), (k6_ms, k6p_ms, k6_bound, _, k6_pack_ms, k6_step,
                                    k6_step_old) = timeD["S1"]
     del large, k5_in, k6_in
 
@@ -2240,7 +2325,7 @@ def main():
     k9_ms, k9p_ms, k9_bound, _, _, _ = timeE["S1"]
 
     fb_rays, f_rays = _timed("9 fwd+bwd", phase_fwd_bwd, scene)
-    w_ms, p_ms, dev_ms = _timed("10 K1 timing", phase_timing, scene, inputs)
+    w_ms, p_ms, dev_ms, _ = _timed("10 K1 timing", phase_timing, scene, inputs)
     k2_ms, k2p_ms, k2_bound, k2_pack_ms, k2_step, k2_step_old = _timed(
         "10 K2 timing", phase_timing_backward, scene, k2_in)
     time3 = _timed("10 K3 timing", phase_timing_k3,

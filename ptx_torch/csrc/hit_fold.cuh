@@ -1,9 +1,9 @@
 // The CSG first-hit fold shared by the fused bounce kernel K1
-// (bounce_kernel.cu) and the hit-only kernel K4 (fasthit_kernel.cu): one
-// copy of the leaf intervals, the 64-bit after/before masks, the postfix
-// tape and the first-minimum scan in event order, run by one thread per ray.
-// It is the port of ptx/ops/fasthit_kernel.py hit_fold (:173); its plain
-// PyTorch version is ptx_torch/geom/fasthit.py compile_fast_hit.
+// (bounce_kernel.cu) and the hit-only kernel K4 (fasthit_kernel.cu): the
+// leaf intervals, the after/before masks, the postfix tape and the
+// first-minimum scan in event order, run by one thread per ray.  It is the
+// port of ptx/ops/fasthit_kernel.py hit_fold (:173); its plain PyTorch
+// version is ptx_torch/geom/fasthit.py compile_fast_hit.
 //
 // The scene is one float32 buffer in shared memory (ptx_torch/ops/
 // fasthit_kernel.py pack_geometry): L leaf records of 5 words (kind 0 sphere
@@ -14,21 +14,47 @@
 // -3 difference).
 //
 // - Candidates: leaf k's start time is event k, its end time event L + k.
-//   For each leaf the two 64-bit masks after_k / before_k hold, for every
-//   event i, whether t_i lies in [t0_k, t1_k) / (t0_k, t1_k].  The postfix
-//   tape runs once over those masks (|, &, & ~), giving root membership just
-//   after / before every event at once; the root's boundaries are the events
-//   where the two differ, kept when t_i >= EPS.
+//   For each leaf the masks after_k / before_k hold, for every event i,
+//   whether t_i lies in [t0_k, t1_k) / (t0_k, t1_k].  The postfix tape runs
+//   once over those masks (|, &, & ~), giving root membership just after /
+//   before every event at once; the root's boundaries are the events where
+//   the two differ, kept when t_i >= EPS.
 // - The first hit is the minimum candidate, scanned in event order with a
 //   strict <, so the first of equal times wins: the leaf order of
 //   fasthit.collect_leaves is the coincident-boundary tie-break the demo
 //   needs (its diffuse sphere and emissive core coincide).
+// - Nothing is indexed at run time in local memory.  The fold is a
+//   template on a leaf bucket LB (8, 16 or 24 leaves: 32-bit masks up to
+//   16, 64-bit above); its loops are unrolled to LB with the run-time L as a
+//   uniform guard, so the intervals and masks sit in registers.  Inside the
+//   bucket, leaf k's start is bit k and its end bit LB + k; the scan reports
+//   the event numbering above.  The tape pushes its leaves in descending
+//   order (collect_leaves reverses the tape's depth-first order; the
+//   wrapper checks it), so leaf k's masks are built right where the walk
+//   pushes them, and the stack below its top lives in the caller's columns
+//   (shared memory on the card, [slot][thread]).  A leaf the ray misses
+//   (t0 = t1 = PAD) is in no event's membership, so its masks are skipped.
 // - Every expression follows the plain version's operation order; the
-//   sources are built with -fmad=false, so each operation rounds once.
+//   sources are built with -fmad=false (the host build with
+//   -ffp-contract=off), so each operation rounds once.
+// - The header has no CUDA-only construct: without nvcc it compiles as
+//   plain C++ (PTX_HD becomes `inline`), so the CPU tests build it with the
+//   host compiler and hold it against the plain fold.
 
 #pragma once
 
 #include <stdint.h>
+
+#include <type_traits>
+
+#ifndef PTX_HD
+#ifdef __CUDACC__
+#define PTX_HD __host__ __device__ __forceinline__
+#else
+#include <math.h>
+#define PTX_HD inline
+#endif
+#endif
 
 namespace ptx_hit {
 
@@ -37,14 +63,13 @@ constexpr float kEps2 = 1e-6f;              // EPS * EPS
 constexpr float kMaxValue = 1e20f;
 constexpr float kPadT = 3e20f;              // "no boundary"
 constexpr int kMaxLeaves = 24;              // 2L events fit one 64-bit mask
-constexpr int kMaxStack = 32;               // _MAX_STACK in fasthit_kernel.py
 constexpr int kLeafStride = 5;              // kind, geo offset, has_xform, material, parity
 
 struct Vec3 {
   float x, y, z;
 };
 
-__device__ __forceinline__ float dot3(Vec3 a, Vec3 b) {
+PTX_HD float dot3(Vec3 a, Vec3 b) {
   return a.x * b.x + a.y * b.y + a.z * b.z;
 }
 
@@ -53,7 +78,7 @@ struct LeafRay {
   Vec3 o, d;
 };
 
-__device__ __forceinline__ LeafRay leaf_ray(const float* s, int geo, int kind,
+PTX_HD LeafRay leaf_ray(const float* s, int geo, int kind,
                                             bool xf, Vec3 o, Vec3 d) {
   if (!xf) return {o, d};
   const float* w = s + geo + (kind == 0 ? 4 : 5);   // W^-1, 3x4 row-major
@@ -68,7 +93,7 @@ __device__ __forceinline__ LeafRay leaf_ray(const float* s, int geo, int kind,
 }
 
 // fasthit._leaf_intervals for one leaf: (t0, t1), kPadT on a miss.
-__device__ __forceinline__ void leaf_interval(const float* s, int geo, int kind,
+PTX_HD void leaf_interval(const float* s, int geo, int kind,
                                               LeafRay r, float& t0, float& t1) {
   const float* g = s + geo;
   if (kind == 0) {
@@ -100,7 +125,7 @@ __device__ __forceinline__ void leaf_interval(const float* s, int geo, int kind,
 }
 
 // Unsigned boundary normal of a leaf at t (world space).
-__device__ __forceinline__ Vec3 leaf_normal(const float* s, int geo, int kind,
+PTX_HD Vec3 leaf_normal(const float* s, int geo, int kind,
                                             bool xf, LeafRay r, float t) {
   const float* g = s + geo;
   Vec3 n;
@@ -136,68 +161,110 @@ struct FirstHit {
   Vec3 normal;
 };
 
-__device__ __forceinline__ FirstHit first_hit(const float* s, int L, int tape_off,
-                                              int tape_len, Vec3 o, Vec3 d) {
-  float t0[kMaxLeaves], t1[kMaxLeaves];
-  for (int k = 0; k < L; ++k) {
-    const float* rec = s + kLeafStride * k;
-    int kind = (int)rec[0], geo = (int)rec[1];
-    LeafRay r = leaf_ray(s, geo, kind, rec[2] != 0.f, o, d);
-    leaf_interval(s, geo, kind, r, t0[k], t1[k]);
+// The masks of a leaf bucket: one bit per event of LB leaves.
+template <int LB>
+using Mask = typename std::conditional<(LB <= 16), uint32_t, uint64_t>::type;
+
+// The tape's stack below its top: slot k of a thread's two columns.
+template <class M>
+struct Stack {
+  M* a;
+  M* b;
+  int stride;
+};
+
+// The after / before masks of leaf k (its t0k, t1k) over the L events.
+template <int LB>
+PTX_HD void leaf_masks(const float (&t0)[LB], const float (&t1)[LB], float t0k, float t1k,
+                       int L, Mask<LB>& ma, Mask<LB>& mb) {
+  using M = Mask<LB>;
+  ma = mb = 0;
+#pragma unroll
+  for (int i = 0; i < LB; ++i) {
+    if (i < L) {
+      const float ts = t0[i], te = t1[i];
+      if (t0k <= ts && ts < t1k) ma |= M(1) << i;
+      if (t0k < ts && ts <= t1k) mb |= M(1) << i;
+      if (t0k <= te && te < t1k) ma |= M(1) << (LB + i);
+      if (t0k < te && te <= t1k) mb |= M(1) << (LB + i);
+    }
+  }
+}
+
+template <int LB>
+PTX_HD FirstHit first_hit(const float* s, int L, int tape_off, int tape_len, Vec3 o,
+                          Vec3 d, Stack<Mask<LB>> st) {
+  using M = Mask<LB>;
+  float t0[LB], t1[LB];
+  M ge_eps = 0;
+#pragma unroll
+  for (int k = 0; k < LB; ++k) {
+    t0[k] = t1[k] = kPadT;
+    if (k < L) {
+      const float* rec = s + kLeafStride * k;
+      const int kind = (int)rec[0], geo = (int)rec[1];
+      const LeafRay r = leaf_ray(s, geo, kind, rec[2] != 0.f, o, d);
+      leaf_interval(s, geo, kind, r, t0[k], t1[k]);
+      if (t0[k] >= kEps) ge_eps |= M(1) << k;
+      if (t1[k] >= kEps) ge_eps |= M(1) << (LB + k);
+    }
   }
 
-  const int n_ev = 2 * L;
-  uint64_t after[kMaxLeaves], before[kMaxLeaves];
-  for (int k = 0; k < L; ++k) after[k] = before[k] = 0;
-  uint64_t ge_eps = 0;
-  for (int i = 0; i < n_ev; ++i) {
-    const float ti = i < L ? t0[i] : t1[i - L];
-    const uint64_t bit = 1ull << i;
-    if (ti >= kEps) ge_eps |= bit;
-    for (int k = 0; k < L; ++k) {
-      if (t0[k] <= ti && ti < t1[k]) after[k] |= bit;
-      if (t0[k] < ti && ti <= t1[k]) before[k] |= bit;
+  // the tape: leaf L - 1 first, each leaf's masks built where it is pushed
+  int p = 0, sp = 0;
+  M ta = 0, tb = 0;                              // the stack's top
+#pragma unroll
+  for (int j = 0; j < LB; ++j) {
+    const int k = LB - 1 - j;
+    if (k < L) {
+      if (p > 0) {
+        st.a[sp * st.stride] = ta;
+        st.b[sp * st.stride] = tb;
+        ++sp;
+      }
+      ta = tb = 0;                               // a missed leaf is empty
+      if (t0[k] != kPadT) leaf_masks<LB>(t0, t1, t0[k], t1[k], L, ta, tb);
+      for (++p; p < tape_len; ++p) {
+        const int op = (int)s[tape_off + p];
+        if (op >= 0) break;
+        --sp;
+        const M a = st.a[sp * st.stride], b = st.b[sp * st.stride];
+        if (op == -1) {
+          ta = a | ta;
+          tb = b | tb;
+        } else if (op == -2) {
+          ta = a & ta;
+          tb = b & tb;
+        } else {
+          ta = a & ~ta;
+          tb = b & ~tb;
+        }
+      }
     }
   }
-
-  uint64_t st_a[kMaxStack], st_b[kMaxStack];
-  int sp = 0;
-  for (int p = 0; p < tape_len; ++p) {
-    const int op = (int)s[tape_off + p];
-    if (op >= 0) {
-      st_a[sp] = after[op];
-      st_b[sp] = before[op];
-      ++sp;
-      continue;
-    }
-    --sp;
-    if (op == -1) {
-      st_a[sp - 1] |= st_a[sp];
-      st_b[sp - 1] |= st_b[sp];
-    } else if (op == -2) {
-      st_a[sp - 1] &= st_a[sp];
-      st_b[sp - 1] &= st_b[sp];
-    } else {
-      st_a[sp - 1] &= ~st_a[sp];
-      st_b[sp - 1] &= ~st_b[sp];
-    }
-  }
-  const uint64_t root_after = st_a[0];
-  const uint64_t cand = (root_after ^ st_b[0]) & ge_eps;
+  const M cand = (ta ^ tb) & ge_eps;
 
   FirstHit h;
   h.t = kPadT;
   h.event = 0;
   h.entering = false;
-  for (uint64_t m = cand; m; m &= m - 1) {
-    const int i = __ffsll((long long)m) - 1;
-    const float ti = i < L ? t0[i] : t1[i - L];
-    if (ti < h.t) {
-      h.t = ti;
+#pragma unroll
+  for (int i = 0; i < LB; ++i) {
+    if (i < L && ((cand >> i) & 1) && t0[i] < h.t) {
+      h.t = t0[i];
       h.event = i;
-      h.entering = (root_after >> i) & 1;
+      h.entering = (ta >> i) & 1;
     }
   }
+#pragma unroll
+  for (int i = 0; i < LB; ++i) {
+    if (i < L && ((cand >> (LB + i)) & 1) && t1[i] < h.t) {
+      h.t = t1[i];
+      h.event = L + i;
+      h.entering = (ta >> (LB + i)) & 1;
+    }
+  }
+  if (cand == 0) h.entering = ta & 1;            // event 0's, as the plain argmin takes
   h.hit = cand != 0 && !(h.t >= kMaxValue);
   h.leaf = h.event >= L ? h.event - L : h.event;
 
@@ -209,5 +276,8 @@ __device__ __forceinline__ FirstHit first_hit(const float* s, int L, int tape_of
   h.normal = {n.x * sign, n.y * sign, n.z * sign};
   return h;
 }
+
+// The leaf bucket of L leaves (the fold's template argument).
+inline int leaf_bucket(int L) { return L <= 8 ? 8 : (L <= 16 ? 16 : 24); }
 
 }  // namespace ptx_hit

@@ -705,13 +705,9 @@ class MegaBounce:
                                     u3, in_depth)
         if o.device.type != "cuda":
             raise ValueError(f"megasweep kernel: no kernel for {o.device}")
-        raw = self.kernel.launch(self.pack(params) if packed is None else packed, o, d,
-                                 carry=(thr, strength, alive, u_coin, u3),
-                                 in_depth=in_depth, cull=cull)
-        fl = raw.pop("flags")
-        bit = lambda k: ((fl >> k) & 1).to(torch.bool)
-        return dict(raw, hit=bit(0), entering=bit(1), take_transmit=bit(2),
-                    scatter_alive=bit(3), alive2=bit(4), mat_id=raw.pop("mat").to(torch.int64))
+        return self.kernel.launch(self.pack(params) if packed is None else packed, o, d,
+                                  carry=(thr, strength, alive, u_coin, u3),
+                                  in_depth=in_depth, cull=cull)
 
 
 def compile_mega_bounce(scene):

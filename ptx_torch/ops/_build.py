@@ -54,27 +54,28 @@ def _entry_points():
                   + [vp, vp, i, vp, vp])   # mat_start mat_leaves M, d_packed, stream
     return [
         ("ptx_bounce_forward",
-         [vp, i, i, i, i, i]            # scene buffer, words, layout
+         [vp, i, i, i, i, i, i]         # scene buffer, words, layout, stack slots
          + [vp] * 7 + [i, i]            # inputs, in_depth, B
-         + [vp] * 8 + [vp], i),         # outputs, stream
+         + [vp] * 13 + [vp], i),        # outputs, stream
         ("ptx_bounce_backward_smem", [i, i], i),
         ("ptx_bounce_backward", replay_bwd, i),
         ("ptx_image_hist", [vp] * 4 + [i] * 4 + [vp, i, i, vp], i),   # out, private, blocks
         ("ptx_image_hist_atomic", [vp] * 4 + [i] * 4 + [vp, vp], i),
         ("ptx_first_hit",
-         [vp, i, i, i, i, vp, vp, i]      # scene buffer, words, layout, o, d, B
+         [vp, i, i, i, i, i, vp, vp, i]   # scene buffer, words, layout, stack slots, o, d, B
          + [vp] * 4 + [vp], i),           # t normal flags evt, stream
         ("ptx_emission_forward",
          [vp, vp, i, vp, i, i, i]         # params, const rows, M, image, H, W, C
          + [vp, vp, i, i, i, i]           # pos, mid, N, dyn material, xform, mirror
          + [vp] * 6 + [vp], i),           # em texel xi yi flags row, stream
-        ("ptx_megasweep_smem", [i, i, i], i),
+        ("ptx_megasweep_smem", [i] * 9, i),
         ("ptx_megasweep",
          [vp, i, vp, i]                   # scene floats, words, int table, words
-         + [i] * 11                       # L Lp ns n_rows tw n_flags offsets classes cull
+         + [i] * 15                       # L Lp ns n_rows tw n_flags offsets classes cull,
+                                          # list capacities, gadget scratch columns
          + [vp, vp, i]                    # o, d, B
          + [vp] * 5 + [i]                 # bounce-mode carry (or null), in_depth
-         + [vp] * 11 + [vp], i),          # outputs (null where unused), stream
+         + [vp] * 17 + [vp], i),          # outputs (null where unused), stream
         ("ptx_replay_bwd_smem", [i, i], i),
         ("ptx_replay_bwd", replay_bwd, i),
         ("ptx_sweep_select_smem", [i, i], i),

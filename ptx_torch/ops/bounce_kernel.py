@@ -36,7 +36,7 @@ from ptx_torch.core import linalg
 from ptx_torch.geom import hitreplay
 from ptx_torch.geom.fasthit import collect_leaves
 from ptx_torch.integrate import trace
-from ptx_torch.ops.fasthit_kernel import MAX_SCENE_BYTES, pack_geometry
+from ptx_torch.ops.fasthit_kernel import MAX_SCENE_BYTES, pack_geometry, stack_below_top
 from ptx_torch.shade.materials import mean3
 
 LAUNCHES = 0
@@ -120,9 +120,7 @@ class BounceKernel:
     def __init__(self, scene):
         self.scene = scene
         self.layout = pack_scene(scene.plan, scene.material_fn, scene.params)[1]
-        self.leaf_mat = torch.tensor(
-            [lf.mat_id for lf, _ in collect_leaves(scene.plan)],
-            dtype=torch.int64, device=scene.device)
+        self.n_stk = stack_below_top(scene.plan)
 
     def pack(self, params):
         """The kernel's scene buffer from ``params`` (no autograd)."""
@@ -140,21 +138,13 @@ class BounceKernel:
             raise ValueError(f"bounce kernel: no kernel for {o.device}")
         if packed is None:
             packed = self.pack(params)
-        raw = self.launch(packed, o, d, thr, strength, alive, u_coin, u3, in_depth)
-        flags, evt = raw.pop("flags"), raw["evt"]
-        L = self.layout[0]
-        leaf = torch.where(evt >= L, evt - L, evt).to(torch.int64)
-        bit = lambda k: ((flags >> k) & 1).to(torch.bool)
-        hit = bit(0)
-        return dict(raw, hit=hit, entering=bit(1), take_transmit=bit(2),
-                    scatter_alive=bit(3), alive2=bit(4),
-                    mat_id=torch.where(hit, self.leaf_mat[leaf], 0))
+        return self.launch(packed, o, d, thr, strength, alive, u_coin, u3, in_depth)
 
     def launch(self, buf, o, d, thr, strength, alive, u_coin, u3, in_depth):
-        """One kernel launch on the current stream, no synchronisation:
-        the raw outputs ``t, o2, d2, thr2, strength2, u_sel``, ``evt``
-        (int32) and ``flags`` (int32 bits: hit, entering, take_transmit,
-        scatter_alive, alive2)."""
+        """One kernel launch on the current stream, no synchronisation: the
+        fused bounce's dict, ``t, o2, d2, thr2, strength2, u_sel``, ``hit,
+        entering, take_transmit, scatter_alive, alive2`` (bool), ``evt``
+        (int32) and ``mat_id`` (int64), all written by the kernel."""
         global LAUNCHES
         B = o.shape[0]
         device = buf.device
@@ -172,21 +162,24 @@ class BounceKernel:
         lib = _build.library()
         empty = lambda *s, dtype=torch.float32: torch.empty(
             s, dtype=dtype, device=device)
-        t, st2 = empty(B), empty(B)
-        o2, d2, thr2, u_sel = empty(B, 3), empty(B, 3), empty(B, 3), empty(B, 3)
-        flags, evt = empty(B, dtype=torch.int32), empty(B, dtype=torch.int32)
+        out = {"t": empty(B), "o2": empty(B, 3), "d2": empty(B, 3), "thr2": empty(B, 3),
+               "strength2": empty(B)}
+        out.update((k, empty(B, dtype=torch.bool)) for k in _BITS)
+        out.update(evt=empty(B, dtype=torch.int32), mat_id=empty(B, dtype=torch.int64),
+                   u_sel=empty(B, 3))
         L, mat_off, tape_off, tape_len = self.layout
         p = _ptr
         err = lib.ptx_bounce_forward(
-            p(buf), buf.numel(), L, mat_off, tape_off, tape_len,
+            p(buf), buf.numel(), L, mat_off, tape_off, tape_len, self.n_stk,
             p(o), p(d), p(thr), p(strength), p(alive), p(u_coin), p(u3),
-            int(bool(in_depth)), B,
-            p(t), p(o2), p(d2), p(thr2), p(st2), p(flags), p(evt), p(u_sel),
-            _stream(device))
+            int(bool(in_depth)), B, *(p(x) for x in out.values()), _stream(device))
         _raise_on(err, lib, "bounce kernel")
         LAUNCHES += 1
-        return {"t": t, "o2": o2, "d2": d2, "thr2": thr2, "strength2": st2,
-                "u_sel": u_sel, "evt": evt, "flags": flags}
+        return out
+
+
+# the fused bounce's decision outputs, in the kernel's output order
+_BITS = ("hit", "entering", "take_transmit", "scatter_alive", "alive2")
 
 
 def bounce_reference(scene, params, o, d, thr, strength, alive, u_coin, u3,

@@ -35,7 +35,7 @@ REFERENCE_CALLS = 0
 # scene buffer layout — must match ptx_torch/csrc/hit_fold.cuh
 LEAF_STRIDE = 5      # kind (0 sphere, 1 plane), geo offset, has_xform, material, parity
 _OP_UNION, _OP_INTERSECTION, _OP_DIFFERENCE = -1, -2, -3
-_MAX_STACK = 32      # kMaxStack in the kernel
+_MAX_STACK = 32      # the tape's deepest stack (shared-memory columns in the kernels)
 MAX_SCENE_BYTES = 48 * 1024   # dynamic shared memory without opt-in
 
 
@@ -67,6 +67,20 @@ def _stack_depth(prog) -> int:
         depth += 1 if op >= 0 else -1
         peak = max(peak, depth)
     return peak
+
+
+def stack_below_top(plan) -> int:
+    """The stack slots below the top that the kernels' fold
+    (``csrc/hit_fold.cuh`` ``first_hit``) keeps for ``plan``'s tape.  The
+    fold builds each leaf's masks where the tape pushes it, walking the
+    leaves from L - 1 down to 0: this checks that the tape pushes them in
+    that order (``collect_leaves`` reverses the tape's depth-first order)."""
+    leaves = collect_leaves(plan)
+    prog = tape_program(plan, {id(lf): i for i, (lf, _) in enumerate(leaves)})
+    if [op for op in prog if op >= 0] != list(range(len(leaves) - 1, -1, -1)):
+        raise NotImplementedError("the CSG tape does not push its leaves in descending "
+                                  "order, as the kernels' fold walks them")
+    return _stack_depth(prog) - 1
 
 
 def pack_geometry(plan, params):
@@ -120,6 +134,7 @@ class HitKernel:
     def __init__(self, plan, plain, params):
         self.plan, self.plain = plan, plain
         self.layout = pack_geometry(plan, params)[1]
+        self.n_stk = stack_below_top(plan)
         self.leaf_mat = torch.tensor([lf.mat_id for lf, _ in collect_leaves(plan)],
                                      dtype=torch.int64, device=params["sphere_center"].device)
 
@@ -169,9 +184,9 @@ class HitKernel:
         flags = torch.empty(B, dtype=torch.int32, device=device)
         evt = torch.empty(B, dtype=torch.int32, device=device)
         L, tape_off, tape_len = self.layout
-        err = lib.ptx_first_hit(_ptr(buf), buf.numel(), L, tape_off, tape_len, _ptr(o),
-                                _ptr(d), B, _ptr(t), _ptr(normal), _ptr(flags), _ptr(evt),
-                                _stream(device))
+        err = lib.ptx_first_hit(_ptr(buf), buf.numel(), L, tape_off, tape_len, self.n_stk,
+                                _ptr(o), _ptr(d), B, _ptr(t), _ptr(normal), _ptr(flags),
+                                _ptr(evt), _stream(device))
         _raise_on(err, lib, "hit kernel")
         LAUNCHES += 1
         return t, normal, flags, evt

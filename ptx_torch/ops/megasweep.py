@@ -32,10 +32,15 @@ change.
 
 - :func:`megasweep_reference` is K5's plain PyTorch version, over
   ``(rows, B)`` tensors; on the CPU it is the port's sweep first hit.
-- :class:`MegaSweepKernel` is K5's wrapper (hit mode and bounce mode).
-  For CUDA tensors it launches the kernel or raises; the plain versions
-  run only on CPU tensors (:mod:`ptx_torch.geom.fasthit` routes).
-  ``MegaSweepKernel.LAUNCHES`` / ``REFERENCE_CALLS`` count the two.
+- :class:`MegaSweepKernel` is K5's wrapper (hit mode and bounce mode):
+  its checks, its allocations and one launch; in bounce mode the kernel
+  writes the fused bounce's decisions itself.  The kernel keeps each
+  lane's valid coverage intervals and listed rows in shared memory up to
+  the capacities ``LIST_CAPS`` (a launch argument: a lane past one takes
+  the recompute route, with the same bits).  For CUDA tensors it launches
+  the kernel or raises; the plain versions run only on CPU tensors
+  (:mod:`ptx_torch.geom.fasthit` routes).  ``MegaSweepKernel.LAUNCHES`` /
+  ``REFERENCE_CALLS`` count the two.
 """
 
 from __future__ import annotations
@@ -48,12 +53,16 @@ from ptx_torch.core.constants import EPS, MAX_VALUE
 
 PAD_T = 3e20                 # a missed row: "no boundary"
 NEG = -3e20
-CLUSTER = 64                 # rows (or gadgets) per cull cluster — kCluster in the kernel
+CLUSTER = 64                 # rows (or gadgets) per cull cluster — kClusterShift in the kernel
 CULL_LANES = 32              # rays per cull test: one warp
 SLOT_MAX = 8                 # algebra slots per gadget before the tape is ineligible
-MAX_MEMBERS = 12             # leaves per gadget — kMaxMembers in the kernel
-MAX_STACK = 16               # slot-program stack — kMaxStack in the kernel
+MAX_MEMBERS = 12             # leaves per gadget
 MAX_SMEM = 232448            # shared memory one block may opt in to (227 KB)
+# K5's per-lane lists (valid coverage intervals, listed rows), sized from
+# the stress scenes' counts on the card (chip_smoke.py D2): at most 17
+# intervals (p99.9 12) and 53 rows a lane over every bounce of S1's and
+# S2's chunks; a lane past one takes the recompute route
+LIST_CAPS = (12, 56)
 _PROG = {"neg": -1, "pos": -2, "max": -3, "min": -4}
 
 REFERENCE_CALLS = 0
@@ -182,6 +191,25 @@ def _rebase(ex, member_row0):
     if tag in ("max", "min"):
         return (tag, _rebase(ex[1], member_row0), _rebase(ex[2], member_row0))
     return ex
+
+
+def _max_t0(ex):
+    """The members whose ``t0`` a slot start reaches through max alone: if
+    one of them misses (``t0`` PAD, the largest value there is), the start
+    is PAD and the slot is empty."""
+    if ex[0] == "t0":
+        return {ex[1]}
+    if ex[0] == "max":
+        return _max_t0(ex[1]) | _max_t0(ex[2])
+    return set()
+
+
+def _anchor(slots):
+    """A member every slot's start reaches through max (:func:`_max_t0`),
+    or −1: where it misses, the gadget covers nothing and the kernel skips
+    its programs."""
+    common = set.intersection(*(_max_t0(s) for s, _ in slots)) if slots else set()
+    return min(common, default=-1)
 
 
 def _postfix(ex, out):
@@ -410,23 +438,26 @@ class MegaLayout:
     def kernel_meta(self):
         """The kernel's int table: ``row_of_lid`` (L), then at ``cls_off =
         L`` one offset per class to its header ``G, Gp, m, n_slots,
-        solid_f0, member_row0[m], (s_off, s_len, e_off, e_len) per slot``,
-        then the slot programs (:func:`_postfix`)."""
+        solid_f0, anchor`` (:func:`_anchor`), ``member_row0[m], (s_off,
+        s_len, e_off, e_len) per slot``, then the slot programs
+        (:func:`_postfix`).  Returns ``(table, cls_off, n_mt, n_stk)``: the
+        gadget scratch the kernel keeps a lane, two member columns per
+        member of the largest gadget and the deepest program's stack below
+        its top."""
         meta = [int(r) for r in self.row_of_lid]
         cls_off = len(meta)
         meta += [0] * len(self.classes)
         progs = []
         headers = []
+        depth = 1
         for cm in self.classes:
-            h = [cm["G"], cm["Gp"], cm["m"], len(cm["slots"]), cm["solid_f0"]]
+            h = [cm["G"], cm["Gp"], cm["m"], len(cm["slots"]), cm["solid_f0"],
+                 _anchor(cm["slots"])]
             h += [cm["member_row0"][j] for j in range(cm["m"])]
             slot_progs = []
             for s, e in cm["slots"]:
                 ps, pe = [], []
-                depth = max(_postfix(s, ps), _postfix(e, pe))
-                if depth > MAX_STACK:
-                    raise NotImplementedError(f"slot program needs a stack of {depth} > "
-                                              f"{MAX_STACK}")
+                depth = max(depth, _postfix(s, ps), _postfix(e, pe))
                 slot_progs.append((ps, pe))
             headers.append((h, slot_progs))
         off = len(meta)
@@ -442,7 +473,8 @@ class MegaLayout:
             progs += slot_progs
         for ps, pe in progs:
             meta += ps + pe
-        return np.array(meta, np.int32), cls_off
+        n_mt = 2 * max((cm["m"] for cm in self.classes), default=0)
+        return np.array(meta, np.int32), cls_off, n_mt, depth - 1
 
 
 # ---------------------------------------------------------------------------
@@ -737,11 +769,13 @@ class MegaSweepKernel:
         self.layout = layout
         self.material_table = material_table
         self._meta: dict = {}
+        self._cap_cache: dict = {}
 
     def meta(self, device):
+        """``(int table on device, cls_off, n_mt, n_stk)``: :meth:`MegaLayout.kernel_meta`."""
         if device not in self._meta:
-            meta, cls_off = self.layout.kernel_meta()
-            self._meta[device] = (torch.as_tensor(meta, device=device), cls_off)
+            meta, *rest = self.layout.kernel_meta()
+            self._meta[device] = (torch.as_tensor(meta, device=device), *rest)
         return self._meta[device]
 
     def pack(self, params):
@@ -757,14 +791,22 @@ class MegaSweepKernel:
             return (torch.cat([tbl, mats, bnd]).contiguous(), tbl.numel(),
                     tbl.numel() + mats.numel())
 
-    def launch(self, packed, o, d, *, cull=True, carry=None, in_depth=True, stats=False):
+    def launch(self, packed, o, d, *, cull=True, carry=None, in_depth=True, stats=False,
+               caps=LIST_CAPS):
         """One launch, no synchronisation.  Hit mode (``carry`` None):
         ``t``, ``normal``, ``flags`` (int32 bits: hit, entering), ``evt``,
         ``mat``.  Bounce mode, ``carry = (thr, strength, alive, u_coin,
-        u3)``: ``t``, ``o2``, ``d2``, ``thr2``, ``strength2``, ``flags``
-        (hit, entering, take_transmit, scatter_alive, alive2), ``evt``,
-        ``mat``, ``u_sel``.  ``stats`` adds ``stats`` (B, 2) int32: the
-        lane's fixpoint passes and its warp's active cull flags."""
+        u3)``: the fused bounce's dict, ``t``, ``o2``, ``d2``, ``thr2``,
+        ``strength2``, ``hit``, ``entering``, ``take_transmit``,
+        ``scatter_alive``, ``alive2`` (bool), ``evt`` (int32), ``mat_id``
+        (int64), ``u_sel``.  ``caps`` are the capacities of a lane's lists
+        (coverage intervals, rows; none where the scene leaves no room in
+        shared memory): a lane past one takes the recompute route for that
+        step, with the same bits.  ``stats`` adds ``stats`` (B, 6)
+        int32: the lane's fixpoint passes, its warp's active cull flags,
+        its coverage intervals and rows listed (counted past a capacity),
+        the member rows of its culled gadgets that pass 1 evaluates, and
+        the bits hit, coverage list over, row list over."""
         from ptx_torch.ops import _build
         from ptx_torch.ops.bounce_kernel import _check_inputs, _ptr, _raise_on, _stream
 
@@ -784,31 +826,51 @@ class MegaSweepKernel:
         _check_inputs("megasweep kernel", device, expect)
         if B == 0:
             raise ValueError("megasweep kernel: empty wavefront")
-        meta, cls_off = self.meta(device)
+        meta, cls_off, n_mt, n_stk = self.meta(device)
         lib = _build.library()
-        smem = lib.ptx_megasweep_smem(scene.numel(), meta.numel(), lay.n_flags)
-        if smem > MAX_SMEM:
-            raise NotImplementedError(f"megasweep kernel: a scene of {smem} bytes exceeds "
-                                      f"a block's {MAX_SMEM} bytes of shared memory")
+        cov_cap, row_cap = self._caps(lib, scene.numel(), meta.numel(), n_mt, n_stk, caps)
         empty = lambda *s, dtype=torch.float32: torch.empty(s, dtype=dtype, device=device)
-        out = {"t": empty(B), "flags": empty(B, dtype=torch.int32),
-               "evt": empty(B, dtype=torch.int32), "mat": empty(B, dtype=torch.int32)}
+        out = {"t": empty(B), "evt": empty(B, dtype=torch.int32)}
         if carry is None:
-            out["normal"] = empty(B, 3)
+            out.update(normal=empty(B, 3), flags=empty(B, dtype=torch.int32),
+                       mat=empty(B, dtype=torch.int32))
         else:
             out.update(o2=empty(B, 3), d2=empty(B, 3), thr2=empty(B, 3), strength2=empty(B),
                        u_sel=empty(B, 3))
+            out.update((k, empty(B, dtype=torch.bool)) for k in _BOUNCE_BITS)
+            out["mat_id"] = empty(B, dtype=torch.int64)
         if stats:
-            out["stats"] = empty(B, 2, dtype=torch.int32)
+            out["stats"] = empty(B, 6, dtype=torch.int32)
         p = lambda k: _ptr(out[k]) if k in out else None          # None: a null pointer
         c = (lambda i: _ptr(carry[i])) if carry is not None else (lambda i: None)
         err = lib.ptx_megasweep(
             _ptr(scene), scene.numel(), _ptr(meta), meta.numel(), lay.L, lay.Lp, lay.ns,
             lay.ns + lay.npl, lay.tw, lay.n_flags, mat_off, bnd_off, cls_off,
-            len(lay.classes), int(bool(cull)), _ptr(o), _ptr(d), B,
-            c(0), c(1), c(2), c(3), c(4), int(bool(in_depth)),
-            p("t"), p("normal"), p("flags"), p("evt"), p("mat"), p("o2"), p("d2"),
-            p("thr2"), p("strength2"), p("u_sel"), p("stats"), _stream(device))
+            len(lay.classes), int(bool(cull)), cov_cap, row_cap, n_mt, n_stk,
+            _ptr(o), _ptr(d), B, c(0), c(1), c(2), c(3), c(4), int(bool(in_depth)),
+            *(p(k) for k in _OUT_ORDER), _stream(device))
         _raise_on(err, lib, "megasweep kernel")
         MegaSweepKernel.LAUNCHES += 1
         return out
+
+    def _caps(self, lib, scene_words, meta_words, n_mt, n_stk, caps):
+        """The list capacities a launch uses: ``caps``, or none (every lane
+        on the recompute route) where a block's shared memory would pass
+        ``MAX_SMEM`` with them; cached per scene size."""
+        key = (scene_words, caps)
+        if key not in self._cap_cache:
+            lay = self.layout
+            smem = lambda cc, rc: lib.ptx_megasweep_smem(
+                scene_words, lay.Lp, lay.tw, meta_words, lay.n_flags, cc, rc, n_mt, n_stk)
+            if smem(0, 0) > MAX_SMEM:
+                raise NotImplementedError(f"megasweep kernel: a scene of {smem(0, 0)} bytes "
+                                          f"exceeds a block's {MAX_SMEM} bytes of shared memory")
+            self._cap_cache[key] = caps if smem(*caps) <= MAX_SMEM else (0, 0)
+        return self._cap_cache[key]
+
+
+# bounce mode's decision outputs (bool), and the order of the C entry
+# point's output pointers
+_BOUNCE_BITS = ("hit", "entering", "take_transmit", "scatter_alive", "alive2")
+_OUT_ORDER = ("t", "normal", "flags", "evt", "mat", "o2", "d2", "thr2", "strength2", "u_sel",
+              *_BOUNCE_BITS, "mat_id", "stats")

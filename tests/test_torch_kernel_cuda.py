@@ -22,6 +22,10 @@ cases, the reordered-sum bound ``2·n·2⁻²⁴·Σ|ct|``.  K4 must equal the d
 as K1 does; K7 its plain lanes, with texel indices equal except where a
 float64 recompute puts the lane within 1e-6 of a texel boundary.  K5 must
 equal its plain version as K1 does, and culling must not change a bit;
+its list route must equal its recompute route (list capacities 0) and
+lists of one bit for bit on the full-width stress scenes S1 and S2.  K1 and
+K5 write their decisions themselves: they must equal the old wrapper decode
+of the raw flags (K4's for K1, K5's hit mode for K5);
 K6 is held as K2.  K9 only compares, selects and takes maxima and minima:
 its five outputs must equal its plain version's bit for bit.
 """
@@ -402,6 +406,44 @@ def test_k7_matches_its_plain_version(monkeypatch):
                                pp["images"][kern.img_id].grad, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.cuda
+def test_k1_decode_in_kernel_matches_the_old_decode(cuda_scene):
+    """K1 writes its decisions itself; on the same rays they equal the
+    decode its wrapper used to run: hit and entering from K4's raw flag
+    bits, ``mat_id`` the winning leaf's material through the leaf table,
+    and the shading bits those of the plain bounce."""
+    from ptx_torch.ops import fasthit_kernel
+    from ptx_torch.geom.fasthit import collect_leaves
+
+    scene, dev = cuda_scene, cuda_scene.device
+    o, d = sample_rays(Camera.reference_demo(64, 64), rng.PRNGKey(3), range(64), range(64), 1,
+                       dev)
+    n = 64 * 64
+    carry = (o.reshape(-1, 3), d.reshape(-1, 3), torch.ones((n, 3), device=dev),
+             torch.ones(n, device=dev), torch.ones(n, dtype=torch.bool, device=dev))
+    k4 = fasthit_kernel.HitKernel(scene.plan, scene.plain_hit_fn, scene.params)
+    leaf_mat = torch.tensor([lf.mat_id for lf, _ in collect_leaves(scene.plan)],
+                            dtype=torch.int64, device=dev)
+    for b in range(3):
+        uc = rng.uniform(rng.PRNGKey(b), (n,), dev)
+        u3 = rng.uniform(rng.PRNGKey(50 + b), (n, 3), dev)
+        got = scene.bounce_fn(scene.params, *carry, uc, u3, True)
+        t, _, flags, evt = k4.launch(k4.pack(scene.params), *carry[:2])
+        ref = bounce_kernel.bounce_reference(scene, scene.params, *carry, uc, u3, True)
+        torch.cuda.synchronize()
+        L = leaf_mat.numel()
+        hit = ((flags >> 0) & 1).to(torch.bool)
+        leaf = torch.where(evt >= L, evt - L, evt).to(torch.int64)
+        assert got["hit"].dtype == torch.bool and got["mat_id"].dtype == torch.int64
+        assert torch.equal(got["hit"], hit)
+        assert torch.equal(got["entering"], ((flags >> 1) & 1).to(torch.bool))
+        assert torch.equal(got["evt"], evt)
+        assert torch.equal(got["mat_id"], torch.where(hit, leaf_mat[leaf], 0))
+        for k in ("take_transmit", "scatter_alive", "alive2"):
+            assert torch.equal(got[k], ref[k]), k
+        carry = (got["o2"], got["d2"], got["thr2"], got["strength2"], got["alive2"])
+
+
 @pytest.fixture(scope="module", params=["spheres", "gadgets", "ellipsoids"])
 def large_cuda(request):
     """A 32-leaf sphere scene (16-column table), a 35-leaf gadget scene and a
@@ -565,3 +607,81 @@ def test_k9_wrapper_raises(k9_card):
     with pytest.raises(NotImplementedError, match="shared memory"):
         sweep_kernel.sweep_select(big, big, big, big, 4097, EPS, sort=True)
     assert sweep_kernel.LAUNCHES == launches
+
+
+@pytest.mark.cuda
+def test_k5_decode_in_kernel_matches_the_old_decode(large_cuda):
+    """K5's bounce mode writes its decisions itself; on the same rays hit,
+    entering, evt and mat_id equal the old decode of hit mode's raw flag
+    bits and material (``MegaHit``'s), the shading bits the plain bounce's."""
+    scene, dev = large_cuda, large_cuda.device
+    o, d = sample_rays(Camera.reference_demo(64, 64), rng.PRNGKey(2), range(64), range(64), 1,
+                       dev)
+    n = 64 * 64
+    carry = (o.reshape(-1, 3), d.reshape(-1, 3), torch.ones((n, 3), device=dev),
+             torch.ones(n, device=dev), torch.ones(n, dtype=torch.bool, device=dev))
+    kern = scene.bounce_fn.kernel
+    packed = kern.pack(scene.params)
+    for b in range(3):
+        uc = rng.uniform(rng.PRNGKey(b), (n,), dev)
+        u3 = rng.uniform(rng.PRNGKey(70 + b), (n, 3), dev)
+        got = scene.bounce_fn(scene.params, *carry, uc, u3, True, packed=packed)
+        raw = kern.launch(packed, *carry[:2])
+        ref = bounce_kernel.bounce_reference(scene, scene.params, *carry, uc, u3, True)
+        torch.cuda.synchronize()
+        assert got["hit"].dtype == torch.bool and got["mat_id"].dtype == torch.int64
+        assert torch.equal(got["hit"], (raw["flags"] & 1).to(torch.bool))
+        assert torch.equal(got["entering"], (raw["flags"] & 2).to(torch.bool))
+        assert torch.equal(got["evt"], raw["evt"])
+        assert torch.equal(got["mat_id"], raw["mat"].to(torch.int64))
+        for k in ("take_transmit", "scatter_alive", "alive2"):
+            assert torch.equal(got[k], ref[k]), k
+        carry = (got["o2"], got["d2"], got["thr2"], got["strength2"], got["alive2"])
+
+
+@pytest.fixture(scope="module", params=["S1", "S2"])
+def stress_cuda(request):
+    """The full-width stress scenes S1 (256 leaves) and S2 (268 leaves)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the megasweep kernel has no CPU mode")
+    from ptx_torch.scenes import builders
+    world = {"S1": lambda: builders.stress_spheres(249),
+             "S2": lambda: builders.stress_gadgets(112)}
+    return request.param, trace.compile_scene(world[request.param](), torch.device("cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caps", [(0, 0), (1, 1)])
+def test_k5_list_route_equals_the_recompute_route(stress_cuda, caps):
+    """Three chained bounces of 96×96 rays: K5 with its list capacities at
+    0 (every lane takes the recompute route) and at 1 (nearly every lane
+    overflows one list) gives the list route's bits; on S2 some lanes read
+    the live rows of a culled gadget class."""
+    name, scene = stress_cuda
+    dev = scene.device
+    o, d = sample_rays(Camera.reference_demo(96, 96), rng.PRNGKey(5), range(96), range(96), 1,
+                       dev)
+    n = 96 * 96
+    carry = (o.reshape(-1, 3), d.reshape(-1, 3), torch.ones((n, 3), device=dev),
+             torch.ones(n, device=dev), torch.ones(n, dtype=torch.bool, device=dev))
+    kern = scene.bounce_fn.kernel
+    packed = kern.pack(scene.params)
+    culled, over = 0, 0
+    for b in range(3):
+        uc = rng.uniform(rng.PRNGKey(b), (n,), dev)
+        u3 = rng.uniform(rng.PRNGKey(90 + b), (n, 3), dev)
+        lists = kern.launch(packed, *carry[:2], carry=(*carry[2:], uc, u3), stats=True)
+        forced = kern.launch(packed, *carry[:2], carry=(*carry[2:], uc, u3), stats=True,
+                             caps=caps)
+        torch.cuda.synchronize()
+        for k in lists:
+            if k != "stats":
+                assert torch.equal(lists[k], forced[k]), (b, k)
+        culled += int((lists["stats"][:, 4] > 0).sum())
+        over += int(((forced["stats"][:, 5] & 6) != 0).sum())
+        carry = (lists["o2"], lists["d2"], lists["thr2"], lists["strength2"], lists["alive2"])
+    assert over > 0
+    if caps == (0, 0):
+        assert over == 3 * n
+    if name == "S2":
+        assert culled > 0
