@@ -70,8 +70,11 @@ bounce, plain-PyTorch shading on the hit-only kernel K4, the full-param
 replay backward whose checker gather transposes through K3):
 A1. K4 vs the dense hit on every bounce input of the first 65,536-ray
     chunk of band 256 (65,536 / 21,845 / 4,096 lanes, fillers included):
-    decisions equal except float64-adjudicated near-ties, ``t`` and the
-    normal (hit lanes) within ``rtol 1e-5, atol 5e-6``;
+    every key of the dict the kernel writes (``t``, ``normal``, ``mat_id``,
+    ``entering``, ``hit``, ``_evt``) in the plain dict's dtype; decisions
+    equal except float64-adjudicated near-ties, ``t`` and the normal (hit
+    lanes) within ``rtol 1e-5, atol 5e-6`` and ``max_abs_err`` 0; the
+    distinct times the fold (the walk in time order) visits per lane;
 A2. ``python -m ptx_torch render --demo config4`` at 512², spp 16, d16:
     K4 1,088 (4 bands × 16 samples × 17 bounces), nothing else;
 A3. 3 train steps at 512², spp 16, d16: K4 17 and K3 19 per step (16
@@ -106,8 +109,9 @@ bounce mode with shade and scatter; K6, the row-fed replay backward):
 S1 ``stress_spheres(249)`` (256 leaves), S2 ``stress_gadgets(112)`` (268
 leaves: lenses, bulbs, bites), S3 ``stress_spheres(249, transformed=True)``
 (the 32-column table), S4 S1 under the 1536×3072 probe (K5 + K6 + K8):
-D1. the registers and stack frame of K1 and K4 (each leaf bucket of the
-    fold), K5 and K6 from nvcc's report;
+D1. the registers and stack frame of K1 and K4 (each leaf bucket),
+    K5, K6 and K9 (each tile and sort size) from nvcc's report; the SASS
+    instructions of each K1 and K4 instantiation (``cuobjdump -sass``);
 D2. S1-S3: K5 on every bounce of one compacted 65,536-ray chunk (every
     4th row of the frame, depth 16: widths 65,536 / 21,845 / 4,096)
     against its plain version (the sweep + the plain shading) as phase 3
@@ -143,12 +147,16 @@ tape (a sphere intersected with a union of 64 spheres, the ground, the sky:
 unfused bounce on its hit and K6:
 E1. S1, S2, the bitten union in kernel mode: on every bounce of the D2
     chunk (65,536 / 21,845 / 4,096 lanes) each hit's intervals recomputed
-    from its rays, K9 as called (``sort=False``, stable-sorted starts) and
-    K9 ``sort=True`` (unsorted) against ``sweep_select_reference``: 0
-    differing lanes in all five outputs; the whole hit equal to the
-    ``fixpoint`` and ``sort`` modes' bit for bit; on S1 and S2 equal to K5's
-    plain version except float64-adjudicated near-ties; the fixpoint's
-    passes per bounce;
+    from its rays, K9 ``sort=False`` (stable-sorted starts) and K9
+    ``sort=True`` (unsorted; what kernel mode calls up to
+    ``sweep_kernel.SORT_INSIDE_ROWS`` padded rows) against
+    ``sweep_select_reference``: 0 differing lanes in all five outputs; the
+    whole hit equal to the ``fixpoint`` and ``sort`` modes' bit for bit; on
+    S1 and S2 equal to K5's plain version except float64-adjudicated
+    near-ties; the fixpoint's passes per bounce; then a chain of 12
+    overlapping spheres (multi-hop chains: 65,536 rays from inside the
+    first, down the row): K9 with both flags == plain, kernel == fixpoint ==
+    sort mode, and the fixpoint taking more than one pass;
 E2. gradients, kernel path vs plain path as phase 6: S2 (kernel mode, K9's
     plain version on the plain path), the bitten union (fixpoint), the
     carved tape (blocked);
@@ -159,9 +167,13 @@ E3. 3 ``make_train_step`` steps each at 512², spp 4, d16 (1,048,576 rays:
     peak memory;
 E4. ``render --scene scenes/composed.json`` under ``PTX_SWEEP_MODE=kernel
     PTX_MEGAB=0``: K9 4 × 16 × 9 = 576, K5 0, tile ordering in every call;
-E5. S1, S2 at 65,536 lanes on E1's inputs: K9 (wrapper, bare launch with
-    ``sort=False`` and ``sort=True``, plain) and, as context, the
-    ``torch.sort`` of the starts, beside the bound from bytes.
+E5. S1, S2 at every width of E1's chunk (65,536 / 21,845 / 4,096) and of an
+    E3 step (1,048,576 / 349,525), on recorded inputs: K9 with both flags ==
+    plain bit for bit; K9 as the sweep calls it and the plain version; the
+    bare launch with ``sort=False`` and ``sort=True``, back to back and
+    queued behind a device sleep; the ``torch.sort`` + ``gather`` +
+    ``sort=False`` route and ``torch.sort`` alone; the bound of each flag at
+    each width, summed over E3's 17 calls, and a chunk's mean a call.
 
 Then:
 9. a forward + backward chunk at the bench's shape (128 rows × 512, spp 1,
@@ -172,7 +184,9 @@ Then:
     sky-select lanes for K8): the wrapper as the main path calls it and the
     plain version, each the median of 20 single calls between CUDA events;
     for K1 and K4 also the bare launch queued behind a device sleep (the
-    card's time) and the bound summed over a train step's widths;
+    card's time) and the bound summed over a train
+    step's widths; K4's wrapper is one kernel launch (counted by the
+    profiler);
     for K2 also the once-per-call pack + VJP and a step's sum (16 wrappers
     and one pack + VJP) beside 16 times the per-bounce params route; for K3
     and K8 also the library calls ``index_put_(accumulate=True)`` and
@@ -612,6 +626,23 @@ def phase_timing(scene, inputs):
         f"behind a sleep (the card's time) {q:.4f} ms; bound {bound[0]:.4g} ms ({bound[1]}), "
         f"summed over a train step's widths {step[0]:.4g} ms ({step[1]})")
     return min(w1, w2), min(p1, p2), min(d1, d2), q
+
+
+def _kernels_launched(fn):
+    """The CUDA kernels one call of ``fn`` launches, counted by
+    ``torch.profiler`` (after a warm-up call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = os.path.join(OUT, "one_call_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        return sum(1 for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel")
 
 
 def _step_bound(bound, *args):
@@ -1401,7 +1432,10 @@ def compare_hit(scene, o, d, out_k, out_p, name="K4"):
 def phase_k4_chunk(c4):
     """K4 vs the dense hit on every bounce input of the first 65,536-ray
     chunk of config 4's band 256 as ``render_rows`` runs it: widths 65,536,
-    21,845 and 4,096, fillers included."""
+    21,845 and 4,096, fillers included.  Every key of the dict the kernel
+    writes (``t``, ``normal``, ``mat_id``, ``entering``, ``hit``, ``_evt``,
+    each in the plain dict's dtype): 0 unexplained flips and ``max_abs_err``
+    0; per bounce the distinct times the fold visits (:func:`walk_visits`)."""
     import torch
     from ptx_torch.core import rng
     from ptx_torch.integrate.camera import Camera
@@ -1414,14 +1448,25 @@ def phase_k4_chunk(c4):
     widths = [o.shape[0] for o, _, _ in rec]
     if widths != _wavefront_widths(BAND_ROWS * W, DEPTH):
         raise AssertionError(f"K4 widths {widths}")
-    flips, err = 0, 0.0
+    flips, err, visits = 0, 0.0, torch.zeros(0, dtype=torch.int64)
     for b, (o, d, out_k) in enumerate(rec):
         out_p = c4.plain_hit_fn(c4.params, o, d)
         torch.cuda.synchronize()
+        for k, v in out_p.items():
+            if out_k[k].dtype != v.dtype or out_k[k].shape != v.shape:
+                raise AssertionError(f"A1 K4 {k}: {out_k[k].dtype} {tuple(out_k[k].shape)}, "
+                                     f"the plain dict's {v.dtype} {tuple(v.shape)}")
         f, e = compare_hit(c4, o, d, out_k, out_p)
         flips, err = flips + f, max(err, e)
+        v = walk_visits(c4, o, d, out_p)
+        visits = torch.cat([visits, v.cpu()])
         log(f"[A1 K4 vs plain] config4 band 256 chunk 0 bounce {b}: B={o.shape[0]} "
-            f"hit={int(out_k['hit'].sum())} flips={f} max_abs_err={e:.3g}")
+            f"hit={int(out_k['hit'].sum())} flips={f} max_abs_err={e:.3g}; distinct times "
+            f"visited {visits_histogram(v)}")
+    if err != 0.0:
+        raise AssertionError(f"A1 K4: max_abs_err {err} against the plain hit, not 0")
+    log(f"[A1 K4] distinct times the fold visits over the chunk's {visits.numel()} lanes: "
+        f"{visits_histogram(visits)}")
     return flips, err, rec[0][:2]
 
 
@@ -1575,10 +1620,11 @@ def phase_probe(pb):
 
 
 def bound_k4(B, L):
-    """K4 at B lanes: reads o, d (24 B), writes t, normal, flags, evt
-    (24 B); operations (estimate): ~25 per leaf interval and 2 compares
-    per (event, leaf) pair of the membership fold."""
-    return _bound(48 * B, B * (25 * L + 4 * L * L))
+    """K4 at B lanes: reads o, d (24 B), writes t, normal, mat_id (int64),
+    evt, hit and entering (30 B); operations (estimate, above what the walk
+    does on most lanes): ~25 per leaf interval and 2 compares per (event,
+    leaf) pair; bytes bound it either way."""
+    return _bound(54 * B, B * (25 * L + 4 * L * L))
 
 
 def bound_k7(N, img):
@@ -1598,14 +1644,18 @@ def phase_timing_small(c4, k4_in, pe, k7_in, k8_in):
     buf = c4.hit_fn.pack(c4.params)
     k4 = lambda: c4.hit_fn(c4.params, o, d, packed=buf)
     k4p = lambda: c4.plain_hit_fn(c4.params, o, d)
+    n_kernels = _kernels_launched(k4)
+    if n_kernels != 1:
+        raise AssertionError(f"K4's wrapper launched {n_kernels} kernels, not 1")
     p1, w1, w2, p2 = _time_ms(k4p), _time_ms(k4), _time_ms(k4), _time_ms(k4p)
     q = _time_queued_ms(lambda: c4.hit_fn.launch(buf, o, d))
     L4 = c4.hit_fn.layout[0]
     bound, step = bound_k4(o.shape[0], L4), _step_bound(bound_k4, L4)
-    log(f"[10 timing] K4 at B={o.shape[0]} (wrapper: launch + decode) {w1:.4f} / "
-        f"{w2:.4f} ms; bare launch queued behind a sleep (the card's time) {q:.4f} ms; "
-        f"plain dense hit {p1:.4f} / {p2:.4f} ms; bound {bound[0]:.4g} ms ({bound[1]}), "
-        f"summed over a train step's widths {step[0]:.4g} ms ({step[1]})")
+    log(f"[10 timing] K4 at B={o.shape[0]} (wrapper: one launch, {n_kernels} kernel in the "
+        f"profiler) {w1:.4f} / {w2:.4f} ms; bare launch queued behind a sleep (the card's "
+        f"time) {q:.4f} ms; plain dense hit {p1:.4f} / {p2:.4f} ms; bound "
+        f"{bound[0]:.4g} ms ({bound[1]}), summed over a train step's widths {step[0]:.4g} ms "
+        f"({step[1]})")
     k4_t = (min(w1, w2), min(p1, p2), bound)
 
     pos, mid = k7_in
@@ -1692,14 +1742,17 @@ def _large_scenes():
 
 
 def phase_build_report():
-    """D1: registers and stack frame of K1, K4, K5 and K6 (every
-    instantiation of a templated kernel), from nvcc's report."""
+    """D1: registers and stack frame of K1, K4, K5, K6 and K9 (every
+    instantiation of a templated kernel: K1's and K4's leaf buckets, K9's
+    tiles and sort sizes), from nvcc's report; the SASS instructions of
+    every K1 and K4 instantiation (``cuobjdump -sass``)."""
     from ptx_torch.ops import _build
 
     lines = _build.BUILD_LOG.splitlines()
     out, frames = [], {}
     for label, kname in (("K1", "bounce_forward_kernel"), ("K4", "first_hit_kernel"),
-                         ("K5", "megasweep_kernel"), ("K6", "replay_bwd_kernel")):
+                         ("K5", "megasweep_kernel"), ("K6", "replay_bwd_kernel"),
+                         ("K9", "sweep_select_kernel"), ("K9", "sweep_sort_select_kernel")):
         # the mangled entry name, length-prefixed (then E, or I for a
         # template's arguments): not the file's name in it
         tag = f"{len(kname)}{kname}"
@@ -1715,6 +1768,12 @@ def phase_build_report():
             out.append(f"{label} {name[name.index(tag) + len(tag):][:12]}: {report}")
     log("[D1 build] " + " | ".join(out))
     log(f"[D1 build] largest stack frame per kernel (bytes): {frames}")
+    for label, stem, kname in (("K1", "bounce_kernel", "bounce_forward_kernel"),
+                               ("K4", "fasthit_kernel", "first_hit_kernel")):
+        counts = sass_counts(stem, kname)
+        tag = f"{len(kname)}{kname}"
+        log(f"[D1 build] {label} SASS instructions: " + ", ".join(
+            f"{n[n.index(tag) + len(tag):][:12]} {c}" for n, c in sorted(counts.items())))
     return frames
 
 
@@ -2072,15 +2131,16 @@ def _plain_select(s, e, t0, t1, L, eps, sort=False):
 def phase_k9_chunk(scene, tag, k5_check):
     """E1: the kernel-mode sweep on every bounce of one compacted 65,536-ray
     chunk (the D2 chunk: widths 65,536 / 21,845 / 4,096), each hit's
-    intervals recomputed from its rays: K9 as called (``sort=False`` on the
+    intervals recomputed from its rays: K9 ``sort=False`` (on the
     stable-sorted starts) and K9 ``sort=True`` (on the unsorted valid-masked
-    intervals) against ``sweep_select_reference``, 0 differing lanes in all
+    intervals, as kernel mode calls it) against ``sweep_select_reference``,
+    0 differing lanes in all
     five outputs; the whole hit equal to the ``fixpoint`` and ``sort``
     modes' bit for bit; with ``k5_check``, equal to K5's plain version
     (``megasweep_reference``) except float64-adjudicated near-ties.
     Returns (lanes compared, K9's max_abs_err against its plain version,
     flips vs K5's plain version, max_abs_err of the hits' floats against it,
-    the fixpoint passes per bounce, the first 65,536-lane K9 inputs)."""
+    the fixpoint passes per bounce)."""
     import torch
     from ptx_torch.core import rng
     from ptx_torch.core.constants import EPS
@@ -2101,7 +2161,7 @@ def phase_k9_chunk(scene, tag, k5_check):
     other = {m: fasthit.UnionSweepHit(scene.plan, hit.leaves, m) for m in ("fixpoint", "sort")}
     mega = (fasthit.compile_fast_hit(scene.plan, scene.params, sweep_mode="mega")
             if k5_check else None)
-    lanes, k9_err, flips, err, passes, first = 0, 0.0, 0, 0.0, [], None
+    lanes, k9_err, flips, err, passes = 0, 0.0, 0, 0.0, []
     for b, (ob, db, out_k) in enumerate(rec):
         with torch.no_grad():
             t0, t1, s, e = hit.intervals(scene.params, ob, db)
@@ -2124,8 +2184,6 @@ def phase_k9_chunk(scene, tag, k5_check):
                 raise AssertionError(f"{tag}: bounce {b}: kernel mode differs from {m} mode")
         passes.append(other["fixpoint"].last_passes)
         lanes += ob.shape[0]
-        if first is None and ob.shape[0] == BAND_ROWS * W:
-            first = (s_s, e_s, t0, t1, s, e, hit.L)
         msg = ""
         if mega is not None:
             with torch.no_grad():
@@ -2138,56 +2196,267 @@ def phase_k9_chunk(scene, tag, k5_check):
             f"hit={int(out_k['hit'].sum())} entering={int(out_k['entering'].sum())}: K9 "
             f"sort=False and sort=True == plain on every lane of all five outputs; kernel "
             f"== fixpoint == sort mode bit for bit; fixpoint passes {passes[-1]}{msg}")
-    return lanes, k9_err, flips, err, passes, first
+    return lanes, k9_err, flips, err, passes
 
 
-def bound_k9(S, L, B, out_bytes):
-    """K9 at B lanes: reads s, e (S rows) and t0, t1 (L rows), writes its
-    outputs once (``out_bytes`` a lane); ~6 compares and selects per
-    (row, lane) of the sweep, 2 per (leaf, lane) of the payload match."""
-    return _bound((2 * S + 2 * L) * B * 4 + out_bytes * B, (6 * S + 2 * L) * B)
+def _chain(n=12):
+    """``n`` unit spheres in a row, each overlapping the next, over the ground
+    under the stress sky (tests/test_torch_sweep.py ``chain``)."""
+    from ptx_torch.geom.tape import Plane, Sphere
+    from ptx_torch.scenes import builders
+    from ptx_torch.shade.materials import Material
+
+    m = [Material(reflect=(0.8, 0.3, 0.3), scatter=1.0),
+         Material(reflect=(0.3, 0.8, 0.3), scatter=1.0)]
+    return builders.union_array([Sphere((0.3 * i, 0.0, -2.0 - 1.6 * i), 1.0, m[i % 2])
+                                 for i in range(n)]
+                                + [Plane((0.0, 1.0, 0.0), 1.0, Material(reflect=0.6, scatter=1.0)),
+                                   *builders.sky_planes(Material(**_STRESS_SKY))])
 
 
-def phase_timing_k9(tag, inputs):
-    """E5: at 65,536 lanes on a chunk's recorded K9 inputs, K9's wrapper
-    as the sweep calls it, its bare launch (``sort=False`` and ``sort=True``,
-    outputs allocated once), its plain version and, as context, the
-    ``torch.sort`` of the starts the kernel mode runs before it; each the
-    median of 20 single calls between CUDA events (bare: mean of 20 back to
-    back), in turns plain, kernel, kernel, plain."""
+def phase_k9_chain(dev):
+    """E1's multi-hop chains: 65,536 rays from inside the first sphere of
+    :func:`_chain` down the row, through the sweep in kernel mode (K9, the
+    route of ``sweep_kernel.sort_inside``): K9 with both flags against
+    ``sweep_select_reference`` bit for bit, the hit equal to the
+    ``fixpoint`` and ``sort`` modes' bit for bit, and the fixpoint taking
+    more than one pass.  Returns (K9's max_abs_err, the passes)."""
+    import numpy as np
     import torch
     from ptx_torch.core.constants import EPS
-    from ptx_torch.ops import _build, sweep_kernel
-    from ptx_torch.ops.bounce_kernel import _ptr, _stream
+    from ptx_torch.geom import fasthit
+    from ptx_torch.integrate.trace import compile_scene
+    from ptx_torch.ops import sweep_kernel
 
-    s_s, e_s, t0, t1, s, e, L = inputs
+    scene = compile_scene(_chain(), dev)
+    leaves = fasthit.collect_leaves(scene.plan)
+    hits = {m: fasthit.UnionSweepHit(scene.plan, leaves, m) for m in ("kernel", "fixpoint", "sort")}
+    g = np.random.default_rng(3)
+    n = BAND_ROWS * W
+    o = np.array([0.0, 0.0, -2.0]) + g.uniform(-0.3, 0.3, (n, 3))
+    d = np.stack([g.uniform(0.1, 0.25, n), g.uniform(-0.05, 0.05, n), -np.ones(n)], -1)
+    o, d = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in (o, d))
+    with torch.no_grad():
+        t0, t1, s, e = hits["kernel"].intervals(scene.params, o, d)
+        s_s, idx = torch.sort(s, dim=0, stable=True)
+        e_s = e.gather(0, idx)
+        L = hits["kernel"].L
+        want = sweep_kernel.sweep_select_reference(s_s, e_s, t0, t1, L, EPS, False)
+        got = {"sort=False": sweep_kernel.launch(s_s, e_s, t0, t1, L, EPS, False),
+               "sort=True": sweep_kernel.launch(s, e, t0, t1, L, EPS, True)}
+        outs = {m: h(scene.params, o, d) for m, h in hits.items()}
+    torch.cuda.synchronize()
+    err = 0.0
+    for flag, gk in got.items():
+        bad = {nm: int((a != w).sum()) for nm, a, w in zip(K9_OUTPUTS, gk, want)}
+        if any(bad.values()):
+            raise AssertionError(f"E1 chain: K9 {flag} differs from its plain version on {bad}")
+        err = max([err] + [float((a.double() - w.double()).abs().max()) for a, w in zip(gk, want)])
+    for m in ("fixpoint", "sort"):
+        if not all(torch.equal(outs["kernel"][k], v) for k, v in outs[m].items()):
+            raise AssertionError(f"E1 chain: kernel mode differs from {m} mode")
+    passes = hits["fixpoint"].last_passes
+    if passes < 2:
+        raise AssertionError(f"E1 chain: the fixpoint took {passes} pass, not several")
+    log(f"[E1 chain] {len(leaves)} leaves, B={n} S={s.shape[0]} from inside the first sphere: "
+        f"hit {int(outs['kernel']['hit'].sum())}; K9 sort=False and sort=True == plain on every "
+        f"lane; kernel == fixpoint == sort mode bit for bit; fixpoint passes {passes}")
+    return err, passes
+
+
+def bound_k9(s, L, out, sort):
+    """K9 on one input: reads s, e (S rows) and the payload rows this run's
+    lanes need (the serial loop's: t0 up to its match and t1 up to its,
+    both up to the later match, all L where one is missing), writes its
+    outputs once (14 B a lane); operations: ~6 compares and selects per
+    (row, lane) of the sweep, 1 per payload row, and with ``sort`` ~5 per
+    compare-exchange of the bitonic network over each lane's rows with s <
+    2e20 (padded to a power of 2 of at least 32)."""
+    import torch
+
     S, B = s.shape
-    lib = _build.library()
-    outs = sweep_kernel.launch(s_s, e_s, t0, t1, L, EPS, False)
-    Sp = sweep_kernel.padded_rows(S)
+    ms, me = out[2].long(), out[3].long()
+    stop = torch.where((ms < L) & (me < L), torch.maximum(ms, me) + 1, L)
+    rows = lambda m: torch.where(m < L, torch.minimum(m + 1, stop), stop)
+    n_pay = int(rows(ms).sum() + rows(me).sum())
+    ops = 6 * S * B + n_pay
+    if sort:
+        n = (s < 2e20).sum(0)
+        n32 = torch.clamp(2 ** torch.ceil(torch.log2(torch.clamp(n, min=1).double())), min=32)
+        lg = torch.log2(n32)
+        ops += int((5 * n32 / 2 * lg * (lg + 1) / 2 * (n > 0)).sum())
+    return _bound(2 * S * B * 4 + n_pay * 4 + 14 * B, ops)
 
-    def bare(sort):
-        a, b = (s, e) if sort else (s_s, e_s)
-        err = lib.ptx_sweep_select(_ptr(a), _ptr(b), S, _ptr(t0), _ptr(t1), L, B, float(EPS),
-                                   int(sort), Sp if sort else S,
-                                   sweep_kernel.tile_width(Sp) if sort else 0,
-                                   *(_ptr(x) for x in outs), _stream(s.device))
-        if err:
-            raise AssertionError(f"{tag}: K9 launch failed: CUDA error {err}")
 
-    wrap = lambda: sweep_kernel.sweep_select(s_s, e_s, t0, t1, L, EPS)
-    plain = lambda: sweep_kernel.sweep_select_reference(s_s, e_s, t0, t1, L, EPS, False)
-    p1, w1, w2, p2 = _time_ms(plain), _time_ms(wrap), _time_ms(wrap), _time_ms(plain)
-    b1, b2 = _time_back_to_back_ms(lambda: bare(False)), _time_back_to_back_ms(lambda: bare(False))
-    q1, q2 = _time_back_to_back_ms(lambda: bare(True)), _time_back_to_back_ms(lambda: bare(True))
-    srt = _time_ms(lambda: torch.sort(s, dim=0, stable=True))
-    bound = bound_k9(S, L, B, sum(x.element_size() for x in outs))
-    log(f"[{tag}] K9 at B={B} (S={S}, L={L}): wrapper {w1:.4f} / {w2:.4f} ms; bare launch "
-        f"sort=False {b1:.4f} / {b2:.4f} ms, sort=True (Sp={Sp}, "
-        f"{sweep_kernel.tile_width(Sp)} lanes a block) {q1:.4f} / {q2:.4f} ms; plain "
-        f"{p1:.4f} / {p2:.4f} ms; torch.sort of the starts (context) {srt:.4f} ms; bound "
-        f"{bound[0]:.4g} ms ({bound[1]})")
-    return min(w1, w2), min(p1, p2), bound, min(b1, b2), min(q1, q2), srt
+def record_select_inputs(scene, spp=SPP_E):
+    """The inputs ``(t0, t1, s, e)`` of the sweep's ``select`` (the first
+    call of each width) over E1's chunk (65,536 / 21,845 / 4,096 lanes) and
+    one ``make_train_step`` step at 512², ``spp``, depth 16 (E3's step:
+    1,048,576 / 349,525 / 65,536 lanes), keyed by width; and the hit."""
+    import torch
+    from ptx_torch.core import rng
+    from ptx_torch.integrate.camera import Camera
+    from ptx_torch.integrate.trace import trace_rays
+    from ptx_torch.parallel.render import _local_render, make_train_step
+
+    hit, rec = scene.hit_fn, {}
+    select = hit.select
+
+    def recording(t0, t1, s, e):
+        rec.setdefault(s.shape[1], (t0, t1, s, e))
+        return select(t0, t1, s, e)
+
+    key = rng.fold(rng.PRNGKey(0), 0, 4)
+    o, d = _full_frame_chunk(scene, key)
+    cam = Camera.reference_demo(W, H)
+    with torch.no_grad():
+        target = _local_render(scene, cam, DEPTH, spp, scene.params, rng.PRNGKey(1), 0, H)
+    step = make_train_step(scene, cam, spp=spp, depth=DEPTH, learning_rate=LR)
+    with _swapped(hit, "select", recording):
+        with torch.no_grad():
+            trace_rays(scene, scene.params, o, d, key, DEPTH)
+        step(scene.params, target, rng.PRNGKey(2))
+    torch.cuda.synchronize()
+    del target
+    return rec, hit
+
+
+def phase_timing_k9(tag, rec, hit):
+    """E5: K9 at every width of E1's chunk and E3's step on the recorded
+    inputs (:func:`record_select_inputs`).  Both flags against
+    ``sweep_select_reference`` bit for bit; K9 as the sweep calls it (``hit``'s
+    ``select`` in kernel mode: the route of ``sweep_kernel.sort_inside``) and
+    the plain version (the ``sort`` mode's select), each the median of 20
+    single calls between CUDA events; the bare launch with ``sort=False`` on
+    the stable-sorted rows and ``sort=True`` on the unsorted ones, each back
+    to back (mean of 20) and queued behind a device sleep (the card's time);
+    the ``torch.sort`` + ``gather`` + ``sort=False`` route and ``torch.sort``
+    alone; the bound of each flag at each width and summed over E3's 17
+    calls.  Returns ({width: figures}, step sums)."""
+    import torch
+    from ptx_torch.core.constants import EPS
+    from ptx_torch.ops import sweep_kernel
+
+    L, out, step = hit.L, {}, {}
+    for B in sorted(rec, reverse=True):
+        t0, t1, s, e = rec[B]
+        S = s.shape[0]
+        with torch.no_grad():
+            s_s, idx = torch.sort(s, dim=0, stable=True)
+            e_s = e.gather(0, idx)
+            want = sweep_kernel.sweep_select_reference(s_s, e_s, t0, t1, L, EPS, False)
+            outs = {}
+            for flag, args in ((False, (s_s, e_s)), (True, (s, e))):
+                outs[flag] = sweep_kernel.launch(*args, t0, t1, L, EPS, flag)
+                torch.cuda.synchronize()
+                bad = {n: int((a != w).sum()) for n, a, w in zip(K9_OUTPUTS, outs[flag], want)}
+                if any(bad.values()):
+                    raise AssertionError(f"{tag}: K9 sort={flag} differs from its plain "
+                                         f"version at B={B} on {bad} lanes")
+            bare = {False: lambda: sweep_kernel.launch(s_s, e_s, t0, t1, L, EPS, False,
+                                                       out=outs[False]),
+                    True: lambda: sweep_kernel.launch(s, e, t0, t1, L, EPS, True,
+                                                      out=outs[True])}
+
+            def route_a():
+                a, i = torch.sort(s, dim=0, stable=True)
+                return sweep_kernel.launch(a.contiguous(), e.gather(0, i), t0, t1, L, EPS,
+                                           False)
+
+            wrap = lambda: hit.select(t0, t1, s, e)
+            plain = lambda: sweep_kernel.sweep_select_reference(s, e, t0, t1, L, EPS, True)
+            p1, w1, w2, p2 = _time_ms(plain), _time_ms(wrap), _time_ms(wrap), _time_ms(plain)
+            b0, b1 = _time_back_to_back_ms(bare[False]), _time_back_to_back_ms(bare[True])
+            q0, q1 = _time_queued_ms(bare[False]), _time_queued_ms(bare[True])
+            ra, srt = _time_ms(route_a), _time_ms(lambda: torch.sort(s, dim=0, stable=True))
+            bounds = {f: bound_k9(s, L, want, f) for f in (False, True)}
+        del want
+        out[B] = dict(S=S, wrapper_ms=min(w1, w2), plain_ms=min(p1, p2), bare_sort_false_ms=b0,
+                      bare_sort_true_ms=b1, queued_sort_false_ms=q0, queued_sort_true_ms=q1,
+                      torch_sort_route_ms=ra, torch_sort_ms=srt,
+                      bound_sort_false=bounds[False], bound_sort_true=bounds[True],
+                      sort_inside=sweep_kernel.sort_inside(S))
+        log(f"[{tag}] K9 at B={B} (S={S}, L={L}; kernel mode sorts "
+            f"{'inside K9' if out[B]['sort_inside'] else 'with torch.sort'}): == plain with "
+            f"both flags; as the sweep calls it {w1:.4f} / {w2:.4f} ms, plain {p1:.4f} / "
+            f"{p2:.4f} ms; bare sort=False {b0:.4f} ms back to back, {q0:.4f} ms queued "
+            f"(bound {bounds[False][0]:.4g} ms, {bounds[False][1]}: {bounds[False][0] / q0:.3f} "
+            f"of it); bare sort=True {b1:.4f} / {q1:.4f} ms (bound {bounds[True][0]:.4g} ms, "
+            f"{bounds[True][1]}: {bounds[True][0] / q1:.3f}); torch.sort + gather + sort=False "
+            f"{ra:.4f} ms, torch.sort alone {srt:.4f} ms")
+    widths = _wavefront_widths(W * H * SPP_E, DEPTH)
+    if all(B in out for B in widths):
+        for k in ("queued_sort_false_ms", "queued_sort_true_ms", "torch_sort_route_ms"):
+            step[k] = sum(out[B][k] for B in widths)
+        for f in (False, True):
+            step[f"bound_sort_{str(f).lower()}_ms"] = sum(out[B][f"bound_sort_{str(f).lower()}"][0]
+                                                         for B in widths)
+        log(f"[{tag}] summed over E3's step ({len(widths)} calls at widths "
+            f"{sorted(set(widths), reverse=True)}): queued sort=False "
+            f"{step['queued_sort_false_ms']:.4f} ms (bound {step['bound_sort_false_ms']:.4f}), "
+            f"sort=True {step['queued_sort_true_ms']:.4f} ms (bound "
+            f"{step['bound_sort_true_ms']:.4f}); the torch.sort route "
+            f"{step['torch_sort_route_ms']:.4f} ms")
+    chunk = _wavefront_widths(BAND_ROWS * W, DEPTH)
+    if all(B in out for B in chunk):
+        for f in ("false", "true"):
+            step[f"chunk_mean_queued_sort_{f}_us"] = 1e3 * sum(
+                out[B][f"queued_sort_{f}_ms"] for B in chunk) / len(chunk)
+        log(f"[{tag}] a chunk's mean a call (queued, {len(chunk)} calls): sort=False "
+            f"{step['chunk_mean_queued_sort_false_us']:.2f} us, sort=True "
+            f"{step['chunk_mean_queued_sort_true_us']:.2f} us")
+    return out, step
+
+
+def walk_visits(scene, o, d, out):
+    """Per lane of one hit: the distinct event times at or past EPS (below
+    the miss padding) up to the first boundary, all of them on a lane
+    without one: the iterations of a fold that visits events in time
+    order."""
+    import torch
+    from ptx_torch.core.constants import EPS
+    from ptx_torch.geom import fasthit
+
+    with torch.no_grad():
+        t0, t1, _, _ = fasthit._leaf_intervals(fasthit.collect_leaves(scene.plan),
+                                               scene.params, *o.unbind(-1), *d.unbind(-1))
+        T = torch.sort(torch.cat([t0, t1]), dim=0).values
+        new = torch.ones_like(T, dtype=torch.bool)
+        new[1:] = T[1:] != T[:-1]
+        lim = torch.where(out["hit"], out["t"], torch.full_like(out["t"], float("inf")))
+        return (new & (T >= EPS) & (T < 3e20) & (T <= lim[None])).sum(0)
+
+
+def visits_histogram(counts):
+    """``{visits: lanes}`` of :func:`walk_visits`'s counts."""
+    import torch
+
+    v, n = torch.unique(counts.cpu(), return_counts=True)
+    return {int(a): int(b) for a, b in zip(v, n)}
+
+
+def sass_counts(stem, kname):
+    """SASS instructions of every instantiation of kernel ``kname`` in the
+    built library ``stem`` (``cuobjdump -sass``), by mangled name."""
+    import re
+    import shutil
+
+    from ptx_torch.ops import _build
+
+    so = max(_build._BUILD.glob(f"{stem}-*.so"), key=os.path.getmtime)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    txt = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True, check=True,
+                         timeout=300).stdout
+    counts, fn = {}, None
+    for ln in txt.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[1].strip()
+            fn = fn if f"{len(kname)}{kname}" in fn else None
+            if fn:
+                counts[fn] = 0
+        elif fn and re.match(r"\s*/\*[0-9a-f]{4,}\*/", ln):
+            counts[fn] += 1
+    return counts
 
 
 def run_path_e(dev):
@@ -2195,16 +2464,16 @@ def run_path_e(dev):
     line read."""
     from ptx_torch.ops import sweep_kernel
 
-    lanes, k9_err, flips, k9_in, trainE = 0, 0.0, 0, {}, {}
+    lanes, k9_err, flips, trainE = 0, 0.0, 0, {}
     for nm in ("S1", "S2", "bitten"):
         sc = _compile_e(nm, dev)
-        n, e9, f, _, passes, k9_in[nm] = _timed(f"E1 {nm} K9 chunk", phase_k9_chunk, sc,
-                                                f"E1 {nm} K9 vs plain", nm != "bitten")
+        n, e9, f, _, passes = _timed(f"E1 {nm} K9 chunk", phase_k9_chunk, sc,
+                                     f"E1 {nm} K9 vs plain", nm != "bitten")
         lanes, k9_err, flips = lanes + n, max(k9_err, e9), flips + f
         log(f"[E1 {nm}] fixpoint passes per bounce {passes}")
-        if nm == "bitten":
-            del k9_in[nm]
         del sc
+    e9, _ = _timed("E1 chain", phase_k9_chain, dev)
+    k9_err = max(k9_err, e9)
     for nm, cm in (("S2", _swapped(sweep_kernel, "sweep_select", _plain_select)),
                    ("bitten-default", None), ("carved", None)):
         sc = _compile_e(nm, dev)
@@ -2218,8 +2487,12 @@ def run_path_e(dev):
         del sc
     with _env(PTX_SWEEP_MODE="kernel", PTX_MEGAB="0"):
         rays_s = _timed("E4 render --scene", phase_render_scene, "E4 render --scene", "K9")
-    timeE = {nm: _timed(f"E5 {nm} timing", phase_timing_k9, f"E5 {nm} timing", k9_in[nm])
-             for nm in ("S1", "S2")}
+    timeE = {}
+    for nm in ("S1", "S2"):
+        sc = _compile_e(nm, dev)
+        rec, hit = _timed(f"E5 {nm} record", record_select_inputs, sc)
+        timeE[nm] = _timed(f"E5 {nm} timing", phase_timing_k9, f"E5 {nm} timing", rec, hit)
+        del sc, rec, hit
     return lanes, k9_err, flips, trainE, rays_s, timeE
 
 
@@ -2322,7 +2595,9 @@ def main():
 
     # path E, the union sweep's other modes: K9, the local fold, the blocked hit
     k9_lanes, err9, flipsE, trainE, composed_k9_rays_s, timeE = run_path_e(dev)
-    k9_ms, k9p_ms, k9_bound, _, _, _ = timeE["S1"]
+    k9_at = timeE["S1"][0][BAND_ROWS * W]
+    k9_ms, k9p_ms = k9_at["wrapper_ms"], k9_at["plain_ms"]
+    k9_bound = k9_at["bound_sort_true" if k9_at["sort_inside"] else "bound_sort_false"]
 
     fb_rays, f_rays = _timed("9 fwd+bwd", phase_fwd_bwd, scene)
     w_ms, p_ms, dev_ms, _ = _timed("10 K1 timing", phase_timing, scene, inputs)

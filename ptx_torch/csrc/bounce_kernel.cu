@@ -11,19 +11,20 @@
 // strength, u_coin 8 B; u3 12 B; alive 1 B) and writes 73 B (t, o2, d2,
 // thr2, strength2, u_sel, evt; five decision bytes; mat_id as int64).  At
 // B = 65536 that is ~9 MB per bounce: ~2.7 us of HBM time at 3.35 TB/s.
-// The arithmetic is the membership fold, 2L x L x 2 compares per ray
-// (676 pairs at the demo's L = 13), plus a dozen transcendentals.
+// The arithmetic is the fold (the tape once a distinct event time up to the
+// first boundary: most lanes stop at their first; the TPU kernel's masks
+// take 2L x L x 2 compares a ray, 676 pairs at the demo's L = 13), plus a
+// dozen transcendentals.
 //
 // Design.
 // - The scene arrives as one float32 buffer (< 8 KB for L <= 24), copied to
 //   shared memory by every block: the geometry and CSG tape of K4's buffer
 //   (hit_fold.cuh), then the material scalars.  One kernel serves every
 //   eligible scene; nothing is generated per scene.
-// - The first hit is hit_fold.cuh's first_hit, the same code K4 runs: a
-//   template on the leaf bucket (8, 16, 24), its intervals and masks in
-//   registers, the tape's stack below its top in shared-memory columns (as
-//   deep as the scene's tape needs), so that no array sits in local
-//   memory.  The entry point picks the bucket.
+// - The first hit is hit_fold.cuh's walk in time order, the same code K4
+//   runs: a template on the leaf bucket (8, 16, 24), its intervals in
+//   registers and the tape's stack two registers of bits, so that no array
+//   sits in local memory.  The entry point picks the bucket.
 // - The kernel writes what the fused bounce returns: hit, entering,
 //   take_transmit, scatter_alive and alive2 as bytes, evt, and mat_id as
 //   int64 from the leaf records' material word, so a bounce is the
@@ -45,27 +46,16 @@
 namespace {
 
 using ptx_hit::FirstHit;
-using ptx_hit::Mask;
-using ptx_hit::Stack;
 using ptx_hit::Vec3;
-using ptx_hit::kLeafStride;
 using ptx_hit::kMaxLeaves;
 using ptx_shade::kMatStride;
 
 constexpr int kThreads = 128;
 
-// dynamic shared memory: the scene buffer, then the tape stack's two
-// columns of n_stk slots (8-byte aligned)
-template <int LB>
-size_t smem_bytes(int scene_words, int n_stk) {
-  return sizeof(float) * (size_t)((scene_words + 1) & ~1) +
-         2 * sizeof(Mask<LB>) * (size_t)n_stk * kThreads;
-}
-
 template <int LB>
 __global__ void __launch_bounds__(kThreads)
 bounce_forward_kernel(const float* __restrict__ scene, int scene_words, int L,
-                      int mat_off, int tape_off, int tape_len, int n_stk,
+                      int mat_off, int tape_off, int tape_len,
                       const float* __restrict__ o_in, const float* __restrict__ d_in,
                       const float* __restrict__ thr_in,
                       const float* __restrict__ strength_in,
@@ -79,11 +69,8 @@ bounce_forward_kernel(const float* __restrict__ scene, int scene_words, int L,
                       uint8_t* __restrict__ sa_out, uint8_t* __restrict__ alive_out,
                       int* __restrict__ evt_out, int64_t* __restrict__ mat_out,
                       float* __restrict__ u_sel_out) {
-  using M = Mask<LB>;
   extern __shared__ float s[];
   for (int i = threadIdx.x; i < scene_words; i += blockDim.x) s[i] = scene[i];
-  M* stk = reinterpret_cast<M*>(s + ((scene_words + 1) & ~1));
-  const Stack<M> st = {stk + threadIdx.x, stk + n_stk * kThreads + threadIdx.x, kThreads};
   __syncthreads();
 
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -98,10 +85,10 @@ bounce_forward_kernel(const float* __restrict__ scene, int scene_words, int L,
   const float u0 = u3_in[3 * lane], u1 = u3_in[3 * lane + 1], u2 = u3_in[3 * lane + 2];
 
   // ---- first hit -----------------------------------------------------------
-  const FirstHit h = ptx_hit::first_hit<LB>(s, L, tape_off, tape_len, o, d, st);
+  const FirstHit h = ptx_hit::first_hit_walk<LB>(s, L, tape_off, tape_len, o, d);
   const bool hit = h.hit;
   const float t = hit ? h.t : 0.f;
-  const int mat = hit ? (int)s[kLeafStride * h.leaf + 3] : 0;
+  const int mat = ptx_hit::hit_material(s, h);
   const ptx_shade::Shaded r =
       ptx_shade::shade_lane(hit, h.entering, t, h.normal, s + mat_off + kMatStride * mat, o,
                             d, thr, strength, alive, u_coin, u0, u1, u2, in_depth);
@@ -131,23 +118,16 @@ bounce_forward_kernel(const float* __restrict__ scene, int scene_words, int L,
 
 template <int LB>
 int launch(const float* scene, int scene_words, int L, int mat_off, int tape_off,
-           int tape_len, int n_stk, const float* o, const float* d, const float* thr,
+           int tape_len, const float* o, const float* d, const float* thr,
            const float* strength, const uint8_t* alive, const float* u_coin,
            const float* u3, int in_depth, int B, float* t, float* o2, float* d2,
            float* thr2, float* strength2, uint8_t* hit, uint8_t* entering,
            uint8_t* take_transmit, uint8_t* scatter_alive, uint8_t* alive2, int* evt,
            int64_t* mat_id, float* u_sel, cudaStream_t stream) {
-  const size_t smem = smem_bytes<LB>(scene_words, n_stk);
-  static size_t opted = 48 * 1024;              // the opt-in, once per size
-  if (smem > opted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        bounce_forward_kernel<LB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    opted = smem;
-  }
+  const size_t smem = sizeof(float) * (size_t)scene_words;
   bounce_forward_kernel<LB><<<(B + kThreads - 1) / kThreads, kThreads, smem, stream>>>(
-      scene, scene_words, L, mat_off, tape_off, tape_len, n_stk, o, d, thr, strength, alive,
-      u_coin, u3, in_depth, B, t, o2, d2, thr2, strength2, hit, entering, take_transmit,
+      scene, scene_words, L, mat_off, tape_off, tape_len, o, d, thr, strength, alive, u_coin,
+      u3, in_depth, B, t, o2, d2, thr2, strength2, hit, entering, take_transmit,
       scatter_alive, alive2, evt, mat_id, u_sel);
   return (int)cudaGetLastError();
 }
@@ -158,17 +138,17 @@ int launch(const float* scene, int scene_words, int L, int mat_off, int tape_off
 // returns cudaGetLastError() — nonzero when the launch was refused.
 extern "C" int ptx_bounce_forward(
     const float* scene, int scene_words, int L, int mat_off, int tape_off, int tape_len,
-    int n_stk, const float* o, const float* d, const float* thr, const float* strength,
+    const float* o, const float* d, const float* thr, const float* strength,
     const uint8_t* alive, const float* u_coin, const float* u3, int in_depth, int B,
     float* t, float* o2, float* d2, float* thr2, float* strength2, uint8_t* hit,
     uint8_t* entering, uint8_t* take_transmit, uint8_t* scatter_alive, uint8_t* alive2,
     int* evt, int64_t* mat_id, float* u_sel, void* stream) {
-  if (L < 1 || L > kMaxLeaves || B < 1 || n_stk < 0) return (int)cudaErrorInvalidValue;
+  if (L < 1 || L > kMaxLeaves || B < 1) return (int)cudaErrorInvalidValue;
   const int lb = ptx_hit::leaf_bucket(L);
   auto go = lb == 8 ? &launch<8> : lb == 16 ? &launch<16> : &launch<24>;
-  return go(scene, scene_words, L, mat_off, tape_off, tape_len, n_stk, o, d, thr, strength,
-            alive, u_coin, u3, in_depth, B, t, o2, d2, thr2, strength2, hit, entering,
-            take_transmit, scatter_alive, alive2, evt, mat_id, u_sel, (cudaStream_t)stream);
+  return go(scene, scene_words, L, mat_off, tape_off, tape_len, o, d, thr, strength, alive,
+            u_coin, u3, in_depth, B, t, o2, d2, thr2, strength2, hit, entering, take_transmit,
+            scatter_alive, alive2, evt, mat_id, u_sel, (cudaStream_t)stream);
 }
 
 extern "C" const char* ptx_cuda_error_name(int err) {

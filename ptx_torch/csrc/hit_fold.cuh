@@ -1,9 +1,9 @@
 // The CSG first-hit fold shared by the fused bounce kernel K1
 // (bounce_kernel.cu) and the hit-only kernel K4 (fasthit_kernel.cu): the
-// leaf intervals, the after/before masks, the postfix tape and the
-// first-minimum scan in event order, run by one thread per ray.  It is the
-// port of ptx/ops/fasthit_kernel.py hit_fold (:173); its plain PyTorch
-// version is ptx_torch/geom/fasthit.py compile_fast_hit.
+// leaf intervals, the postfix tape and the first boundary in time order,
+// run by one thread per ray.  It is the port of ptx/ops/fasthit_kernel.py
+// hit_fold (:173); its plain PyTorch version is ptx_torch/geom/fasthit.py
+// compile_fast_hit.
 //
 // The scene is one float32 buffer in shared memory (ptx_torch/ops/
 // fasthit_kernel.py pack_geometry): L leaf records of 5 words (kind 0 sphere
@@ -14,26 +14,25 @@
 // -3 difference).
 //
 // - Candidates: leaf k's start time is event k, its end time event L + k.
-//   For each leaf the masks after_k / before_k hold, for every event i,
-//   whether t_i lies in [t0_k, t1_k) / (t0_k, t1_k].  The postfix tape runs
-//   once over those masks (|, &, & ~), giving root membership just after /
-//   before every event at once; the root's boundaries are the events where
-//   the two differ, kept when t_i >= EPS.
-// - The first hit is the minimum candidate, scanned in event order with a
-//   strict <, so the first of equal times wins: the leaf order of
+//   An event is a boundary of the root where its membership just after
+//   (leaves with t0 <= t < t1) and just before (t0 < t <= t1) differ, kept
+//   when t >= EPS.  The first hit is the least boundary time; among events
+//   at that time the least index wins, so the leaf order of
 //   fasthit.collect_leaves is the coincident-boundary tie-break the demo
 //   needs (its diffuse sphere and emissive core coincide).
+// - The walk (first_hit_walk): membership depends on the time alone, so the
+//   fold visits the distinct event times at or past EPS in ascending order,
+//   runs the tape once a visited time over one after / before bit a leaf
+//   and stops at the first boundary.  Most lanes stop at their first time
+//   (PERF.md); the TPU kernel's masks over all 2L events cost ~4L^2
+//   compares a lane whatever its answer.
 // - Nothing is indexed at run time in local memory.  The fold is a
-//   template on a leaf bucket LB (8, 16 or 24 leaves: 32-bit masks up to
-//   16, 64-bit above); its loops are unrolled to LB with the run-time L as a
-//   uniform guard, so the intervals and masks sit in registers.  Inside the
-//   bucket, leaf k's start is bit k and its end bit LB + k; the scan reports
-//   the event numbering above.  The tape pushes its leaves in descending
-//   order (collect_leaves reverses the tape's depth-first order; the
-//   wrapper checks it), so leaf k's masks are built right where the walk
-//   pushes them, and the stack below its top lives in the caller's columns
-//   (shared memory on the card, [slot][thread]).  A leaf the ray misses
-//   (t0 = t1 = PAD) is in no event's membership, so its masks are skipped.
+//   template on a leaf bucket LB (8, 16 or 24 leaves); its loops are
+//   unrolled to LB with the run-time L as a uniform guard, so the intervals
+//   sit in registers.  The tape pushes its leaves in descending order
+//   (collect_leaves reverses the tape's depth-first order; the wrapper
+//   checks it), so leaf k's bits are formed right where the walk over the
+//   leaves pushes them; the stack below the top is two registers of bits.
 // - Every expression follows the plain version's operation order; the
 //   sources are built with -fmad=false (the host build with
 //   -ffp-contract=off), so each operation rounds once.
@@ -44,8 +43,6 @@
 #pragma once
 
 #include <stdint.h>
-
-#include <type_traits>
 
 #ifndef PTX_HD
 #ifdef __CUDACC__
@@ -62,7 +59,7 @@ constexpr float kEps = 1e-3f;
 constexpr float kEps2 = 1e-6f;              // EPS * EPS
 constexpr float kMaxValue = 1e20f;
 constexpr float kPadT = 3e20f;              // "no boundary"
-constexpr int kMaxLeaves = 24;              // 2L events fit one 64-bit mask
+constexpr int kMaxLeaves = 24;              // the largest leaf bucket (the routing's limit)
 constexpr int kLeafStride = 5;              // kind, geo offset, has_xform, material, parity
 
 struct Vec3 {
@@ -161,42 +158,10 @@ struct FirstHit {
   Vec3 normal;
 };
 
-// The masks of a leaf bucket: one bit per event of LB leaves.
+// Every leaf's interval (kPadT past L).
 template <int LB>
-using Mask = typename std::conditional<(LB <= 16), uint32_t, uint64_t>::type;
-
-// The tape's stack below its top: slot k of a thread's two columns.
-template <class M>
-struct Stack {
-  M* a;
-  M* b;
-  int stride;
-};
-
-// The after / before masks of leaf k (its t0k, t1k) over the L events.
-template <int LB>
-PTX_HD void leaf_masks(const float (&t0)[LB], const float (&t1)[LB], float t0k, float t1k,
-                       int L, Mask<LB>& ma, Mask<LB>& mb) {
-  using M = Mask<LB>;
-  ma = mb = 0;
-#pragma unroll
-  for (int i = 0; i < LB; ++i) {
-    if (i < L) {
-      const float ts = t0[i], te = t1[i];
-      if (t0k <= ts && ts < t1k) ma |= M(1) << i;
-      if (t0k < ts && ts <= t1k) mb |= M(1) << i;
-      if (t0k <= te && te < t1k) ma |= M(1) << (LB + i);
-      if (t0k < te && te <= t1k) mb |= M(1) << (LB + i);
-    }
-  }
-}
-
-template <int LB>
-PTX_HD FirstHit first_hit(const float* s, int L, int tape_off, int tape_len, Vec3 o,
-                          Vec3 d, Stack<Mask<LB>> st) {
-  using M = Mask<LB>;
-  float t0[LB], t1[LB];
-  M ge_eps = 0;
+PTX_HD void leaf_intervals(const float* s, int L, Vec3 o, Vec3 d, float (&t0)[LB],
+                           float (&t1)[LB]) {
 #pragma unroll
   for (int k = 0; k < LB; ++k) {
     t0[k] = t1[k] = kPadT;
@@ -205,30 +170,54 @@ PTX_HD FirstHit first_hit(const float* s, int L, int tape_off, int tape_len, Vec
       const int kind = (int)rec[0], geo = (int)rec[1];
       const LeafRay r = leaf_ray(s, geo, kind, rec[2] != 0.f, o, d);
       leaf_interval(s, geo, kind, r, t0[k], t1[k]);
-      if (t0[k] >= kEps) ge_eps |= M(1) << k;
-      if (t1[k] >= kEps) ge_eps |= M(1) << (LB + k);
     }
   }
+}
 
-  // the tape: leaf L - 1 first, each leaf's masks built where it is pushed
-  int p = 0, sp = 0;
-  M ta = 0, tb = 0;                              // the stack's top
+// hit, leaf and the signed normal of a decided first hit (`any`: a
+// candidate exists).
+PTX_HD void finish_hit(const float* s, int L, Vec3 o, Vec3 d, FirstHit& h, bool any) {
+  h.hit = any && !(h.t >= kMaxValue);
+  h.leaf = h.event >= L ? h.event - L : h.event;
+  const float* rec = s + kLeafStride * h.leaf;
+  const int kind = (int)rec[0], geo = (int)rec[1];
+  const bool xf = rec[2] != 0.f;
+  const float sign = rec[4] * (h.entering ? 1.f : -1.f);
+  const Vec3 n = leaf_normal(s, geo, kind, xf, leaf_ray(s, geo, kind, xf, o, d), h.t);
+  h.normal = {n.x * sign, n.y * sign, n.z * sign};
+}
+
+// Leaf k's bits at time tau: inside just after (t0 <= tau < t1) and just
+// before (t0 < tau <= t1); a missed leaf (t0 = t1 = kPadT) in neither.
+PTX_HD void leaf_bits(float t0k, float t1k, float tau, bool& a, bool& b) {
+  a = t0k <= tau && tau < t1k;
+  b = t0k < tau && tau <= t1k;
+}
+
+// The root's membership just after (ra) and just before (rb) tau: the
+// postfix tape once over the leaves' bits, the stack below its top one bit
+// a slot in two registers (the tape is at most 32 deep).
+template <int LB>
+PTX_HD void root_bits(const float* s, int L, int tape_off, int tape_len, const float (&t0)[LB],
+                      const float (&t1)[LB], float tau, bool& ra, bool& rb) {
+  uint32_t sa = 0, sb = 0;
+  bool ta = false, tb = false;
+  int p = 0;
 #pragma unroll
   for (int j = 0; j < LB; ++j) {
     const int k = LB - 1 - j;
     if (k < L) {
       if (p > 0) {
-        st.a[sp * st.stride] = ta;
-        st.b[sp * st.stride] = tb;
-        ++sp;
+        sa = (sa << 1) | (uint32_t)ta;
+        sb = (sb << 1) | (uint32_t)tb;
       }
-      ta = tb = 0;                               // a missed leaf is empty
-      if (t0[k] != kPadT) leaf_masks<LB>(t0, t1, t0[k], t1[k], L, ta, tb);
+      leaf_bits(t0[k], t1[k], tau, ta, tb);
       for (++p; p < tape_len; ++p) {
         const int op = (int)s[tape_off + p];
         if (op >= 0) break;
-        --sp;
-        const M a = st.a[sp * st.stride], b = st.b[sp * st.stride];
+        const bool a = sa & 1u, b = sb & 1u;
+        sa >>= 1;
+        sb >>= 1;
         if (op == -1) {
           ta = a | ta;
           tb = b | tb;
@@ -236,45 +225,89 @@ PTX_HD FirstHit first_hit(const float* s, int L, int tape_off, int tape_len, Vec
           ta = a & ta;
           tb = b & tb;
         } else {
-          ta = a & ~ta;
-          tb = b & ~tb;
+          ta = a & !ta;
+          tb = b & !tb;
         }
       }
     }
   }
-  const M cand = (ta ^ tb) & ge_eps;
+  ra = ta;
+  rb = tb;
+}
 
+// The first hit of one ray, visiting the distinct event times at or past
+// EPS in ascending order (each next time an O(L) select above the last) and
+// stopping at the first where the root's membership after and before
+// differ.  Membership depends on the time alone, so every event at that
+// time is a boundary and none before it is: the winner is the lowest event
+// index there (the least leaf starting at it, else L plus the least leaf
+// ending at it), as a strict-< scan over the events in order picks.  A
+// boundary at or past kPadT wins nothing (t kPadT, event 0, entering
+// false); without a boundary, entering is event 0's root membership, as the
+// plain argmin takes.
+template <int LB>
+PTX_HD FirstHit first_hit_walk(const float* s, int L, int tape_off, int tape_len, Vec3 o,
+                               Vec3 d) {
+  float t0[LB], t1[LB];
+  leaf_intervals<LB>(s, L, o, d, t0, t1);
   FirstHit h;
   h.t = kPadT;
   h.event = 0;
   h.entering = false;
+  bool any = false;
+  float last = 0.f;                              // below EPS: the first visit is the least
+#pragma unroll 1
+  for (int it = 0; it < 2 * L; ++it) {
+    bool more = false;
+    float tau = 0.f;
 #pragma unroll
-  for (int i = 0; i < LB; ++i) {
-    if (i < L && ((cand >> i) & 1) && t0[i] < h.t) {
-      h.t = t0[i];
-      h.event = i;
-      h.entering = (ta >> i) & 1;
+    for (int k = 0; k < LB; ++k) {
+      if (k < L) {
+        const float a = t0[k], b = t1[k];
+        if (a >= kEps && a > last && (!more || a < tau)) {
+          tau = a;
+          more = true;
+        }
+        if (b >= kEps && b > last && (!more || b < tau)) {
+          tau = b;
+          more = true;
+        }
+      }
     }
-  }
+    if (!more) break;
+    bool ra, rb;
+    root_bits<LB>(s, L, tape_off, tape_len, t0, t1, tau, ra, rb);
+    if (ra != rb) {
+      any = true;
+      if (tau < kPadT) {
+        int ev = -1;
 #pragma unroll
-  for (int i = 0; i < LB; ++i) {
-    if (i < L && ((cand >> (LB + i)) & 1) && t1[i] < h.t) {
-      h.t = t1[i];
-      h.event = L + i;
-      h.entering = (ta >> (LB + i)) & 1;
+        for (int k = 0; k < LB; ++k)
+          if (k < L && ev < 0 && t0[k] == tau) ev = k;
+#pragma unroll
+        for (int k = 0; k < LB; ++k)
+          if (k < L && ev < 0 && t1[k] == tau) ev = L + k;
+        h.t = tau;
+        h.event = ev;
+        h.entering = ra;
+      }
+      break;
     }
+    last = tau;
   }
-  if (cand == 0) h.entering = ta & 1;            // event 0's, as the plain argmin takes
-  h.hit = cand != 0 && !(h.t >= kMaxValue);
-  h.leaf = h.event >= L ? h.event - L : h.event;
-
-  const float* rec = s + kLeafStride * h.leaf;
-  const int kind = (int)rec[0], geo = (int)rec[1];
-  const bool xf = rec[2] != 0.f;
-  const float sign = rec[4] * (h.entering ? 1.f : -1.f);
-  const Vec3 n = leaf_normal(s, geo, kind, xf, leaf_ray(s, geo, kind, xf, o, d), h.t);
-  h.normal = {n.x * sign, n.y * sign, n.z * sign};
+  if (!any) {
+    bool ra, rb;
+    root_bits<LB>(s, L, tape_off, tape_len, t0, t1, t0[0], ra, rb);
+    h.entering = ra;                             // event 0's
+  }
+  finish_hit(s, L, o, d, h, any);
   return h;
+}
+
+// The material id of the winning leaf (its record's material word), 0 on a
+// miss: the dense hit's mat_id.
+PTX_HD int hit_material(const float* s, const FirstHit& h) {
+  return h.hit ? (int)s[kLeafStride * h.leaf + 3] : 0;
 }
 
 // The leaf bucket of L leaves (the fold's template argument).

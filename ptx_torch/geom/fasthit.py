@@ -478,8 +478,10 @@ class UnionSweepHit:
     - ``sort``: a stable sort by ``s``, the exclusive prefix max and the
       break minima: K9's plain version,
       :func:`~ptx_torch.ops.sweep_kernel.sweep_select_reference`;
-    - ``kernel``: the same stable sort, then K9
-      (:func:`~ptx_torch.ops.sweep_kernel.sweep_select`, ``sort=False``).
+    - ``kernel``: K9 (:func:`~ptx_torch.ops.sweep_kernel.sweep_select`):
+      ``sort=True`` on the unsorted intervals where
+      :func:`~ptx_torch.ops.sweep_kernel.sort_inside` says so, else the
+      same stable sort, then ``sort=False``.
 
     All three read the same intervals and give the same outputs bit for
     bit.  The payload is the least leaf whose raw ``t0`` (then ``t1``)
@@ -563,6 +565,8 @@ class UnionSweepHit:
             if self.mode == "sort":
                 return sweep_kernel.sweep_select_reference(s, e, t0, t1, L, EPS, sort=True)
             if self.mode == "kernel":
+                if sweep_kernel.sort_inside(s.shape[0]):
+                    return sweep_kernel.sweep_select(s, e, t0, t1, L, EPS, sort=True)
                 s_s, idx = torch.sort(s, dim=0, stable=True)
                 return sweep_kernel.sweep_select(s_s.contiguous(), e.gather(0, idx), t0, t1,
                                                  L, EPS, sort=False)

@@ -1,7 +1,7 @@
 """Where a render's time goes, layer by layer, on one device.
 
-    python -m ptx_torch.layer_profile [--chunks 4] [--device cuda] [--grad | --train]
-        [--demo demo|config1|config2|config3|config4 | --large S1|S2|S3|S4
+    python -m ptx_torch.layer_profile [--chunks 4] [--device cuda] [--grad | --train
+        [--spp 16]] [--demo demo|config1|config2|config3|config4 | --large S1|S2|S3|S4
          | --scene spec.json] [--sky HxW]
 
 Renders a built-in scene (the demo by default; ``--sky HxW`` gives the
@@ -29,15 +29,18 @@ Chrome trace goes to ``--out`` and is parsed here (:func:`summarize`):
   ``megasweep_kernel``; ``replay_bwd_kernel`` and the
   ``reduce_partials_kernel`` after it (K2's and K6's second launch is one
   kernel, counted with the launch it follows); ``emission_forward_kernel``;
-  ``hist_atomic_kernel``; ``sweep_select_kernel`` (the union sweep's
-  ``kernel`` mode: ``PTX_SWEEP_MODE=kernel PTX_MEGAB=0`` with ``--large``);
+  ``hist_atomic_kernel``; ``sweep_select_kernel`` or
+  ``sweep_sort_select_kernel`` (the union sweep's ``kernel`` mode:
+  ``PTX_SWEEP_MODE=kernel PTX_MEGAB=0`` with ``--large``);
 - the ``TOP`` kernels by total device time, with their calls;
 - peak device memory (``max_memory_allocated``) over the unprofiled runs.
 
 ``--train`` profiles ``--chunks`` ``make_train_step`` steps instead of
 render chunks: each one 4,194,304-ray wavefront (512², spp 16, depth 16)
 forward and backward, against a target rendered before the timing, with
-the backward ranges of ``--grad``.
+the backward ranges of ``--grad``; ``--spp`` sets the step's samples per
+pixel (``--spp 4``: the 1,048,576-ray step of chip_smoke.py's path E, whose
+sweep holds (rows, B) tensors per bounce).
 
 ``--grad`` runs each chunk forward and backward (``radiance.mean()``,
 then ``backward()``) and adds one range per backward layer: K2's or K6's
@@ -90,7 +93,7 @@ KERNELS = {"k1": (("bounce_forward_kernel",), None),
            "k6": (("replay_bwd_kernel",), "reduce_partials_kernel"),
            "k7": (("emission_forward_kernel",), None),
            "k8": (("hist_atomic_kernel",), None),
-           "k9": (("sweep_select_kernel",), None)}
+           "k9": (("sweep_select_kernel", "sweep_sort_select_kernel"), None)}
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 TOP = 8                         # kernels listed by total device time
 
@@ -285,7 +288,8 @@ def main(argv=None):
     ap.add_argument("--grad", action="store_true",
                     help="forward and backward of each chunk's mean radiance")
     ap.add_argument("--train", action="store_true",
-                    help="make_train_step steps (--size², spp 16) instead of chunks")
+                    help="make_train_step steps (--size², --spp) instead of chunks")
+    ap.add_argument("--spp", type=int, default=16, help="samples per pixel of a --train step")
     ap.add_argument("--demo", choices=sorted(builders.DEMOS), default="demo",
                     help="built-in scene")
     ap.add_argument("--large", choices=LARGE,
@@ -293,6 +297,8 @@ def main(argv=None):
     ap.add_argument("--scene", help="a JSON scene spec")
     ap.add_argument("--sky", help="HxW procedural sky for the demo or config4")
     args = ap.parse_args(argv)
+    if args.spp != 16 and not args.train:
+        ap.error("--spp sets a --train step's samples per pixel")
     device = torch.device(args.device)
     cuda = device.type == "cuda"
     if cuda and not torch.cuda.is_available():
@@ -323,9 +329,9 @@ def main(argv=None):
     if args.train:
         from ptx_torch.parallel.render import _local_render, make_train_step
         with torch.no_grad():
-            target = _local_render(scene, cam, 16, 16, scene.params, rng.PRNGKey(1), 0,
+            target = _local_render(scene, cam, 16, args.spp, scene.params, rng.PRNGKey(1), 0,
                                    cam.height)
-        step = make_train_step(scene, cam, spp=16, depth=16, learning_rate=3e-4)
+        step = make_train_step(scene, cam, spp=args.spp, depth=16, learning_rate=3e-4)
 
     def run(y0, n):
         if args.train:
@@ -364,7 +370,8 @@ def main(argv=None):
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, f"trace_{name}"
                         f"{'_sky' + args.sky if args.sky else ''}"
-                        f"{'_train' if args.train else '_grad' if args.grad else ''}.json")
+                        f"{'_train' if args.train else '_grad' if args.grad else ''}"
+                        f"{f'_spp{args.spp}' if args.spp != 16 else ''}.json")
     prof.export_chrome_trace(path)
     names = [n for n, _, _ in LAYERS]
     if args.grad:
@@ -374,7 +381,7 @@ def main(argv=None):
 
     wall_ms = min(walls) * 1e3
     s.update(scene=name, sky=args.sky, chunks=args.chunks, train=args.train,
-             rays_per_chunk=args.size ** 2 * 16 if args.train else rows * args.size,
+             rays_per_chunk=args.size ** 2 * args.spp if args.train else rows * args.size,
              peak_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30 if cuda else None,
              wall_ms=wall_ms, walls_ms=[w * 1e3 for w in walls],
              idle_share=1.0 - s["busy_ms"] / wall_ms)

@@ -54,7 +54,7 @@ def _entry_points():
                   + [vp, vp, i, vp, vp])   # mat_start mat_leaves M, d_packed, stream
     return [
         ("ptx_bounce_forward",
-         [vp, i, i, i, i, i, i]         # scene buffer, words, layout, stack slots
+         [vp, i, i, i, i, i]            # scene buffer, words, layout
          + [vp] * 7 + [i, i]            # inputs, in_depth, B
          + [vp] * 13 + [vp], i),        # outputs, stream
         ("ptx_bounce_backward_smem", [i, i], i),
@@ -62,8 +62,8 @@ def _entry_points():
         ("ptx_image_hist", [vp] * 4 + [i] * 4 + [vp, i, i, vp], i),   # out, private, blocks
         ("ptx_image_hist_atomic", [vp] * 4 + [i] * 4 + [vp, vp], i),
         ("ptx_first_hit",
-         [vp, i, i, i, i, i, vp, vp, i]   # scene buffer, words, layout, stack slots, o, d, B
-         + [vp] * 4 + [vp], i),           # t normal flags evt, stream
+         [vp, i, i, i, i, vp, vp, i]      # scene buffer, words, layout, o, d, B
+         + [vp] * 6 + [vp], i),           # t normal mat_id entering hit evt, stream
         ("ptx_emission_forward",
          [vp, vp, i, vp, i, i, i]         # params, const rows, M, image, H, W, C
          + [vp, vp, i, i, i, i]           # pos, mid, N, dyn material, xform, mirror
@@ -78,7 +78,6 @@ def _entry_points():
          + [vp] * 17 + [vp], i),          # outputs (null where unused), stream
         ("ptx_replay_bwd_smem", [i, i], i),
         ("ptx_replay_bwd", replay_bwd, i),
-        ("ptx_sweep_select_smem", [i, i], i),
         ("ptx_sweep_select",
          [vp, vp, i, vp, vp, i, i]        # s, e, S, t0, t1, L, B
          + [ctypes.c_float, i, i, i]      # eps, sort, Sp, tile width

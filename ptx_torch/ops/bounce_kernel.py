@@ -120,7 +120,7 @@ class BounceKernel:
     def __init__(self, scene):
         self.scene = scene
         self.layout = pack_scene(scene.plan, scene.material_fn, scene.params)[1]
-        self.n_stk = stack_below_top(scene.plan)
+        stack_below_top(scene.plan)             # the fold's leaf order, checked
 
     def pack(self, params):
         """The kernel's scene buffer from ``params`` (no autograd)."""
@@ -170,7 +170,7 @@ class BounceKernel:
         L, mat_off, tape_off, tape_len = self.layout
         p = _ptr
         err = lib.ptx_bounce_forward(
-            p(buf), buf.numel(), L, mat_off, tape_off, tape_len, self.n_stk,
+            p(buf), buf.numel(), L, mat_off, tape_off, tape_len,
             p(o), p(d), p(thr), p(strength), p(alive), p(u_coin), p(u3),
             int(bool(in_depth)), B, *(p(x) for x in out.values()), _stream(device))
         _raise_on(err, lib, "bounce kernel")

@@ -3,7 +3,8 @@
 Port of ``ptx/ops/fasthit_kernel.py`` ``build_hit_kernel`` (:233), a
 Pallas TPU kernel, as the hand-written CUDA kernel
 ``ptx_torch/csrc/fasthit_kernel.cu``, which runs the fold K1 runs
-(``csrc/hit_fold.cuh``).
+(``csrc/hit_fold.cuh``, the walk in time order) and writes the first-hit
+dict itself: a call is one launch.
 
 - :class:`HitKernel` is K4's wrapper: ``hit(params, o, d, packed=None)``
   returns the dict of the dense first hit.  On CUDA tensors it launches
@@ -35,7 +36,7 @@ REFERENCE_CALLS = 0
 # scene buffer layout — must match ptx_torch/csrc/hit_fold.cuh
 LEAF_STRIDE = 5      # kind (0 sphere, 1 plane), geo offset, has_xform, material, parity
 _OP_UNION, _OP_INTERSECTION, _OP_DIFFERENCE = -1, -2, -3
-_MAX_STACK = 32      # the tape's deepest stack (shared-memory columns in the kernels)
+_MAX_STACK = 32      # the tape's deepest stack (the kernels' fold: 32 bits a register)
 MAX_SCENE_BYTES = 48 * 1024   # dynamic shared memory without opt-in
 
 
@@ -71,8 +72,8 @@ def _stack_depth(prog) -> int:
 
 def stack_below_top(plan) -> int:
     """The stack slots below the top that the kernels' fold
-    (``csrc/hit_fold.cuh`` ``first_hit``) keeps for ``plan``'s tape.  The
-    fold builds each leaf's masks where the tape pushes it, walking the
+    (``csrc/hit_fold.cuh`` ``first_hit_walk``) keeps for ``plan``'s tape.
+    The fold forms each leaf's bits where the tape pushes it, walking the
     leaves from L - 1 down to 0: this checks that the tape pushes them in
     that order (``collect_leaves`` reverses the tape's depth-first order)."""
     leaves = collect_leaves(plan)
@@ -134,9 +135,7 @@ class HitKernel:
     def __init__(self, plan, plain, params):
         self.plan, self.plain = plan, plain
         self.layout = pack_geometry(plan, params)[1]
-        self.n_stk = stack_below_top(plan)
-        self.leaf_mat = torch.tensor([lf.mat_id for lf, _ in collect_leaves(plan)],
-                                     dtype=torch.int64, device=params["sphere_center"].device)
+        stack_below_top(plan)                   # the fold's leaf order, checked
 
     def pack(self, params):
         """The kernel's scene buffer from ``params`` (no autograd)."""
@@ -156,17 +155,13 @@ class HitKernel:
             raise ValueError(f"hit kernel: no kernel for {o.device}")
         if packed is None:
             packed = self.pack(params)
-        t, normal, flags, evt = self.launch(packed, o, d)
-        L = self.leaf_mat.numel()
-        hit = (flags & 1).to(torch.bool)
-        leaf = torch.where(evt >= L, evt - L, evt).to(torch.int64)
-        return {"t": t, "normal": normal, "mat_id": torch.where(hit, self.leaf_mat[leaf], 0),
-                "entering": (flags & 2).to(torch.bool), "hit": hit, "_evt": evt}
+        return self.launch(packed, o, d)
 
     def launch(self, buf, o, d):
-        """One kernel launch on the current stream, no synchronisation:
-        ``t`` (B,), ``normal`` (B, 3), ``flags`` (int32 bits: hit,
-        entering) and ``evt`` (int32)."""
+        """One kernel launch on the current stream, no synchronisation: the
+        dense hit's dict, ``t`` (B,; 0 on a miss), ``normal`` (B, 3),
+        ``mat_id`` (int64; 0 on a miss), ``entering`` and ``hit`` (bool),
+        ``_evt`` (int32; 0 on a miss), all written by the kernel."""
         global LAUNCHES
         from ptx_torch.ops import _build
         from ptx_torch.ops.bounce_kernel import _check_inputs, _ptr, _raise_on, _stream
@@ -179,14 +174,16 @@ class HitKernel:
         if B == 0:
             raise ValueError("hit kernel: empty wavefront")
         lib = _build.library()
-        t = torch.empty(B, dtype=torch.float32, device=device)
-        normal = torch.empty((B, 3), dtype=torch.float32, device=device)
-        flags = torch.empty(B, dtype=torch.int32, device=device)
-        evt = torch.empty(B, dtype=torch.int32, device=device)
+        out = {"t": torch.empty(B, dtype=torch.float32, device=device),
+               "normal": torch.empty((B, 3), dtype=torch.float32, device=device),
+               "mat_id": torch.empty(B, dtype=torch.int64, device=device),
+               "entering": torch.empty(B, dtype=torch.bool, device=device),
+               "hit": torch.empty(B, dtype=torch.bool, device=device),
+               "_evt": torch.empty(B, dtype=torch.int32, device=device)}
         L, tape_off, tape_len = self.layout
-        err = lib.ptx_first_hit(_ptr(buf), buf.numel(), L, tape_off, tape_len, self.n_stk,
-                                _ptr(o), _ptr(d), B, _ptr(t), _ptr(normal), _ptr(flags),
-                                _ptr(evt), _stream(device))
+        err = lib.ptx_first_hit(_ptr(buf), buf.numel(), L, tape_off, tape_len, _ptr(o),
+                                _ptr(d), B, *(_ptr(x) for x in out.values()),
+                                _stream(device))
         _raise_on(err, lib, "hit kernel")
         LAUNCHES += 1
-        return t, normal, flags, evt
+        return out

@@ -1,5 +1,5 @@
-"""The sweep-select kernel K9: the post-sort stage of the union sweep's
-``kernel`` mode.
+"""The sweep-select kernel K9: the select of the union sweep's ``kernel``
+mode.
 
 Port of ``ptx/ops/sweep_kernel.py`` ``build_sweep_select`` (:164), a Pallas
 TPU kernel, as the hand-written CUDA kernel ``ptx_torch/csrc/sweep_kernel.cu``.
@@ -11,7 +11,8 @@ prefix max ``P`` of ``e`` over the rows sorted by ``s``, the breaks (``s <
 payload: the least leaf whose raw ``t0`` (``m_start``), and the least whose
 raw ``t1`` (``m_end``), equals ``t_star`` bit for bit, ``L`` where none
 does.  With ``sort=True`` it sorts ``(s, e)`` by ``s`` itself (a bitonic
-network in shared memory); with ``sort=False`` they come sorted.
+network in registers, one warp a lane); with ``sort=False`` they come
+sorted.
 
 - :func:`sweep_select_reference` is K9's plain PyTorch version (a stable
   sort, ``cummax``, the same masks), on any device and dtype; the union
@@ -19,6 +20,9 @@ network in shared memory); with ``sort=False`` they come sorted.
 - :func:`sweep_select` is K9's wrapper: CUDA tensors launch the kernel or
   raise; CPU tensors, and only those, run the plain version.  ``LAUNCHES``
   and ``REFERENCE_CALLS`` count the two.
+- :func:`sort_inside` is the kernel mode's route: ``sort=True`` on the
+  unsorted intervals up to ``SORT_INSIDE_ROWS`` padded rows, else a stable
+  ``torch.sort`` and ``sort=False``.
 
 The outputs are ``(t_star, entering, m_start, m_end, found)``, each (B,):
 float32, bool, int32, int32, bool.
@@ -31,8 +35,14 @@ import torch
 PAD_T = 3e20                 # start padding and "no candidate"
 NEG = -3e20                  # end padding: never extends a chain
 FOUND = 2e20                 # t_star below this is a boundary
-MAX_SMEM = 232448            # shared memory one block may opt in to (227 KB)
-_TILE_WIDTHS = (32, 16, 8)   # lanes per block of the sort=True kernel, widest first
+SORT_TILE_BYTES = 73728      # a sort=True block's (s, e) columns at most (csrc/sweep_kernel.cu)
+MAX_SORT_ROWS = 1024         # a lane's column sorted in registers: 32 entries a thread
+# Kernel mode sorts inside K9 up to this many padded rows (the most its
+# register sort holds), else runs torch.sort and sort=False.  On an H100
+# (chip_smoke.py E5, PERF.md section 6) sorting inside beat the torch.sort
+# route 10-18x at Sp 256 and 512 at every width of a train step and a
+# chunk: no crossover below the kernel's limit.
+SORT_INSIDE_ROWS = MAX_SORT_ROWS
 
 LAUNCHES = 0
 REFERENCE_CALLS = 0
@@ -40,14 +50,31 @@ REFERENCE_CALLS = 0
 
 def padded_rows(S: int) -> int:
     """The sort=True kernel's row count: a power of 2 of at least 8 and S
-    (the TPU kernel's ``Sp``)."""
+    (the TPU kernel's ``Sp``; the kernel sorts columns of at least 32)."""
     return max(8, 1 << (S - 1).bit_length())
 
 
 def tile_width(Sp: int) -> int | None:
-    """The widest tile of the sort=True kernel whose (s, e) fit a block's
-    shared memory, or None."""
-    return next((bw for bw in _TILE_WIDTHS if 8 * Sp * bw <= MAX_SMEM), None)
+    """The widest tile (lanes a block, a power of 2 up to 16: on an H100 16
+    beat 32 at Sp 256, PERF.md) of the sort=True kernel whose (s, e) columns
+    of ``max(32, Sp) + 1`` rows fit ``SORT_TILE_BYTES``, or None past
+    ``MAX_SORT_ROWS`` rows."""
+    rows = max(32, Sp)
+    if rows > MAX_SORT_ROWS:
+        return None
+    return next(bw for bw in (16, 8, 4, 2, 1) if 8 * bw * (rows + 1) <= SORT_TILE_BYTES)
+
+
+def lane_tile(B: int) -> int:
+    """The sort=False kernel's lanes a block (32, 16 or 8; 256 / that many
+    segments a lane): the widest that still gives some 4 blocks on each of
+    the card's 132 SMs at B lanes."""
+    return next((bw for bw in (32, 16) if B >= bw * 4 * 132), 8)
+
+
+def sort_inside(S: int) -> bool:
+    """Whether kernel mode calls K9 with ``sort=True`` on S unsorted rows."""
+    return padded_rows(S) <= SORT_INSIDE_ROWS
 
 
 def sweep_select_reference(s, e, t0, t1, L: int, eps: float, sort: bool):
@@ -90,8 +117,10 @@ def sweep_select(s, e, t0, t1, L: int, eps: float, sort: bool = False):
     return launch(s, e, t0, t1, L, eps, sort)
 
 
-def launch(s, e, t0, t1, L: int, eps: float, sort: bool = False):
-    """One kernel launch on the current stream, no synchronisation."""
+def launch(s, e, t0, t1, L: int, eps: float, sort: bool = False, out=None, tile=None):
+    """One kernel launch on the current stream, no synchronisation.  ``out``
+    optionally gives the five outputs (as returned), ``tile`` the lanes a
+    block (default :func:`lane_tile` / :func:`tile_width`)."""
     global LAUNCHES
     from ptx_torch.ops import _build
     from ptx_torch.ops.bounce_kernel import _check_inputs, _ptr, _raise_on, _stream
@@ -104,20 +133,20 @@ def launch(s, e, t0, t1, L: int, eps: float, sort: bool = False):
     if S == 0 or L == 0 or B == 0:
         raise ValueError(f"sweep-select kernel: empty input (S={S}, L={L}, B={B})")
     Sp = padded_rows(S) if sort else S
-    bw = tile_width(Sp) if sort else 0
+    bw = tile or (tile_width(Sp) if sort else lane_tile(B))
     if bw is None:
         raise NotImplementedError(
-            f"sweep-select kernel: {Sp} sorted rows of (s, e) exceed a block's "
-            f"{MAX_SMEM} bytes of shared memory at {_TILE_WIDTHS[-1]} lanes")
+            f"sweep-select kernel: {Sp} sorted rows exceed the in-kernel sort's "
+            f"{MAX_SORT_ROWS} (a lane's column in registers and in shared memory)")
     lib = _build.library()
-    t_star = torch.empty(B, dtype=torch.float32, device=device)
-    entering = torch.empty(B, dtype=torch.bool, device=device)
-    m_start = torch.empty(B, dtype=torch.int32, device=device)
-    m_end = torch.empty(B, dtype=torch.int32, device=device)
-    found = torch.empty(B, dtype=torch.bool, device=device)
+    dtypes = (torch.float32, torch.bool, torch.int32, torch.int32, torch.bool)
+    if out is None:
+        out = tuple(torch.empty(B, dtype=dt, device=device) for dt in dtypes)
+    _check_inputs("sweep-select kernel", device, {
+        f"out[{i}]": (x, (B,), dt) for i, (x, dt) in enumerate(zip(out, dtypes, strict=True))})
     err = lib.ptx_sweep_select(_ptr(s), _ptr(e), S, _ptr(t0), _ptr(t1), L, B, float(eps),
-                               int(bool(sort)), Sp, bw, _ptr(t_star), _ptr(entering),
-                               _ptr(m_start), _ptr(m_end), _ptr(found), _stream(device))
+                               int(bool(sort)), Sp, bw, *(_ptr(x) for x in out),
+                               _stream(device))
     _raise_on(err, lib, "sweep-select kernel")
     LAUNCHES += 1
-    return t_star, entering, m_start, m_end, found
+    return out

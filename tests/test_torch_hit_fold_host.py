@@ -10,6 +10,10 @@ PyTorch's CPU square root (vectorised, within 0.5001 ulp) does not round
 as the correctly rounded ``sqrtf`` does: there ``t`` moves by an ulp
 (1e-8 to 3e-7 here; on the card both sides call the same ``sqrtf``).
 
+The fold is the walk in time order (``first_hit_walk``).  The decisions
+include ``mat_id``, K4's material lookup (``hit_material``: the winning
+leaf record's material word, 0 on a miss).
+
 Scenes: the demo, BASELINE configs 1-4, and seeded random CSG trees of
 1-24 leaves (spheres, planes, transformed leaves; unions,
 intersections, differences) with coincident boundaries (leaves that
@@ -46,23 +50,16 @@ _SHIM = r'''
 #include "hit_fold.cuh"
 using namespace ptx_hit;
 
-template <int LB>
-static FirstHit run(const float* s, int L, int off, int len, Vec3 o, Vec3 d) {
-  Mask<LB> a[32], b[32];
-  const Stack<Mask<LB>> st = {a, b, 1};
-  return first_hit<LB>(s, L, off, len, o, d, st);
-}
-
 extern "C" void fold(const float* s, int L, int off, int len, const float* o,
                      const float* d, int n, float* t, int* evt, uint8_t* ent,
-                     uint8_t* hit, float* nrm) {
+                     uint8_t* hit, float* nrm, int64_t* mat) {
   const int lb = leaf_bucket(L);
   for (int i = 0; i < n; ++i) {
     const Vec3 oo = {o[3 * i], o[3 * i + 1], o[3 * i + 2]};
     const Vec3 dd = {d[3 * i], d[3 * i + 1], d[3 * i + 2]};
-    const FirstHit h = lb == 8 ? run<8>(s, L, off, len, oo, dd)
-                     : lb == 16 ? run<16>(s, L, off, len, oo, dd)
-                                : run<24>(s, L, off, len, oo, dd);
+    const FirstHit h = lb == 8 ? first_hit_walk<8>(s, L, off, len, oo, dd)
+                     : lb == 16 ? first_hit_walk<16>(s, L, off, len, oo, dd)
+                                : first_hit_walk<24>(s, L, off, len, oo, dd);
     t[i] = h.hit ? h.t : 0.f;
     evt[i] = h.hit ? h.event : 0;
     ent[i] = h.entering;
@@ -70,6 +67,7 @@ extern "C" void fold(const float* s, int L, int off, int len, const float* o,
     nrm[3 * i] = h.normal.x;
     nrm[3 * i + 1] = h.normal.y;
     nrm[3 * i + 2] = h.normal.z;
+    mat[i] = hit_material(s, h);
   }
 }
 '''
@@ -88,7 +86,7 @@ def fold_lib(tmp_path_factory):
                     f"-I{csrc}", "-o", str(so), str(tmp / "shim.cpp")], check=True)
     lib = ctypes.CDLL(str(so))
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.fold.argtypes = [vp, i, i, i, vp, vp, i] + [vp] * 5
+    lib.fold.argtypes = [vp, i, i, i, vp, vp, i] + [vp] * 6
     return lib
 
 
@@ -164,15 +162,16 @@ def _rays(seed):
 # ---------------------------------------------------------------------------
 
 def _host_fold(lib, plan, params, o, d):
+    """The header's fold on the host: the dense hit's dict."""
     buf, (L, off, length) = fasthit_kernel.pack_geometry(plan, params)
     assert fasthit_kernel.stack_below_top(plan) < 32
     s = np.ascontiguousarray(buf.numpy(), np.float32)
     out = {"t": np.zeros(B, np.float32), "_evt": np.zeros(B, np.int32),
            "entering": np.zeros(B, np.uint8), "hit": np.zeros(B, np.uint8),
-           "normal": np.zeros((B, 3), np.float32)}
+           "normal": np.zeros((B, 3), np.float32), "mat_id": np.zeros(B, np.int64)}
     p = lambda a: a.ctypes.data_as(ctypes.c_void_p)
-    lib.fold(p(s), L, off, length, p(o), p(d), B, p(out["t"]), p(out["_evt"]),
-             p(out["entering"]), p(out["hit"]), p(out["normal"]))
+    lib.fold(p(s), L, off, length, p(o), p(d), B,
+             *(p(out[k]) for k in ("t", "_evt", "entering", "hit", "normal", "mat_id")))
     return {k: torch.from_numpy(v.astype(bool) if v.dtype == np.uint8 else v)
             for k, v in out.items()}
 
@@ -205,7 +204,7 @@ def _check(lib, plan, params, seed, name):
     want = fasthit.compile_fast_hit(plan, candidate_block=0)(
         params, torch.from_numpy(o), torch.from_numpy(d))
     differ = torch.zeros(B, dtype=torch.bool)
-    for k in ("_evt", "hit", "entering"):
+    for k in ("_evt", "hit", "entering", "mat_id"):
         differ |= got[k] != want[k]
     lanes = differ.nonzero().flatten()
     if lanes.numel():

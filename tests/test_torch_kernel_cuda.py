@@ -27,7 +27,11 @@ lists of one bit for bit on the full-width stress scenes S1 and S2.  K1 and
 K5 write their decisions themselves: they must equal the old wrapper decode
 of the raw flags (K4's for K1, K5's hit mode for K5);
 K6 is held as K2.  K9 only compares, selects and takes maxima and minima:
-its five outputs must equal its plain version's bit for bit.
+its five outputs must equal its plain version's bit for bit, with both
+flags, at every tile width and segment count, and through the kernel
+mode's route (the sort inside K9) as through the ``torch.sort`` route.
+K4 writes the dense hit's dict itself: ``mat_id``, ``hit``, ``entering``
+and ``_evt`` must equal the plain dict's, in its dtypes.
 """
 
 import pytest
@@ -428,17 +432,18 @@ def test_k1_decode_in_kernel_matches_the_old_decode(cuda_scene):
         uc = rng.uniform(rng.PRNGKey(b), (n,), dev)
         u3 = rng.uniform(rng.PRNGKey(50 + b), (n, 3), dev)
         got = scene.bounce_fn(scene.params, *carry, uc, u3, True)
-        t, _, flags, evt = k4.launch(k4.pack(scene.params), *carry[:2])
+        k4_out = k4.launch(k4.pack(scene.params), *carry[:2])
         ref = bounce_kernel.bounce_reference(scene, scene.params, *carry, uc, u3, True)
         torch.cuda.synchronize()
         L = leaf_mat.numel()
-        hit = ((flags >> 0) & 1).to(torch.bool)
+        hit, evt = k4_out["hit"], k4_out["_evt"]
         leaf = torch.where(evt >= L, evt - L, evt).to(torch.int64)
         assert got["hit"].dtype == torch.bool and got["mat_id"].dtype == torch.int64
         assert torch.equal(got["hit"], hit)
-        assert torch.equal(got["entering"], ((flags >> 1) & 1).to(torch.bool))
+        assert torch.equal(got["entering"], k4_out["entering"])
         assert torch.equal(got["evt"], evt)
         assert torch.equal(got["mat_id"], torch.where(hit, leaf_mat[leaf], 0))
+        assert torch.equal(got["mat_id"], k4_out["mat_id"])
         for k in ("take_transmit", "scatter_alive", "alive2"):
             assert torch.equal(got[k], ref[k]), k
         carry = (got["o2"], got["d2"], got["thr2"], got["strength2"], got["alive2"])
@@ -575,8 +580,8 @@ def k9_card():
                               "sort-Sp1024"])
 def test_k9_matches_its_plain_version(k9_card, S, L, B, sort, ties):
     """K9 against ``sweep_select_reference`` bit for bit in all five
-    outputs; with ``sort`` on the unsorted intervals (tile widths 32 and
-    16), else on the stable-sorted ones."""
+    outputs; with ``sort`` on the unsorted intervals (tile widths 16 and
+    8), else on the stable-sorted ones."""
     from ptx_torch.core.constants import EPS
     from ptx_torch.ops import sweep_kernel
     s, e, t0, t1 = _k9_inputs(S, L, B, ties)
@@ -591,6 +596,101 @@ def test_k9_matches_its_plain_version(k9_card, S, L, B, sort, ties):
     for name, a, b in zip(("t_star", "entering", "m_start", "m_end", "found"), got, want):
         assert a.dtype == b.dtype and torch.equal(a, b), name
     assert 0 < int(got[1].sum()) < B and int((got[2] < L).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [37, 256, 300, 700], ids=["S37", "Sp256", "Sp512", "Sp1024"])
+@pytest.mark.parametrize("B", [1, 31, 4096, 65536])
+def test_k9_both_flags_at_every_tile(k9_card, S, B):
+    """K9 with both flags against its plain version bit for bit at B = 1,
+    31, 4,096 and 65,536 lanes: ``sort=False`` at every tile width (8, 16,
+    32 lanes: 32, 16, 8 segments of 16 rows, so S = 37 fills no chunk),
+    ``sort=True`` at Sp 64, 256, 512 and 1024 at every tile that fits (32,
+    16 and 8 lanes); L > S; tie-heavy at odd B."""
+    from ptx_torch.core.constants import EPS
+    from ptx_torch.ops import sweep_kernel
+    L = S + 13
+    s, e, t0, t1 = _k9_inputs(S, L, B, ties=B % 2 == 1, seed=S + B)
+    s_s, idx = torch.sort(s, dim=0, stable=True)
+    e_s = e.gather(0, idx)
+    want = sweep_kernel.sweep_select_reference(s_s, e_s, t0, t1, L, EPS, False)
+    runs = [(sweep_kernel.launch(s_s, e_s, t0, t1, L, EPS, False, tile=bw), f"sort=False {bw}")
+            for bw in (8, 16, 32)]
+    rows = max(32, sweep_kernel.padded_rows(S))
+    runs += [(sweep_kernel.launch(s, e, t0, t1, L, EPS, True, tile=bw), f"sort=True {bw}")
+             for bw in (32, 16, 8) if 8 * bw * (rows + 1) <= sweep_kernel.SORT_TILE_BYTES]
+    torch.cuda.synchronize()
+    for got, tag in runs:
+        for name, a, b in zip(("t_star", "entering", "m_start", "m_end", "found"), got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), (tag, name)
+
+
+@pytest.mark.cuda
+def test_k9_kernel_mode_route_equals_the_torch_sort_route(k9_card):
+    """Kernel mode sorts inside K9 (``sort_inside``): on a 32-sphere scene's
+    rays its select equals the ``torch.sort`` + ``sort=False`` route's bit for
+    bit, and the whole hit the fixpoint mode's."""
+    from ptx_torch.core.constants import EPS
+    from ptx_torch.geom import fasthit
+    from ptx_torch.ops import sweep_kernel
+    from ptx_torch.scenes import builders
+    scene = trace.compile_scene(builders.stress_spheres(25), torch.device("cuda"))
+    leaves = fasthit.collect_leaves(scene.plan)
+    hits = {m: fasthit.UnionSweepHit(scene.plan, leaves, m) for m in ("kernel", "fixpoint")}
+    o, d = sample_rays(Camera.reference_demo(128, 64), rng.PRNGKey(4), range(64), range(128),
+                       1, scene.device)
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    t0, t1, s, e = hits["kernel"].intervals(scene.params, o, d)
+    assert sweep_kernel.sort_inside(s.shape[0])
+    launches = sweep_kernel.LAUNCHES
+    inside = hits["kernel"].select(t0, t1, s, e)
+    assert sweep_kernel.LAUNCHES == launches + 1
+    s_s, idx = torch.sort(s, dim=0, stable=True)
+    outside = sweep_kernel.sweep_select(s_s.contiguous(), e.gather(0, idx), t0, t1,
+                                        hits["kernel"].L, EPS, sort=False)
+    got = {m: h(scene.params, o, d) for m, h in hits.items()}
+    torch.cuda.synchronize()
+    for a, b in zip(inside, outside):
+        assert torch.equal(a, b)
+    assert int(got["kernel"]["hit"].sum()) > 0
+    for k, v in got["fixpoint"].items():
+        assert torch.equal(got["kernel"][k], v), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", ["config4", "tree17"])
+def test_k4_writes_the_dense_hit_dict(world):
+    """K4's one launch writes the dense hit's dict: ``mat_id``, ``hit``,
+    ``entering`` and ``_evt`` equal to the plain dict's in its dtypes, ``t``
+    and the normal (hit lanes) within the stated tolerance, on config 4 and
+    on a random 17-leaf CSG tree (the 24-leaf bucket's first size,
+    coincident boundaries)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hit kernel has no CPU mode")
+    from ptx_torch.ops import fasthit_kernel
+    from ptx_torch.scenes.builders import baseline_config4
+    from test_torch_hit_fold_host import _random_tree
+    root = baseline_config4() if world == "config4" else _random_tree(17, 7)
+    scene = trace.compile_scene(root, torch.device("cuda"))
+    assert isinstance(scene.hit_fn, fasthit_kernel.HitKernel)
+    dev = scene.device
+    o, d = sample_rays(Camera.reference_demo(96, 64), rng.PRNGKey(5), range(64), range(96), 1,
+                       dev)
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    o = torch.cat([o, o[:2048] + 0.5 * torch.randn_like(o[:2048])])
+    d = torch.cat([d, torch.randn_like(d[:2048])])
+    launches = fasthit_kernel.LAUNCHES
+    got = scene.hit_fn(scene.params, o, d)
+    want = scene.plain_hit_fn(scene.params, o, d)
+    torch.cuda.synchronize()
+    assert fasthit_kernel.LAUNCHES == launches + 1
+    assert set(got) == set(want)
+    for k in ("mat_id", "hit", "entering", "_evt"):
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+    hit = want["hit"]
+    assert int(hit.sum()) > 0
+    torch.testing.assert_close(got["t"], want["t"], rtol=1e-5, atol=5e-6)
+    torch.testing.assert_close(got["normal"][hit], want["normal"][hit], rtol=1e-5, atol=5e-6)
 
 
 @pytest.mark.cuda

@@ -6,9 +6,11 @@ hit and their routing against the JAX package.
   mode runs K9's plain version) against the JAX sweep in the same mode
   (``kernel`` with the JAX K9 interpreted) on four scenes: the
   coincident-boundary scene of tests/test_large_scenes.py:333-365,
-  ``stress_spheres(57)``, ``stress_gadgets(9, seed=4)`` and a 57-leaf union
+  ``stress_spheres(57)``, ``stress_gadgets(9, seed=4)``, a 57-leaf union
   of bitten spheres (four spherical bites each: past the megasweep's slot
-  algebra, so the local membership fold).  Tolerance: ``_evt``, ``hit``
+  algebra, so the local membership fold) and a chain of six overlapping
+  spheres seen from inside the first, whose fixpoint takes a pass a hop
+  (asserted: more than one).  Tolerance: ``_evt``, ``hit``
   and ``entering`` equal except on lanes a float64 recompute puts at a
   near-tie (two boundaries within 1e-5 relative, or one at EPS: XLA on the
   CPU contracts multiply-adds, PyTorch does not); on agreeing hit lanes
@@ -103,7 +105,19 @@ def coincident():
         JPlane((0.0, 1.0, 0.0), 1.0, m1), *jbuilders.sky_planes(_SKY)])
 
 
-SCENES = {"coincident": coincident,
+def chain(n=6):
+    """``n`` unit spheres in a row, each overlapping the next, over the
+    ground under the stress sky: a ray from inside the first crosses every
+    overlap, one fixpoint pass a hop."""
+    m = [JMaterial(reflect=(0.8, 0.3, 0.3), scatter=1.0),
+         JMaterial(reflect=(0.3, 0.8, 0.3), scatter=1.0)]
+    return jbuilders.union_array([JSphere((0.3 * i, 0.0, -2.0 - 1.6 * i), 1.0, m[i % 2])
+                                  for i in range(n)]
+                                 + [JPlane((0.0, 1.0, 0.0), 1.0, _GROUND),
+                                    *jbuilders.sky_planes(_SKY)])
+
+
+SCENES = {"coincident": coincident, "chain": chain,
           "spheres57": lambda: jbuilders.stress_spheres(57),
           "gadgets9": lambda: jbuilders.stress_gadgets(9, seed=4),
           "bitten57": lambda: bitten_union(10),
@@ -125,6 +139,11 @@ def _rays(name, seed=0):
     box); elsewhere a 32×16 frame of the demo camera and 128 rays from
     inside the spheres in random directions."""
     g = np.random.default_rng(seed)
+    if name == "chain":                  # from inside the first sphere, down the row
+        n = 256
+        o = np.array([0.0, 0.0, -2.0]) + g.uniform(-0.3, 0.3, (n, 3))
+        d = np.stack([g.uniform(0.1, 0.25, n), g.uniform(-0.05, 0.05, n), -np.ones(n)], -1)
+        return torch.from_numpy(o.astype(np.float32)), torch.from_numpy(d.astype(np.float32))
     if name == "coincident":
         o = np.concatenate([np.zeros((128, 3)), np.array([[0.0, 0.0, -3.0]] * 64),
                             g.uniform(-2, 2, (64, 3))])
@@ -150,7 +169,7 @@ def _inside_rays(ts, n=128, seed=0):
 def _scene_rays(name, ts):
     o, d = _rays(name)
     o, d = o.reshape(-1, 3), d.reshape(-1, 3)
-    if name != "coincident":
+    if name not in ("coincident", "chain"):
         oi, di = _inside_rays(ts)
         o, d = torch.cat([o, oi]), torch.cat([d, di])
     return o, d
@@ -176,7 +195,8 @@ def compare_with_jax(ts, o, d, got, want, max_flips=4):
     return len(lanes)
 
 
-@pytest.fixture(scope="module", params=["coincident", "spheres57", "gadgets9", "bitten57"])
+@pytest.fixture(scope="module",
+                params=["coincident", "spheres57", "gadgets9", "bitten57", "chain"])
 def sweep_case(request):
     """A scene, its rays and the port's sweep in every mode."""
     name = request.param
@@ -197,6 +217,21 @@ def test_sweep_modes_match_jax(sweep_case, mode):
     # the three modes of the port: bit for bit the same outputs
     for k, v in got["fixpoint"].items():
         assert torch.equal(got[mode][k], v), k
+
+
+def test_fixpoint_takes_chain_hops():
+    """On the chain the fixpoint needs a pass a hop (more than one), and the
+    three modes (kernel: K9's plain version with the sort inside) agree bit
+    for bit; test_sweep_modes_match_jax holds them against the JAX sweep."""
+    _, ts = _pair("chain")
+    o, d = _scene_rays("chain", ts)
+    hits = {m: fasthit.compile_fast_hit(ts.plan, sweep=True, sweep_mode=m) for m in MODES}
+    got = {m: h(ts.params, o, d) for m, h in hits.items()}
+    assert hits["fixpoint"].last_passes > 1
+    assert bool(got["fixpoint"]["hit"].all())
+    for m in ("sort", "kernel"):
+        for k, v in got["fixpoint"].items():
+            assert torch.equal(got[m][k], v), (m, k)
 
 
 def test_bitten_union_is_past_the_slot_algebra():

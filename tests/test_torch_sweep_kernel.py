@@ -86,12 +86,19 @@ def test_the_sort_flag_gives_the_same_answer():
 
 
 def test_tile_and_row_sizing():
-    """The sort=True kernel pads S to a power of 2 (at least 8) and takes the
-    widest tile of 32, 16 or 8 lanes whose (s, e) fit 227 KB; past that the
-    wrapper raises."""
+    """The sort=True kernel pads S to a power of 2 (at least 8; it sorts
+    columns of at least 32) and takes the widest tile of up to 16 lanes
+    whose (s, e) columns fit 72 KB, up to 1,024 rows (a warp's register
+    sort); past that the wrapper raises.  The sort=False kernel takes 32,
+    16 or 8 lanes a block by the width, and kernel mode sorts inside K9 up
+    to ``SORT_INSIDE_ROWS`` padded rows."""
     assert [sweep_kernel.padded_rows(n) for n in (1, 8, 9, 256, 268)] == [8, 8, 16, 256, 512]
-    assert [sweep_kernel.tile_width(n) for n in (256, 512, 1024, 2048, 4096)] == \
-        [32, 32, 16, 8, None]
+    assert [sweep_kernel.tile_width(n) for n in (8, 256, 512, 1024, 2048, 4096)] == \
+        [16, 16, 16, 8, None, None]
+    assert [sweep_kernel.lane_tile(b) for b in (1, 4096, 8448, 16895, 16896, 1 << 20)] == \
+        [8, 8, 16, 16, 32, 32]
+    limit = sweep_kernel.SORT_INSIDE_ROWS
+    assert sweep_kernel.sort_inside(limit) and not sweep_kernel.sort_inside(limit + 1)
 
 
 def test_wrapper_refuses_other_devices():
