@@ -96,13 +96,21 @@ Path C, the fused emission kernel K7 (``PTX_EMK=1`` around
 C1. the demo: one 65,536-ray chunk, K1 17 and K7 1 (``trace_rays``
     evaluates emission once, on all phases' records), nothing else; K7 vs
     ``eval_emissive`` on its inputs within ``rtol 1e-5, atol 1e-6``
-    except lanes a float64 recompute puts within 1e-6 of a texel boundary;
-C2. 3 train steps: K1 17, K2 16, K7 1 and K3 1 per step (K7's backward is
-    one combined histogram of the sky image and the const rows); every K7
-    call and histogram held against its plain version;
+    except lanes a float64 recompute puts within 1e-6 of a texel boundary,
+    and its bins equal to ``lanes_reference``'s except those lanes; then
+    the same chunk forward + backward: K1 17, K2 16, K7 1 and K7's
+    backward 1, K3 0, the backward held against ``backward_reference``
+    run in float64: each entry within ``min(2·n·2⁻²⁴, 1e-4)·Σ|term|``
+    (n its terms with a nonzero ct);
+C2. 3 train steps: K1 17, K2 16, K7 1 and K7's backward 1 per step, K3 0
+    (the backward is one launch: the combined histogram of the sky image
+    and the const rows and the factor's sum); every K7 call held against
+    its plain version as in C1, every backward as in C1;
 C3. gradients, kernel path vs plain path (``eval_emissive``);
-C4, C5. a mirror-ball sky world (tests/test_emission_kernel.py:87-115):
-    C1's chunk and C3's gradients.
+C4, C5, C6. a mirror-ball sky world (tests/test_emission_kernel.py:87-115):
+    C1's chunk (forward, then forward + backward), C3's gradients and C2's
+    3 train steps (its 16×32 probe takes the backward's private regime at
+    a step's width).
 
 Path D, the large scenes (K5, the megasweep: union-sweep first hit, in
 bounce mode with shade and scatter; K6, the row-fed replay backward):
@@ -180,9 +188,10 @@ Then:
    depth 16, ``loss = radiance.mean()``): rays/s over the median of 10
    chunks between CUDA events, beside the forward alone;
 10. timing per kernel at the main path's widths (65,536 lanes for K1-K4,
-    a chunk's ~263 k emission records for K7, the probe's 4,194,304
-    sky-select lanes for K8): the wrapper as the main path calls it and the
-    plain version, each the median of 20 single calls between CUDA events;
+    a chunk's 263,508 and a train step's 16,864,596 emission records for
+    K7, the probe's 4,194,304 sky-select lanes for K8): the wrapper as the
+    main path calls it and the plain version, each the median of 20 single
+    calls between CUDA events;
     for K1 and K4 also the bare launch queued behind a device sleep (the
     card's time) and the bound summed over a train
     step's widths; K4's wrapper is one kernel launch (counted by the
@@ -192,11 +201,20 @@ Then:
     and K8 also the library calls ``index_put_(accumulate=True)`` and
     ``index_add_`` on the flat (H·W, C) view (the faster, each one's
     ``library_ms``), K3's wrapper at most 1.25 × ``index_add_``'s time at
-    the demo's two widths and K8's at most half of ``index_put_``'s; the
+    the demo's two widths and K8's at most half of ``index_put_``'s; for
+    K7 at both widths (and at C6's mirror-ball step) the forward's
+    wrapper (one kernel, counted by the profiler at the demo's widths),
+    its bare launch queued, ``eval_emissive``; the backward's wrapper (one
+    kernel), queued, in each regime (each held as in C1),
+    ``backward_reference`` and ``index_add_`` of the same values
+    into the same flat bins, the wrapper at most 1.25 × ``index_add_``'s
+    time at the demo's two widths; and the device time a call of
+    both K7 launches over one ``PTX_EMK=1`` train step (the profiler); the
     least time the card could take (``bound_ms``) from this run's inputs;
 11. the JSON lines: the nine kernels (launches from the paths' train
     steps: the demo's for K1-K3, config 4's for K4, S1's for K5 and K6,
-    C2's for K7, the probe's for K8, E3's S1 for K9), then the device.
+    C2's for K7, the probe's for K8, E3's S1 for K9; K7's entry carries its
+    backward's figures under ``backward``), then the device.
 
 Outputs (the rendered image, the nvcc report) go to ``build/chip_smoke/``.
 """
@@ -628,21 +646,33 @@ def phase_timing(scene, inputs):
     return min(w1, w2), min(p1, p2), min(d1, d2), q
 
 
-def _kernels_launched(fn):
+def _kernels_launched(fn, tries=3):
     """The CUDA kernels one call of ``fn`` launches, counted by
-    ``torch.profiler`` (after a warm-up call)."""
+    ``torch.profiler`` (after a warm-up call).  A trace whose host side
+    shows kernel launches but which holds no kernel at all lost its device
+    records (seen on the card in some traces, for wrappers whose kernels
+    ran): it is taken again, up to ``tries`` times, and its count returned
+    if the records stay lost."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     path = os.path.join(OUT, "one_call_trace.json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        return sum(1 for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel")
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        launches = sum(1 for e in events if e.get("cat") == "cuda_runtime"
+                       and "Launch" in e.get("name", ""))
+        if kernels or not launches:
+            break
+        log(f"[profiler] {launches} launch calls and no kernel in the trace: taken again")
+    return kernels
 
 
 def _step_bound(bound, *args):
@@ -984,7 +1014,7 @@ def _reset_counters():
     imagegrad.LAUNCHES = imagegrad.REFERENCE_CALLS = 0
     imagegrad.BandedHistKernel.LAUNCHES = 0
     fk.LAUNCHES = fk.REFERENCE_CALLS = 0
-    ek.LAUNCHES = ek.REFERENCE_CALLS = 0
+    ek.LAUNCHES = ek.BWD_LAUNCHES = ek.REFERENCE_CALLS = 0
     megasweep.MegaSweepKernel.LAUNCHES = megasweep.REFERENCE_CALLS = 0
     RowFedReplayBwd.LAUNCHES = RowFedReplayBwd.PACKS = RowFedReplayBwd.PACK_VJPS = 0
     sweep_kernel.LAUNCHES = sweep_kernel.REFERENCE_CALLS = 0
@@ -1001,7 +1031,8 @@ def _counters():
             "K3": imagegrad.LAUNCHES, "K4": fk.LAUNCHES,
             "K5": megasweep.MegaSweepKernel.LAUNCHES, "K6": RowFedReplayBwd.LAUNCHES,
             "K6 packs": RowFedReplayBwd.PACKS, "K6 pack VJPs": RowFedReplayBwd.PACK_VJPS,
-            "K7": ek.LAUNCHES, "K8": imagegrad.BandedHistKernel.LAUNCHES,
+            "K7": ek.LAUNCHES, "K7 bwd": ek.BWD_LAUNCHES,
+            "K8": imagegrad.BandedHistKernel.LAUNCHES,
             "K9": sweep_kernel.LAUNCHES,
             "plain": (bk.REFERENCE_CALLS + bk.BWD_REFERENCE_CALLS + imagegrad.REFERENCE_CALLS
                       + fk.REFERENCE_CALLS + ek.REFERENCE_CALLS + megasweep.REFERENCE_CALLS
@@ -1013,7 +1044,8 @@ def _expect(steps=0, k6_steps=0, **per_kernel):
     no plain-version call; ``steps`` K2 (``k6_steps`` K6) train steps or
     backward passes, each packing the replay backward's scene vector once
     and running its VJP once."""
-    out = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "plain"), 0)
+    out = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K7 bwd", "K8", "K9",
+                         "plain"), 0)
     out.update(per_kernel)
     out["K2 packs"] = out["K2 pack VJPs"] = steps
     out["K6 packs"] = out["K6 pack VJPs"] = k6_steps
@@ -1518,9 +1550,12 @@ def _texel_boundary_lanes(kern, params, pos, tol=1e-6):
 def _check_k7(scene, calls, tag):
     """K7 against ``eval_emissive`` on each recorded call's inputs: ``rtol
     1e-5, atol 1e-6`` except lanes of the chain's material whose texel a
-    float64 recompute puts within 1e-6 of a boundary.  Returns (max|k − p|
-    on the other lanes, the lanes off only by such a boundary)."""
+    float64 recompute puts within 1e-6 of a boundary; its bins (a launch on
+    the same inputs) equal to ``lanes_reference``'s except those lanes.
+    Returns (max|k − p| on the other lanes, the lanes off only by such a
+    boundary)."""
     import torch
+    from ptx_torch.ops import emission_kernel as ek
 
     kern = scene.emission_fn
     err, n_near = 0.0, 0
@@ -1530,61 +1565,182 @@ def _check_k7(scene, calls, tag):
                  for k, v in params.items()}
             em_p = scene.material_fn.eval_emissive(p, pos, mid)
             near = _texel_boundary_lanes(kern, p, pos) & (mid == kern.dyn_mi)
+            args = (p["tex_xform"], p["const"], p["factor"], p["images"][kern.img_id], pos,
+                    mid)
+            bin_k = kern.launch(*args)[1]
+            bin_p = ek.lanes_reference(kern, *args)[1]
         torch.cuda.synchronize()
         close = torch.isclose(em_k.detach(), em_p, rtol=1e-5, atol=1e-6).all(dim=-1)
         if not bool((close | near).all()):
             raise AssertionError(f"{tag}: K7 differs from eval_emissive on "
                                  f"{int((~(close | near)).sum())} lanes")
+        if not bool(((bin_k == bin_p) | near).all()):
+            raise AssertionError(f"{tag}: K7's bins differ from lanes_reference's on "
+                                 f"{int((~((bin_k == bin_p) | near)).sum())} lanes")
         e = float((em_k.detach() - em_p)[~near].abs().max())
         flips = int((~close & near).sum())
         err, n_near = max(err, e), n_near + flips
         log(f"[{tag}] N={pos.shape[0]} chain lanes {int((mid == kern.dyn_mi).sum())}, "
             f"{int(near.sum())} within 1e-6 of a texel boundary, {flips} of them off "
-            f"(another texel); max_abs_err {e:.3g} elsewhere")
+            f"(another texel), {int((bin_k != bin_p).sum())} bins differ there; "
+            f"max_abs_err {e:.3g} elsewhere")
     return err, n_near
+
+
+class _RecordingEmBwd:
+    """While active, K7's backward launches (``launch_bwd``) log each
+    call's inputs and outputs."""
+
+    def __init__(self, kern, log_list):
+        self.kern, self.log = kern, log_list
+
+    def __enter__(self):
+        fn = self.kern.launch_bwd
+
+        def call(*a, **k):
+            out = fn(*a, **k)
+            self.log.append((a, out))
+            return out
+        self.kern.launch_bwd = call
+        return self
+
+    def __exit__(self, *exc):
+        del self.kern.launch_bwd                 # the class's method again
+
+
+# K7's backward: at most 1e-4 of an entry's Σ|term| off the float64 sum.  At
+# a train step's 16.9 M records an image bin of the direct regime adds
+# ~1,400 near-equal values through device-memory atomics, whose roundings do
+# not cancel: up to 9.35e-6 of Σ|term| on an H100 (PERF.md, PR 10); an entry
+# off by a thousandth of its magnitude, as one block's share of a sum lost
+# or added twice, fails.
+K7_BWD_REL = 1e-4
+
+
+def _k7_bwd_within_bound(kern, args, got, name):
+    """K7's backward outputs ``got`` against ``backward_reference`` run in
+    float64 on the same ``args``: every entry within ``min(2·n·2⁻²⁴,
+    K7_BWD_REL)·Σ|term|`` of it, n the entry's terms with a nonzero ct
+    (the reordered-sum bound where it is the tighter; else a limit that
+    does not grow with n, so a step's millions of records in one bin
+    still check the sum to 1e-4 of its magnitude).  Returns (max|k − p|,
+    the largest |k − p| / Σ|term| and the output that holds it)."""
+    import torch
+    from ptx_torch.ops import emission_kernel as ek
+
+    ct, bin_, img, factor, c_shape, f_shape = (
+        x.double() if torch.is_tensor(x) and x.is_floating_point() else x for x in args)
+    want = ek.backward_reference(kern, ct, bin_, img, factor, c_shape, f_shape)
+    mag = ek.backward_reference(kern, ct.abs(), bin_, img.abs(), factor.abs(), c_shape,
+                                f_shape)
+    n = ek.backward_reference(kern, (ct != 0).double(), bin_, torch.ones_like(img),
+                              torch.ones_like(factor), c_shape, f_shape)
+    err, rel, where = 0.0, 0.0, "none"
+    for label, g, w, m, c in zip(("d_img", "d_const", "d_factor"), got, want, mag, n):
+        if w is None:
+            if g is not None:
+                raise AssertionError(f"{name}: {label} is not None")
+            continue
+        e = (g.double() - w).abs()
+        lim = torch.clamp(2 * c * U32, max=K7_BWD_REL) * m
+        if not bool(torch.isfinite(g).all()) or bool((e > lim).any()):
+            raise AssertionError(f"{name} {label}: {int((e > lim).sum())} entries more "
+                                 f"than min(2·n·2⁻²⁴, {K7_BWD_REL:g})·Σ|term| off the "
+                                 "float64 sum")
+        if e.numel():
+            err = max(err, float(e.max()))
+        r = float((e / m)[m > 0].max()) if bool((m > 0).any()) else 0.0
+        if r > rel:
+            rel, where = r, label
+    return err, rel, where
+
+
+def _check_k7_bwd(scene, calls, tag):
+    """Each recorded K7 backward against the float64 ``backward_reference``
+    (``_k7_bwd_within_bound``).  Returns max|k − p|."""
+    kern = scene.emission_fn
+    err = 0.0
+    for args, got in calls:
+        e, rel, where = _k7_bwd_within_bound(kern, args, got, tag)
+        ct, bin_, img = args[:3]
+        err = max(err, e)
+        in_image = (bin_ >= 0) & (bin_ < img.shape[0] * img.shape[1])
+        log(f"[{tag}] K7 backward N={ct.shape[0]}, nonzero ct {int((ct != 0).any(1).sum())}, "
+            f"chain lanes in bounds {int(in_image.sum())}: within min(2·n·2⁻²⁴, "
+            f"{K7_BWD_REL:g})·Σ|term| of the float64 sum, max_abs_err {e:.3g}, largest "
+            f"|k − p| / Σ|term| {rel:.3g} ({where})")
+    return err
 
 
 def phase_k7_chunk(scene, tag):
     """One 65,536-ray chunk (band 256 of the render, depth 16) with the
     counters zeroed: K1 17 and K7 once (``trace_rays`` evaluates emission
     once, on all phases' records), no histogram, no plain call; K7 held
-    against ``eval_emissive`` on its inputs."""
+    against ``eval_emissive`` and ``lanes_reference`` on its inputs.  Then
+    the same chunk forward + backward (``radiance.mean()``): K1 17, K2 16,
+    K7 1 and K7's backward 1, no histogram, the backward held against
+    ``backward_reference``.  Returns the errors, the chunk's K7 inputs and
+    its backward's inputs."""
     import torch
     from ptx_torch.core import rng
+    from ptx_torch.integrate import render
     from ptx_torch.integrate.camera import Camera
-    from ptx_torch.integrate.render import render_rows
 
-    calls = []
-    with _swapped(scene, "emission_fn", _recording_em(scene.emission_fn, calls)):
+    calls, bwds = [], []
+    cam = Camera.reference_demo(W, H)
+    kern = scene.emission_fn
+    with _swapped(scene, "emission_fn", _recording_em(kern, calls)):
         _reset_counters()
         with torch.no_grad():
-            band = render_rows(scene, scene.params, Camera.reference_demo(W, H),
-                               rng.PRNGKey(0), 256, BAND_ROWS, 1, 1, DEPTH)
+            band = render.render_rows(scene, scene.params, cam, rng.PRNGKey(0), 256,
+                                      BAND_ROWS, 1, 1, DEPTH)
         torch.cuda.synchronize()
         c = _counters()
-    expect = _expect(K1=DEPTH + 1, K7=1)
-    log(f"[{tag}] one chunk of {BAND_ROWS * W} rays: launches {c} (expected {expect}); "
-        f"band mean {float(band.mean()):.6g}")
-    if c != expect or not bool(torch.isfinite(band).all()):
-        raise AssertionError(f"{tag}: chunk launches {c}, expected {expect}, or not finite")
+        expect = _expect(K1=DEPTH + 1, K7=1)
+        log(f"[{tag}] one chunk of {BAND_ROWS * W} rays: launches {c} (expected {expect}); "
+            f"band mean {float(band.mean()):.6g}")
+        if c != expect or not bool(torch.isfinite(band).all()):
+            raise AssertionError(f"{tag}: chunk launches {c}, expected {expect}, or not finite")
+        # the same chunk (render_rows's key and rays) forward + backward
+        k = rng.fold(rng.PRNGKey(0), 0, 256)
+        o, d = render.sample_rays(cam, k, range(256, 256 + BAND_ROWS), range(W), 1,
+                                  scene.device)
+        params = _leaf_params(scene.params)
+        with _RecordingEmBwd(kern, bwds):
+            _reset_counters()
+            render.trace_rays(scene, params, o, d, k, DEPTH).mean().backward()
+            torch.cuda.synchronize()
+            c = _counters()
+    expect = _expect(1, K1=DEPTH + 1, K2=DEPTH, K7=1, **{"K7 bwd": 1})
+    log(f"[{tag}] the chunk forward + backward: launches {c} (expected {expect})")
+    if c != expect:
+        raise AssertionError(f"{tag}: forward + backward launches {c}, expected {expect}")
     err, near = _check_k7(scene, calls, tag)
+    err_b = _check_k7_bwd(scene, bwds, tag)
     _, pos, mid, _ = calls[0]
-    return err, near, (pos, mid)
+    return err, near, err_b, (pos, mid), bwds[0][0]
 
 
-def phase_train_k7(scene):
-    """3 train steps of the demo with K7: K1 17, K2 16, K7 1 and K3 1 per
-    step (K7's backward: one combined histogram of the sky image and the
-    const rows, (64 + R) × 128 × 3, inside K3's shared memory); every K7
-    call and every histogram held against its plain version."""
-    calls, hists, outs = [], [], []
+def phase_train_k7(scene, tag="C2"):
+    """3 train steps with K7 (the demo, or ``tag``'s world): K1 17, K2 16,
+    K7 1 and K7's backward 1 per step, K3 0 (the backward is one launch:
+    the combined histogram of the sky image and the const rows and the
+    factor's sum); every K7 call held against its plain versions, every
+    backward against the float64 ``backward_reference``
+    (``_k7_bwd_within_bound``).  Returns the figures, the errors, and the
+    last step's K7 inputs and its backward's inputs."""
+    calls, bwds = [], []
     c, secs, peak, _ = phase_train(
-        scene, "C2 K7 train", _expect(3, K1=3 * (DEPTH + 1), K2=3 * DEPTH, K7=3, K3=3),
+        scene, f"{tag} K7 train",
+        _expect(3, K1=3 * (DEPTH + 1), K2=3 * DEPTH, K7=3, **{"K7 bwd": 3}),
         _all(_swapped(scene, "emission_fn", _recording_em(scene.emission_fn, calls)),
-             _recording_hists(hists, outs)))
-    err7, near = _check_k7(scene, calls, "C2 train-width K7 vs plain")
-    err3 = _check_hists(hists, "C2 train-width K3 (K7 backward) vs plain", "K3", 3, outs)
-    return c, secs, peak, err7, near, err3
+             _RecordingEmBwd(scene.emission_fn, bwds)))
+    err7, near = _check_k7(scene, calls, f"{tag} train-width K7 vs plain")
+    err7b = _check_k7_bwd(scene, bwds, f"{tag} train-width K7 backward vs plain")
+    _, pos, mid, _ = calls[-1]
+    train_in = ((pos, mid), bwds[-1][0])
+    del calls, bwds
+    return c, secs, peak, err7, near, err7b, train_in
 
 
 def phase_train_config4(c4):
@@ -1628,13 +1784,27 @@ def bound_k4(B, L):
 
 
 def bound_k7(N, img):
-    """K7 at N lanes: reads pos and mid (20 B) and the image once, writes
-    em, texel, xi, yi, flags and row (40 B); ~90 operations a lane."""
-    return _bound(60 * N + img.numel() * 4, 90 * N)
+    """K7's forward at N lanes: reads pos and mid (20 B) and the image once,
+    writes em and the backward's bin (16 B); ~90 operations a lane."""
+    return _bound(36 * N + img.numel() * 4, 90 * N)
 
 
-def phase_timing_small(c4, k4_in, pe, k7_in, k8_in):
-    """K4, K7 and K8 as the main path calls them against their plain
+def bound_k7_bwd(ct, bin_, img, R, factor):
+    """K7's backward: reads every lane's ct (12 B) and the bin of a lane
+    whose ct is not zero (4 B; no other lane adds), the image once (the
+    texels of the factor's sum), writes d_img, d_const and d_factor once;
+    operations: 3 adds into a bin for a lane that adds, 9 more (ct·factor,
+    ct·texel and its sum) for a chain lane in bounds."""
+    HW = img.shape[0] * img.shape[1]
+    adds = (ct != 0).any(dim=1) & (bin_ >= 0)
+    n_add, n_chain = int(adds.sum()), int((adds & (bin_ < HW)).sum())
+    out_words = img.numel() + 3 * R + factor.numel()
+    return _bound(12 * ct.shape[0] + 4 * int((ct != 0).any(dim=1).sum()) + 4 * img.numel()
+                  + 4 * out_words, 3 * n_add + 9 * n_chain)
+
+
+def phase_timing_small(c4, k4_in, k8_in):
+    """K4 and K8 as the main path calls them against their plain
     versions (K8 also against ``index_put_``), in turns: plain, kernel,
     kernel, plain."""
     import torch
@@ -1658,17 +1828,6 @@ def phase_timing_small(c4, k4_in, pe, k7_in, k8_in):
         f"({step[1]})")
     k4_t = (min(w1, w2), min(p1, p2), bound)
 
-    pos, mid = k7_in
-    kern = pe.emission_fn
-    with torch.no_grad():
-        k7 = lambda: kern(pe.params, pos, mid)
-        k7p = lambda: pe.material_fn.eval_emissive(pe.params, pos, mid)
-        q1, v1, v2, q2 = _time_ms(k7p), _time_ms(k7), _time_ms(k7), _time_ms(k7p)
-    log(f"[10 timing] K7 at N={pos.shape[0]} (a chunk's concatenated records; wrapper: "
-        f"pack + launch) {v1:.4f} / {v2:.4f} ms; plain eval_emissive {q1:.4f} / "
-        f"{q2:.4f} ms")
-    k7_t = (min(v1, v2), min(q1, q2), bound_k7(pos.shape[0], pe.params["images"][kern.img_id]))
-
     yi, xi, inb, ct, shape = k8_in
     k8 = lambda: imagegrad.hist(yi, xi, inb, ct, shape)
     k8p = lambda: imagegrad.hist_reference(yi, xi, inb, ct, shape)
@@ -1685,7 +1844,122 @@ def phase_timing_small(c4, k4_in, pe, k7_in, k8_in):
     if not k8_t[0] <= 0.5 * k8_t[3]:
         raise AssertionError(f"K8's wrapper {k8_t[0]:.4f} ms is more than half of "
                              f"index_put_'s {k8_t[3]:.4f} ms")
-    return k4_t, k7_t, k8_t
+    return k4_t, k8_t
+
+
+def _library_k7_bwd(kern, ct, bin_, img, factor, c_shape, f_shape):
+    """``index_add_`` of K7's backward values (``ct·factor`` on a chain lane
+    in bounds, raw ``ct`` on another material's) into the same flat
+    ``(H·W + R, 3)`` bins (values and indices made beforehand)."""
+    import torch
+
+    HW = img.shape[0] * img.shape[1]
+    b = bin_.to(torch.int64)
+    f = (factor[kern.factor_idx] if kern.factor_idx is not None
+         else torch.ones(3, device=ct.device))
+    vals = torch.where((b >= 0)[:, None], torch.where((b < HW)[:, None], ct * f, ct), 0.0)
+    flat = b.clamp(min=0)
+    return lambda: torch.zeros((HW + c_shape[0], 3), device=ct.device).index_add_(0, flat,
+                                                                                  vals)
+
+
+GATED_K7 = ("chunk", "train")   # the demo's widths: kernel counts and the index_add_ gate
+
+
+def phase_timing_k7(k7_ins):
+    """K7 at a chunk's and a train step's widths (C1's and C2's recorded
+    inputs; C6's, a mirror-ball step's, where the backward's plan routes
+    to the private regime), in turns (plain, kernel, kernel, plain): the forward's wrapper
+    as ``trace_rays`` calls it (one kernel, counted by the profiler), its
+    bare launch queued behind a device sleep, ``eval_emissive``; the
+    backward's wrapper as ``_Emission.backward`` calls it (one kernel),
+    queued, back to back in each regime (each output held by
+    ``_k7_bwd_within_bound``), ``backward_reference`` and ``index_add_`` of the
+    same values into the same flat bins.  Fails unless each wrapper is one
+    kernel (the profiler's count, at the demo's widths) and the backward
+    takes at most 1.25 × ``index_add_``'s time at the demo's two widths (the
+    margin is for run-to-run noise)."""
+    import torch
+    from ptx_torch.ops import emission_kernel as ek
+
+    out = {}
+    for name, (pe, (pos, mid), bargs) in k7_ins.items():
+        kern, P = pe.emission_fn, pe.params
+        img = P["images"][kern.img_id]
+        N = pos.shape[0]
+        gated = name in GATED_K7
+        fargs = (P["tex_xform"], P["const"], P["factor"], img, pos, mid)
+        with torch.no_grad():
+            wrap = lambda: kern(P, pos, mid)
+            plain = lambda: pe.material_fn.eval_emissive(P, pos, mid)
+            n_fwd = _kernels_launched(wrap) if gated else 1
+            p1, w1, w2, p2 = _time_ms(plain), _time_ms(wrap), _time_ms(wrap), _time_ms(plain)
+            q = _time_queued_ms(lambda: kern.launch(*fargs))
+        bwd = lambda: kern.launch_bwd(*bargs)
+        bplain = lambda: ek.backward_reference(kern, *bargs)
+        add = _library_k7_bwd(kern, *bargs)
+        n_bwd = _kernels_launched(bwd) if gated else 1
+        if n_fwd != 1 or n_bwd != 1:
+            raise AssertionError(f"K7 at N={N}: the forward's wrapper launched {n_fwd} kernels, "
+                                 f"the backward's {n_bwd}, not 1 each")
+        r1, a1 = _time_ms(bplain), _time_ms(add)
+        b1, b2 = _time_ms(bwd), _time_ms(bwd)
+        a2, r2 = _time_ms(add), _time_ms(bplain)
+        bq = _time_queued_ms(bwd)
+        routed = ek.bwd_regime(N, img.shape[0], img.shape[1], bargs[4][0], img.device)
+        regimes = []
+        for plan, rname in ((0, "direct"), (1, "private")):
+            run = lambda: kern.launch_bwd(*bargs, plan=plan)
+            _, rel, where = _k7_bwd_within_bound(kern, bargs, run(),
+                                                 f"K7 backward {rname} N={N}")
+            regimes.append(f"{rname} {_time_back_to_back_ms(run):.4f} ms (off {rel:.3g} "
+                           f"of Σ|term|, {where})"
+                           + (" (routed)" if plan == routed else ""))
+        fb, bb = bound_k7(N, img), bound_k7_bwd(bargs[0], bargs[1], img, bargs[4][0], P["factor"])
+        ct = bargs[0]
+        counted = (f"{n_fwd} kernel in the profiler" if gated else "not counted here")
+        log(f"[10 K7 {name}] N={N}: forward wrapper (one launch, {counted}) {w1:.4f} / "
+            f"{w2:.4f} ms, bare launch queued behind a sleep (the card's "
+            f"time) {q:.4f} ms, plain eval_emissive {p1:.4f} / {p2:.4f} ms, bound "
+            f"{fb[0]:.4g} ms ({fb[1]}), {fb[0] / q:.3f} of it queued")
+        log(f"[10 K7 {name}] backward N={N} (nonzero ct {int((ct != 0).any(1).sum())}): "
+            f"wrapper ({n_bwd if gated else 'one'} kernel) {b1:.4f} / {b2:.4f} ms, queued "
+            f"{bq:.4f} ms, back to "
+            f"back {'; '.join(regimes)}; plain backward_reference {r1:.4f} / {r2:.4f} ms; "
+            f"index_add_ (same values, same flat bins) {a1:.4f} / {a2:.4f} ms; bound "
+            f"{bb[0]:.4g} ms ({bb[1]})")
+        out[name] = {"ms": min(w1, w2), "queued_ms": q, "plain_ms": min(p1, p2), "bound": fb,
+                     "bwd_ms": min(b1, b2), "bwd_queued_ms": bq, "bwd_plain_ms": min(r1, r2),
+                     "bwd_bound": bb, "index_add_ms": min(a1, a2)}
+    for name, t in out.items():
+        if name in GATED_K7 and t["bwd_ms"] > 1.25 * t["index_add_ms"]:
+            raise AssertionError(f"K7's backward at the {name} width {t['bwd_ms']:.4f} ms is "
+                                 f"more than 1.25 x index_add_'s {t['index_add_ms']:.4f} ms")
+    return out
+
+
+def phase_k7_step_profile():
+    """The device time a call of K7's two launches over one ``PTX_EMK=1``
+    demo train step: ``python -m ptx_torch.layer_profile --train --chunks
+    1`` under ``PTX_EMK=1``, its trace read back with ``summarize``."""
+    from ptx_torch import layer_profile
+
+    out = os.path.join(OUT, "layer_profile")
+    with _env(PTX_EMK="1"):
+        layer_profile.main(["--train", "--chunks", "1", "--out", out])
+    with open(os.path.join(out, "trace_demo_train.json")) as f:
+        names = tuple(n for n, _, _ in layer_profile.LAYERS) + tuple(
+            g for *_, g in layer_profile.GRAD_LAYERS)
+        s = layer_profile.summarize(json.load(f)["traceEvents"], names)
+    log(f"[10 K7 step profile] one PTX_EMK=1 demo train step: K7 forward {s['k7_calls']} "
+        f"call(s), {s['k7_mean_us']:.2f} us a call; backward {s['k7_bwd_calls']} call(s), "
+        f"{s['k7_bwd_mean_us']:.2f} us a call; emission layer "
+        f"{s['layers']['emission']['device_ms']:.3f} ms device, emission_bwd "
+        f"{s['layers']['emission_bwd']['device_ms']:.3f} ms")
+    if s["k7_calls"] != 1 or s["k7_bwd_calls"] != 1:
+        raise AssertionError(f"K7 step profile: {s['k7_calls']} forward and "
+                             f"{s['k7_bwd_calls']} backward calls, not 1 each")
+    return s
 
 
 @contextlib.contextmanager
@@ -2555,14 +2829,17 @@ def main():
 
     # path C, the emission kernel K7: the demo with PTX_EMK=1, a mirror-ball sky
     pe = _compile_with_emk(builders.make_world(), dev)
-    err7a, near_a, k7_in = _timed("C1 K7 chunk", phase_k7_chunk, pe, "C1 K7 chunk")
-    trainC, secsC, peakC, err7b, near_b, err3c7 = _timed("C2 K7 train", phase_train_k7, pe)
+    err7a, near_a, err7ba, k7_fwd_in, k7_bwd_in = _timed("C1 K7 chunk", phase_k7_chunk, pe,
+                                                        "C1 K7 chunk")
+    trainC, secsC, peakC, err7b, near_b, err7bb, k7_train_in = _timed(
+        "C2 K7 train", phase_train_k7, pe)
     _timed("C3 K7 gradients", phase_gradients, pe, "C3 K7 gradients")
     pm = _compile_with_emk(_mirror_world(), dev)
-    err7m, near_m, _ = _timed("C4 mirror-ball chunk", phase_k7_chunk, pm,
-                              "C4 mirror-ball K7 chunk")
+    err7m, near_m, err7bm, _, _ = _timed("C4 mirror-ball chunk", phase_k7_chunk, pm,
+                                         "C4 mirror-ball K7 chunk")
+    *_, err7mt, near_mt, err7bmt, k7_mirror_in = _timed("C6 mirror-ball train",
+                                                       phase_train_k7, pm, "C6 mirror-ball")
     _timed("C5 mirror-ball gradients", phase_gradients, pm, "C5 mirror-ball gradients")
-    del pm
 
     # path D, the large scenes: K5 (fused mega bounce, hit mode) and K6
     _timed("D1 build report", phase_build_report)
@@ -2606,8 +2883,13 @@ def main():
     time3 = _timed("10 K3 timing", phase_timing_k3,
                    {"chunk": k3_in, "train": k3_train_in, "checker": k3_checker_in})
     k3_ms, k3p_ms, k3_lib, k3_bound, k3_add = time3["chunk"]
-    k4_t, k7_t, k8_t = _timed("10 K4 K7 K8 timing", phase_timing_small, c4, k4_in, pe,
-                              k7_in, k8_in)
+    k4_t, k8_t = _timed("10 K4 K8 timing", phase_timing_small, c4, k4_in, k8_in)
+    time7 = _timed("10 K7 timing", phase_timing_k7,
+                   {"chunk": (pe, k7_fwd_in, k7_bwd_in), "train": (pe, *k7_train_in),
+                    "mirror-ball train": (pm, *k7_mirror_in)})
+    del k7_fwd_in, k7_bwd_in, k7_train_in, k7_mirror_in, pm
+    prof7 = _timed("10 K7 step profile", phase_k7_step_profile)
+    k7_t = time7["chunk"]
     k1_bound = bound_k1(inputs[0].shape[0], scene.bounce_fn.layout[0])
     log(f"summary: build {build_s:.2f} s; flips {flips3} (primary bounces) + "
         f"{flips3c} (render chunks) + {flips4} (band) + {flips8} (train step) + {flipsA} "
@@ -2615,7 +2897,8 @@ def main():
         f"{c4_rays_s:.4g} rays/s; train step demo {min(secs):.3f} s / {peak:.3f} GiB, "
         f"config4 {min(secs4):.3f} s / {peak4:.3f} GiB, probe {min(secsB):.3f} s / "
         f"{peakB:.3f} GiB, K7 demo {min(secsC):.3f} s / {peakC:.3f} GiB; K7 lanes on "
-        f"another texel at a boundary {near_a} + {near_b} + {near_m}; fwd+bwd chunk {fb_rays:.4g} "
+        f"another texel at a boundary {near_a} + {near_b} + {near_m} + {near_mt}; fwd+bwd chunk "
+        f"{fb_rays:.4g} "
         f"rays/s, fwd {f_rays:.4g} rays/s; K1 {w_ms:.4f} ms vs plain {p_ms:.4f} ms "
         f"(bound {k1_bound[0]:.4g} ms, {k1_bound[1]}); K2 {k2_ms:.4f} vs {k2p_ms:.4f} ms "
         f"(bound {k2_bound[0]:.4g} ms), pack + VJP {k2_pack_ms:.4f} ms once per call, "
@@ -2625,8 +2908,13 @@ def main():
         f"{time3['train'][0]:.4f} ms against index_add_ {time3['train'][4]:.4f} ms, on the "
         f"checker {time3['checker'][0]:.4f} ms against {time3['checker'][4]:.4f} ms; K4 "
         f"{k4_t[0]:.4f} vs "
-        f"{k4_t[1]:.4f} ms (bound {k4_t[2][0]:.4g} ms); K7 {k7_t[0]:.4f} vs "
-        f"{k7_t[1]:.4f} ms (bound {k7_t[2][0]:.4g} ms); K8 {k8_t[0]:.4f} vs "
+        f"{k4_t[1]:.4f} ms (bound {k4_t[2][0]:.4g} ms); K7 {k7_t['ms']:.4f} vs "
+        f"{k7_t['plain_ms']:.4f} ms (bound {k7_t['bound'][0]:.4g} ms; queued at the train "
+        f"width {time7['train']['queued_ms']:.4f} ms against {time7['train']['bound'][0]:.4g}), "
+        f"backward {k7_t['bwd_ms']:.4f} ms vs index_add_ {k7_t['index_add_ms']:.4f} ms (train "
+        f"width {time7['train']['bwd_ms']:.4f} vs {time7['train']['index_add_ms']:.4f}), "
+        f"device a call over a PTX_EMK=1 step {prof7['k7_mean_us']:.2f} + "
+        f"{prof7['k7_bwd_mean_us']:.2f} us; K8 {k8_t[0]:.4f} vs "
         f"{k8_t[1]:.4f} ms, index_put_ {k8_t[3]:.4f} ms, index_add_ {k8_t[4]:.4f} ms "
         f"(bound {k8_t[2][0]:.4g} ms); "
         f"large scenes: flips {flipsD}, train step "
@@ -2654,7 +2942,7 @@ def main():
               train["K2"], max(err_k2, err8_2), k2_ms, k2p_ms, k2_bound, None),
         entry("image_hist (K3: image-gather transpose)",
               "ptx_torch/csrc/image_hist_kernel.cu", "ptx/ops/imagegrad.py:91",
-              train["K3"], max(err_k3, err8_3, err3a, err3c7), k3_ms, k3p_ms, k3_bound, k3_add),
+              train["K3"], max(err_k3, err8_3, err3a), k3_ms, k3p_ms, k3_bound, k3_add),
         entry("first_hit (K4: hit-only CSG fold)",
               "ptx_torch/csrc/fasthit_kernel.cu", "ptx/ops/fasthit_kernel.py:233",
               train4["K4"], err4, k4_t[0], k4_t[1], k4_t[2], None),
@@ -2664,9 +2952,17 @@ def main():
         entry("replay_bwd (K6: row-fed replay VJP at any L, S1)",
               "ptx_torch/csrc/replay_bwd_kernel.cu", "ptx/ops/replay_bwd.py:47",
               trainD["S1"][0]["K6"], err6, k6_ms, k6p_ms, k6_bound, None),
-        entry("emission_forward (K7: fused emission chain)",
-              "ptx_torch/csrc/emission_kernel.cu", "ptx/ops/emission_kernel.py:98",
-              trainC["K7"], max(err7a, err7b, err7m), k7_t[0], k7_t[1], k7_t[2], None),
+        dict(entry("emission_forward (K7: fused emission chain; its backward under "
+                   "'backward')", "ptx_torch/csrc/emission_kernel.cu",
+                   "ptx/ops/emission_kernel.py:98", trainC["K7"],
+                   max(err7a, err7b, err7m, err7mt),
+                   k7_t["ms"], k7_t["plain_ms"], k7_t["bound"], None),
+             backward=entry("emission_backward (K7's VJP: flat histogram + factor sum)",
+                            "ptx_torch/csrc/emission_kernel.cu",
+                            "ptx/ops/emission_kernel.py:346", trainC["K7 bwd"],
+                            max(err7ba, err7bb, err7bm, err7bmt), k7_t["bwd_ms"],
+                            k7_t["bwd_plain_ms"],
+                            k7_t["bwd_bound"], k7_t["index_add_ms"])),
         entry("image_hist_atomic (K8: image-gather transpose by device-memory atomics)",
               "ptx_torch/csrc/image_hist_kernel.cu", "ptx/ops/imagegrad.py:218",
               trainB["K8"], max(err8, err_k8a), k8_t[0], k8_t[1], k8_t[2], k8_t[4]),

@@ -18,9 +18,9 @@
 //   texels (the demo's 64x128 sky, config 4's 8x8 checker).
 // - Both regimes first merge the lanes of a warp that add into one texel
 //   (__match_any_sync on the texel, a shuffle tree to the group's lowest
-//   lane, sum_peers), so each warp issues one add per distinct texel it
-//   touches; lanes with inb false or an all-zero cotangent add nothing and
-//   load no index.
+//   lane, sum_peers in hist_warp.cuh, which K7's backward shares), so
+//   each warp issues one add per distinct texel it touches; lanes with inb
+//   false or an all-zero cotangent add nothing and load no index.
 // - Direct (hist_direct_kernel; fewer than 1,024 lanes per image entry: the
 //   demo's sky at every width): one pass, the leader of each group adds
 //   straight into the output in device memory (128 KB: it stays in L2),
@@ -93,18 +93,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hist_warp.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
+using ptx_hist::add4;
+using ptx_hist::kFull;
+using ptx_hist::nonzero;
+using ptx_hist::sum_peers;
+
 constexpr int kThreads = 512;
 constexpr int kMaxC = 4;
 constexpr int kMaxDevices = 64;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ bool nonzero(float4 v) {
-  return v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f;
-}
 
 // Channels c0 .. c0 + 3 of lane `lane`'s cotangent, 0 past C; kVec: C = 4 and
 // ct on a 16-byte boundary, one 16-byte load.
@@ -131,46 +133,6 @@ __device__ __forceinline__ int lane_texel(const int64_t* __restrict__ yi,
   v = load_ct<kVec>(ct, (int)lane, C, 0);
   if (C <= kMaxC && !nonzero(v)) return -1;
   return (int)yi[lane] * W + (int)xi[lane];       // < 2^31: the entry checks
-}
-
-// The sum of v over the lanes of `group` (this lane's peers: the lanes of the
-// warp with its texel), complete in the group's lowest lane.  A tree over the
-// group's lanes in lane order, log2(group size) rounds of shuffles; every
-// lane of the warp calls it, a lane that adds nothing with a group of itself.
-__device__ __forceinline__ float4 sum_peers(unsigned group, int lid, float4 v) {
-  int rel = __popc(group & ((1u << lid) - 1u));     // the group's lanes below this one
-  unsigned above = group & ~((2u << lid) - 1u);     // and above it, still unmerged
-  while (__any_sync(kFull, above)) {
-    const int src = __ffs(above) - 1;               // the next lane of the group
-    const float tx = __shfl_sync(kFull, v.x, src & 31);
-    const float ty = __shfl_sync(kFull, v.y, src & 31);
-    const float tz = __shfl_sync(kFull, v.z, src & 31);
-    const float tw = __shfl_sync(kFull, v.w, src & 31);
-    if (src >= 0) {
-      v.x += tx;
-      v.y += ty;
-      v.z += tz;
-      v.w += tw;
-    }
-    above &= ~__ballot_sync(kFull, rel & 1);        // odd positions are merged
-    rel >>= 1;
-  }
-  return v;
-}
-
-// n = min(4, C - c0) channels of v added at dst: one 16-byte atomic (kVec),
-// else one scalar atomic per nonzero channel.  dst in device memory or, for
-// the scalar form, in (distributed) shared memory.
-template <bool kVec>
-__device__ __forceinline__ void add4(float* dst, float4 v, int n) {
-  if (kVec) {
-    atomicAdd(reinterpret_cast<float4*>(dst), v);
-    return;
-  }
-  if (v.x != 0.f) atomicAdd(dst, v.x);
-  if (n > 1 && v.y != 0.f) atomicAdd(dst + 1, v.y);
-  if (n > 2 && v.z != 0.f) atomicAdd(dst + 2, v.z);
-  if (n > 3 && v.w != 0.f) atomicAdd(dst + 3, v.w);
 }
 
 // The lane loop both K3 regimes share: warps walk the lanes 32 at a time

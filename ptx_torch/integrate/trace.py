@@ -705,7 +705,8 @@ def _emission(scene, params, saved, skysel):
             em = ems[pi].reshape(thr.shape)
             contrib = torch.where(live[..., None], thr * em, 0.0).sum(dim=0)
 
-        thr_nz = thr.abs().sum(dim=-1) > 0.0
+        if term_chains:         # sky-select only (not with K7, nor with skysel off)
+            thr_nz = thr.abs().sum(dim=-1) > 0.0
         for mi, fn in term_chains:
             is_sel = live & (mid == mi) & thr_nz                    # (nb, Bp)
             first = torch.argmax(is_sel.to(torch.uint8), dim=0)    # first True

@@ -28,7 +28,8 @@ Chrome trace goes to ``--out`` and is parsed here (:func:`summarize`):
   ``hist_private_kernel`` (K3's two regimes); ``first_hit_kernel``;
   ``megasweep_kernel``; ``replay_bwd_kernel`` and the
   ``reduce_partials_kernel`` after it (K2's and K6's second launch is one
-  kernel, counted with the launch it follows); ``emission_forward_kernel``;
+  kernel, counted with the launch it follows); ``emission_forward_kernel``
+  and, apart from it (``k7_bwd``), K7's backward ``emission_backward_kernel``;
   ``hist_atomic_kernel``; ``sweep_select_kernel`` or
   ``sweep_sort_select_kernel`` (the union sweep's ``kernel`` mode:
   ``PTX_SWEEP_MODE=kernel PTX_MEGAB=0`` with ``--large``);
@@ -92,6 +93,7 @@ KERNELS = {"k1": (("bounce_forward_kernel",), None),
            "k5": (("megasweep_kernel",), None),
            "k6": (("replay_bwd_kernel",), "reduce_partials_kernel"),
            "k7": (("emission_forward_kernel",), None),
+           "k7_bwd": (("emission_backward_kernel",), None),
            "k8": (("hist_atomic_kernel",), None),
            "k9": (("sweep_select_kernel", "sweep_sort_select_kernel"), None)}
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -127,7 +129,8 @@ def summarize(events, layers=tuple(n for n, _, _ in LAYERS)):
 
     Returns a dict: ``kernels`` (launches), ``busy_ms`` (device),
     ``host_ms`` (profiled host wall, first to last host event),
-    ``k1_calls``, ``k1_mean_us`` (device time per call; also for k2-k9;
+    ``k1_calls``, ``k1_mean_us`` (device time per call; also for k2-k9
+    and ``k7_bwd``;
     ``k2_second_us``, ``k6_second_us``: the second launch's share)
     and ``layers``: per layer
     ``kernels``, ``device_ms`` and ``host_share``."""

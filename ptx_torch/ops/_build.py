@@ -65,9 +65,13 @@ def _entry_points():
          [vp, i, i, i, i, vp, vp, i]      # scene buffer, words, layout, o, d, B
          + [vp] * 6 + [vp], i),           # t normal mat_id entering hit evt, stream
         ("ptx_emission_forward",
-         [vp, vp, i, vp, i, i, i]         # params, const rows, M, image, H, W, C
-         + [vp, vp, i, i, i, i]           # pos, mid, N, dyn material, xform, mirror
-         + [vp] * 6 + [vp], i),           # em texel xi yi flags row, stream
+         [vp, vp, vp, vp, vp, i, i, i]    # xform, factor, const, const rows, image, H W C
+         + [vp, vp, i, i, i]              # pos, mid, N, dyn material, mirror
+         + [vp, vp, vp], i),              # em, bin, stream
+        ("ptx_emission_backward",
+         [vp, vp, i, vp, i, i, i, i, vp]  # ct, bin, N, image, H W C, R, factor
+         + [vp, vp, vp, i, i, i, vp], i),  # d_img d_const d_factor, words, offset, private, stream
+        ("ptx_emission_backward_private_fits", [i, i, i, vp], i),   # H W R, fits
         ("ptx_megasweep_smem", [i] * 9, i),
         ("ptx_megasweep",
          [vp, i, vp, i]                   # scene floats, words, int table, words

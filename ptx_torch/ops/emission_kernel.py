@@ -1,9 +1,9 @@
 """The fused emission kernel K7: one dynamic emissive chain plus the
-constant emissive rows, evaluated in one launch.
+constant emissive rows, evaluated in one launch, differentiated in one.
 
 Port of ``ptx/ops/emission_kernel.py`` ``build_emission_fn`` (:98), a
-Pallas TPU kernel, as the hand-written CUDA kernel
-``ptx_torch/csrc/emission_kernel.cu``.
+Pallas TPU kernel with a custom VJP (``bwd2``, :346-388), as the
+hand-written CUDA kernels of ``ptx_torch/csrc/emission_kernel.cu``.
 
 - :func:`parse_chain` and :func:`supported`: eligibility, the JAX
   package's chain-shape rule on the texture ``.spec``: exactly one dynamic
@@ -11,23 +11,33 @@ Pallas TPU kernel, as the hand-written CUDA kernel
   alpha).  The TPU kernel's image-size limit was its VMEM's; the CUDA
   kernel reads the image from device memory and has none.
 - :class:`EmissionKernel` is K7's wrapper, a drop-in for
-  ``material_fn.eval_emissive``: ``em(params, pos, mid) -> (N, 3)``.  On
-  CUDA tensors it launches the kernel through :class:`_Emission`, whose
-  backward is one histogram launch (K3, or K8 past K3's shared memory)
-  over the image bins ``[0, H) × [0, W)`` and the const rows ``[H, H+R) ×
-  {0}`` together, and a plain reduction for the factor
-  (``emission_kernel.py:346-388``).  On CPU tensors, and only for those,
-  it runs the plain version, ``eval_emissive`` differentiated by autograd.
-  ``LAUNCHES`` and ``REFERENCE_CALLS`` count the two.
-- :func:`lanes_reference` is the kernel's raw outputs (``em`` and the
-  backward's residuals) in plain PyTorch, the chain written out.
+  ``material_fn.eval_emissive``: ``em(params, pos, mid) -> (N, 3)``,
+  differentiable in ``const``, ``factor`` and the image through
+  :class:`_Emission`.  On CUDA tensors its forward is one launch
+  (:meth:`EmissionKernel.launch`, reading the scene through pointers into
+  the params) that writes ``em`` and one int32 bin a lane, and its backward
+  one launch (:meth:`EmissionKernel.launch_bwd`): the combined histogram
+  of the image bins and the const rows and the factor's reduction.  On CPU
+  tensors, and only for those, the same Function runs the plain versions,
+  :func:`lanes_reference` and :func:`backward_reference`.
+- The bin (``csrc/emission_lane.cuh`` ``lane_bin``): ``y·W + x`` for a lane
+  of the chain's material whose texel is in the image, ``-1`` for one whose
+  texel is not, ``H·W + row`` (its constant emissive row) for any other.
+  It is all the backward needs: the texel of a chain lane is read again
+  from the image the forward read (saved for backward, so autograd refuses
+  an image changed in place between the two).
+- ``LAUNCHES`` and ``BWD_LAUNCHES`` count the kernels' launches,
+  ``REFERENCE_CALLS`` the wrapper's calls on CPU tensors.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 REFERENCE_CALLS = 0
 
 
@@ -57,10 +67,14 @@ def supported(material_fn) -> bool:
     return len(specs) == 1 and parse_chain(specs[0][1]) is not None
 
 
+def _factor_row(kern, factor):
+    return (factor[kern.factor_idx] if kern.factor_idx is not None
+            else torch.ones(3, dtype=factor.dtype, device=factor.device))
+
+
 def lanes_reference(kern, tex_xform, const, factor, img, pos, mid):
-    """K7's raw outputs, :meth:`EmissionKernel.launch`'s, in plain PyTorch:
-    ``em`` (N, 3), ``texel`` (N, 3), ``xi``, ``yi``, ``flags`` and ``row``
-    (int32)."""
+    """K7's forward, :meth:`EmissionKernel.launch`'s outputs, in plain
+    PyTorch: ``em`` (N, 3) and the bin (N,) int32 (module docstring)."""
     from ptx_torch.core import linalg
     from ptx_torch.shade.textures import _mirror_ball_uv, _spherical_uv
 
@@ -74,55 +88,102 @@ def lanes_reference(kern, tex_xform, const, factor, img, pos, mid):
         inb = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
         xi, yi = xi.clamp(0, W - 1), yi.clamp(0, H - 1)
         texel = torch.where(inb[:, None], img[yi, xi, :3], 0.0)
-        f = (factor[kern.factor_idx] if kern.factor_idx is not None
-             else torch.ones(3, device=pos.device))
         row = kern.const_rows.to(torch.int64)[mid]
-        sel = mid == kern.dyn_mi
-        em = torch.where(sel[:, None], texel * f, const[row])
-        flags = sel.to(torch.int32) | (inb.to(torch.int32) << 1)
-        i32 = lambda a: a.to(torch.int32)
-        return em, texel, i32(xi), i32(yi), flags, i32(row)
+        chain = mid == kern.dyn_mi
+        em = torch.where(chain[:, None], texel * _factor_row(kern, factor), const[row])
+        bin_ = torch.where(chain, torch.where(inb, yi * W + xi, -1), H * W + row)
+        return em, bin_.to(torch.int32)
+
+
+def backward_reference(kern, ct, bin_, img, factor, const_shape, factor_shape):
+    """K7's backward, :meth:`EmissionKernel.launch_bwd`'s outputs, in plain
+    PyTorch: one histogram of the flat bins ``[0, H·W + R)`` by
+    ``imagegrad.hist_reference`` (``ct·factor`` on the chain's in-bounds
+    lanes, raw ``ct`` on the others), cut into ``d_img`` (H, W, C: zero past
+    channel 3) and ``d_const`` (R, 3); and ``d_factor``, zero but for the
+    chain's row, the sum of ``ct·texel`` over the chain's lanes (None when
+    the chain has no factor)."""
+    from ptx_torch.ops import imagegrad
+
+    with torch.no_grad():
+        H, W, C = img.shape
+        HW, R = H * W, const_shape[0]
+        b = bin_.to(torch.int64)
+        chain = b < HW
+        vals = torch.where(chain[:, None], ct * _factor_row(kern, factor), ct)
+        flat = imagegrad.hist_reference(b.clamp(min=0), torch.zeros_like(b), b >= 0, vals,
+                                        (HW + R, 1, 3))[:, 0]
+        d_img = torch.zeros_like(img)
+        d_img[..., :3] = flat[:HW].reshape(H, W, 3)
+        d_factor = None
+        if kern.factor_idx is not None:
+            texel = torch.where((chain & (b >= 0))[:, None],
+                                img.reshape(HW, C)[b.clamp(0, HW - 1), :3], 0.0)
+            d_factor = torch.zeros(factor_shape, dtype=ct.dtype, device=ct.device)
+            d_factor[kern.factor_idx] = (ct * texel).sum(0)
+        return d_img, flat[HW:].reshape(const_shape), d_factor
 
 
 class _Emission(torch.autograd.Function):
     """K7's forward and its backward; differentiable in ``const``,
     ``factor`` and the image (positions and the lookup transform reach the
-    radiance only through nearest-texel indices)."""
+    radiance only through nearest-texel indices).  CUDA tensors launch the
+    kernels, CPU tensors run the plain versions."""
 
     @staticmethod
     def forward(ctx, kern, tex_xform, const, factor, img, pos, mid):
-        em, texel, xi, yi, flags, row = kern.launch(tex_xform, const, factor, img,
-                                                    pos, mid)
+        fwd = (kern.launch if pos.device.type == "cuda"
+               else lambda *a: lanes_reference(kern, *a))
+        em, bin_ = fwd(tex_xform, const, factor, img, pos, mid)
         ctx.kern = kern
-        ctx.shapes = (tuple(const.shape), tuple(factor.shape), tuple(img.shape))
-        ctx.save_for_backward(texel, xi, yi, flags, row, factor)
+        ctx.shapes = (tuple(const.shape), tuple(factor.shape))
+        ctx.save_for_backward(bin_, img, factor)
         return em
 
     @staticmethod
     def backward(ctx, ct):
-        from ptx_torch.ops import imagegrad
-
-        texel, xi, yi, flags, row, factor = ctx.saved_tensors
+        bin_, img, factor = ctx.saved_tensors
         kern = ctx.kern
-        (R, _), f_shape, (H, W, _) = ctx.shapes
-        sel = (flags & 1).bool()
-        inb = (flags & 2).bool()
-        ct = ct.contiguous()
-        f = (factor[kern.factor_idx] if kern.factor_idx is not None
-             else torch.ones(3, dtype=ct.dtype, device=ct.device))
-        # one histogram: image bins take ct·factor on selected in-bounds
-        # lanes, const row bins [H, H+R) at x = 0 raw ct on the others
-        y = torch.where(sel, yi, H + row).to(torch.int64)
-        x = torch.where(sel, xi, 0).to(torch.int64)
-        vals = torch.where(sel[:, None], ct * f, ct)
-        out = imagegrad.hist(y, x, ~sel | inb, vals, (H + R, W, 3))
-        d_img = torch.cat([out[:H], out.new_zeros((H, W, 1))], dim=-1)
-        d_const = out[H:, 0, :]
-        d_factor = None
-        if kern.factor_idx is not None:
-            d_factor = torch.zeros(f_shape, dtype=ct.dtype, device=ct.device)
-            d_factor[kern.factor_idx] = torch.where(sel[:, None], ct * texel, 0.0).sum(0)
+        bwd = (kern.launch_bwd if ct.device.type == "cuda"
+               else lambda *a: backward_reference(kern, *a))
+        d_img, d_const, d_factor = bwd(ct.contiguous(), bin_, img, factor, *ctx.shapes)
         return None, None, d_const, d_factor, d_img, None, None
+
+
+def bwd_plan(N, H, W):
+    """The backward's regime for ``N`` lanes on an ``(H, W)`` image, as K3's
+    plan (``imagegrad.k3_plan``) rules: 1 (the whole flat histogram in
+    each block's shared memory) from ``imagegrad.K3_PRIVATE_LANES`` lanes
+    per image entry on, else 0 (image bins in device memory, the const rows
+    in shared memory).  :func:`bwd_regime` also asks whether 1 fits."""
+    from ptx_torch.ops import imagegrad
+
+    return int(N >= imagegrad.K3_PRIVATE_LANES * H * W * 3)
+
+
+@functools.lru_cache(maxsize=None)
+def private_fits(H, W, R, device_index):
+    """Whether the backward's private regime (``H·W + R`` bins of 3 floats
+    and the kernel's static shared memory) fits one block's shared memory
+    on that card: the C entry's answer."""
+    import ctypes
+
+    from ptx_torch.ops import _build
+    from ptx_torch.ops.bounce_kernel import _raise_on
+
+    lib, fits = _build.library(), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = lib.ptx_emission_backward_private_fits(H, W, R, ctypes.byref(fits))
+    _raise_on(err, lib, "emission backward kernel")
+    return bool(fits.value)
+
+
+def bwd_regime(N, H, W, R, device):
+    """The backward's regime on a CUDA ``device``: :func:`bwd_plan`'s, but 0
+    where the private regime does not fit (:func:`private_fits`)."""
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return int(bwd_plan(N, H, W) and private_fits(H, W, R, index))
 
 
 class EmissionKernel:
@@ -132,7 +193,6 @@ class EmissionKernel:
     does."""
 
     def __init__(self, material_fn, device):
-        self.table = material_fn
         (self.dyn_mi, spec), = material_fn.emissive_dynamic_specs
         self.xform_idx, self.factor_idx, kind, self.img_id = parse_chain(spec)
         self.mirror = kind == "mirror"
@@ -141,33 +201,28 @@ class EmissionKernel:
 
     def __call__(self, params, pos, mid):
         global REFERENCE_CALLS
+        if pos.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"emission kernel: no kernel for {pos.device}")
         if pos.device.type == "cpu":
             REFERENCE_CALLS += 1
-            return self.table.eval_emissive(params, pos, mid)
-        if pos.device.type != "cuda":
-            raise ValueError(f"emission kernel: no kernel for {pos.device}")
-        return _Emission.apply(self, params["tex_xform"], params["const"], params["factor"],
-                               params["images"][self.img_id], pos.contiguous(),
-                               mid.contiguous())
+        args = (params["tex_xform"], params["const"], params["factor"],
+                params["images"][self.img_id], pos.contiguous(), mid.contiguous())
+        if torch.is_grad_enabled() and any(x.requires_grad for x in args[1:4]):
+            return _Emission.apply(self, *args)
+        # nothing to differentiate (a render): the forward alone, no autograd node
+        return (self.launch(*args) if pos.device.type == "cuda"
+                else lanes_reference(self, *args))[0]
 
-    def pack(self, tex_xform, const, factor):
-        """The kernel's parameter vector: xform (12), factor (3), the const
-        emissive rows (M × 3); no autograd."""
-        with torch.no_grad():
-            dev = const.device
-            xf = (tex_xform[self.xform_idx].reshape(12) if self.xform_idx is not None
-                  else torch.zeros(12, device=dev))
-            fc = (factor[self.factor_idx] if self.factor_idx is not None
-                  else torch.ones(3, device=dev))
-            rows = const[self.const_rows.to(torch.int64)].reshape(-1)
-            return torch.cat([xf, fc, rows]).to(torch.float32).contiguous()
+    @staticmethod
+    def _row_ptr(table, idx, words):
+        """The address of row ``idx`` of a contiguous table, 0 for None."""
+        return 0 if idx is None else table.data_ptr() + 4 * words * idx
 
     def launch(self, tex_xform, const, factor, img, pos, mid):
         """One kernel launch on the current stream, no synchronisation:
-        ``em`` (N, 3) and the backward's residuals ``texel`` (N, 3), ``xi``,
-        ``yi`` (clipped into the image), ``flags`` (bit 0: the lane's
-        material is the chain's, bit 1: in bounds) and the lane's const
-        row id, all int32."""
+        ``em`` (N, 3) and the bin (N,) int32 (module docstring).  The kernel
+        reads the chain's transform and factor rows, the const table and
+        the image in place."""
         global LAUNCHES
         from ptx_torch.ops import _build
         from ptx_torch.ops.bounce_kernel import _check_inputs, _ptr, _raise_on, _stream
@@ -177,20 +232,56 @@ class EmissionKernel:
         H, W, C = img.shape
         _check_inputs("emission kernel", device, {
             "pos": (pos, (N, 3), torch.float32), "mid": (mid, (N,), torch.int64),
-            "image": (img, (H, W, C), torch.float32)})
+            "image": (img, (H, W, C), torch.float32),
+            "const": (const, tuple(const.shape), torch.float32),
+            "factor": (factor, tuple(factor.shape), torch.float32),
+            "tex_xform": (tex_xform, tuple(tex_xform.shape), torch.float32)})
         if N == 0:
             raise ValueError("emission kernel: no lanes")
         lib = _build.library()
-        pp = self.pack(tex_xform, const, factor)
-        f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=device)
-        i32 = lambda: torch.empty(N, dtype=torch.int32, device=device)
-        em, texel = f32(N, 3), f32(N, 3)
-        xi, yi, flags, row = i32(), i32(), i32(), i32()
+        em = torch.empty((N, 3), dtype=torch.float32, device=device)
+        bin_ = torch.empty(N, dtype=torch.int32, device=device)
         p = _ptr
         err = lib.ptx_emission_forward(
-            p(pp), p(self.const_rows), self.const_rows.numel(), p(img), H, W, C, p(pos),
-            p(mid), N, self.dyn_mi, int(self.xform_idx is not None), int(self.mirror),
-            p(em), p(texel), p(xi), p(yi), p(flags), p(row), _stream(device))
+            self._row_ptr(tex_xform, self.xform_idx, 12),
+            self._row_ptr(factor, self.factor_idx, 3), p(const), p(self.const_rows),
+            p(img), H, W, C, p(pos), p(mid), N, self.dyn_mi,
+            int(self.mirror), p(em), p(bin_), _stream(device))
         _raise_on(err, lib, "emission kernel")
         LAUNCHES += 1
-        return em, texel, xi, yi, flags, row
+        return em, bin_
+
+    def launch_bwd(self, ct, bin_, img, factor, const_shape, factor_shape, plan=None):
+        """One cooperative launch on the current stream, no synchronisation:
+        ``d_img`` (H, W, C), ``d_const`` ``const_shape`` and ``d_factor``
+        ``factor_shape`` (None when the chain has no factor), each zero-filled
+        by the kernel itself (:func:`backward_reference` is the plain
+        version).  ``plan`` forces the regime (:func:`bwd_regime`)."""
+        global BWD_LAUNCHES
+        from ptx_torch.ops import _build
+        from ptx_torch.ops.bounce_kernel import _check_inputs, _ptr, _raise_on, _stream
+
+        N = ct.shape[0]
+        device = ct.device
+        H, W, C = img.shape
+        R = const_shape[0]
+        _check_inputs("emission backward kernel", device, {
+            "ct": (ct, (N, 3), torch.float32), "bin": (bin_, (N,), torch.int32),
+            "image": (img, (H, W, C), torch.float32),
+            "factor": (factor, factor_shape, torch.float32)})
+        if N == 0:
+            raise ValueError("emission backward kernel: no lanes")
+        lib = _build.library()
+        f32 = lambda s: torch.empty(s, dtype=torch.float32, device=device)
+        d_img, d_const = f32((H, W, C)), f32(const_shape)
+        d_factor = f32(factor_shape) if self.factor_idx is not None else None
+        private = bwd_regime(N, H, W, R, device) if plan is None else plan
+        err = lib.ptx_emission_backward(
+            _ptr(ct), _ptr(bin_), N, _ptr(img), H, W, C, R,
+            self._row_ptr(factor, self.factor_idx, 3), _ptr(d_img), _ptr(d_const),
+            0 if d_factor is None else _ptr(d_factor),
+            0 if d_factor is None else d_factor.numel(), 3 * (self.factor_idx or 0),
+            private, _stream(device))
+        _raise_on(err, lib, "emission backward kernel")
+        BWD_LAUNCHES += 1
+        return d_img, d_const, d_factor

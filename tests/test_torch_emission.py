@@ -1,21 +1,24 @@
 """The fused emission kernel K7's plain side against the JAX package.
 
-- The port's emission as K7's wrapper runs it on CPU tensors (the material
-  table's ``eval_emissive``, differentiated by autograd) against the JAX
-  package's TPU kernel (``ptx.ops.emission_kernel.build_emission_fn``) run
-  in interpret mode, on the demo's rotated equirect sky and on a
-  mirror-ball probe world.  Positions sit at texel-cell centres (each map
-  inverted, as ``tests/test_emission_kernel.py`` builds them), so both
+- The port's emission as K7's wrapper runs it on CPU tensors (``_Emission``
+  with the plain forward ``lanes_reference`` and the plain backward
+  ``backward_reference``) against the JAX package's TPU kernel
+  (``ptx.ops.emission_kernel.build_emission_fn``) run in interpret mode,
+  on the demo's rotated equirect sky and on a mirror-ball probe world
+  with its ``Multiply`` factor.  Positions sit at texel-cell centres (each
+  map inverted, as ``tests/test_emission_kernel.py`` builds them), so both
   pick the same texel: values within ``rtol 1e-5`` (the TPU kernel carries
   the image as a hi/lo bf16 pair, ~2⁻¹⁷ relative), their VJPs within
   ``rtol 1e-4, atol 1e-5`` (the TPU histogram's hi/lo split again).
-- K7's backward (``_Emission``: one combined histogram over the image and
-  the const rows, and the factor's reduction) run on the CPU with
-  :func:`lanes_reference` standing in for the launch, against autograd of
+- The two plain versions called as the card's wrapper calls its kernels:
+  ``lanes_reference``'s ``em`` and bins (each chain lane's texel ``y·W +
+  x``, every other lane ``H·W + row``), and ``backward_reference`` on a
+  cotangent, against the TPU kernel's values and VJP.
+- K7's backward on the CPU (one combined histogram over the image and the
+  const rows, and the factor's reduction) against autograd of
   ``eval_emissive``: the same float32 terms summed in another order,
   ``rtol 1e-5, atol 1e-6``.
 """
-
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -117,14 +120,13 @@ def test_plain_emission_matches_the_tpu_kernel_interpreted(case):
                                atol=1e-5)
 
 
-def test_backward_through_one_combined_histogram(case, monkeypatch):
-    """``_Emission`` on the CPU, the launch replaced by its plain lanes:
-    the image, const-row and factor gradients equal autograd of
-    ``eval_emissive``, and the backward makes one histogram call."""
+def test_backward_through_one_combined_histogram(case):
+    """``_Emission`` on the CPU (its plain forward and backward): the image,
+    const-row and factor gradients equal autograd of ``eval_emissive``, and
+    the backward makes one histogram call."""
     from ptx_torch.ops import imagegrad
 
     _, ts, kern, _, pos, mid, wgt = case
-    monkeypatch.setattr(kern, "launch", lambda *a: ek.lanes_reference(kern, *a))
     pos_t, mid_t, wgt_t = (torch.from_numpy(x) for x in (pos, mid, wgt))
     p = _leaf_params(ts.params)
     em = ek._Emission.apply(kern, p["tex_xform"], p["const"], p["factor"],
@@ -141,3 +143,44 @@ def test_backward_through_one_combined_histogram(case, monkeypatch):
         np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(), rtol=1e-5, atol=1e-6,
                                    err_msg=name)
     assert p["tex_xform"].grad is None
+
+
+def test_plain_lanes_and_backward_match_the_tpu_kernel_interpreted(case):
+    """``lanes_reference`` and ``backward_reference``, called as the card's
+    wrapper calls its two kernels, against the TPU kernel's values and its
+    VJP (``jax.vjp`` with the cotangent ``wgt``): ``em``; every chain lane's
+    bin its texel (these positions are texel-cell centres, in bounds), every
+    other lane's ``H·W`` + its const row; ``d_const``, ``d_factor`` and the
+    image's gradient (zero in the alpha plane)."""
+    js, ts, kern, jfn, pos, mid, wgt = case
+    p = ts.params
+    img = p["images"][kern.img_id]
+    H, W = img.shape[0], img.shape[1]
+    pos_t, mid_t = torch.from_numpy(pos), torch.from_numpy(mid)
+    em, bin_ = ek.lanes_reference(kern, p["tex_xform"], p["const"], p["factor"], img, pos_t,
+                                  mid_t)
+    want, vjp = jax.vjp(lambda q: jfn(q, jnp.asarray(pos), jnp.asarray(mid, jnp.int32)),
+                        js.params)
+    np.testing.assert_allclose(em.numpy(), np.asarray(want), rtol=1e-5, atol=0)
+    chain = mid == kern.dyn_mi
+    b = bin_.numpy()
+    assert b.dtype == np.int32
+    assert ((b[chain] >= 0) & (b[chain] < H * W)).all()
+    np.testing.assert_array_equal(b[~chain], H * W + kern.const_rows.numpy()[mid[~chain]])
+    texel = img.reshape(H * W, -1)[torch.from_numpy(b[chain]).long(), :3]
+    f = p["factor"][kern.factor_idx] if kern.factor_idx is not None else 1.0
+    np.testing.assert_array_equal(em.numpy()[chain], (texel * f).numpy())
+
+    (g_j,) = vjp(jnp.asarray(wgt))
+    d_img, d_const, d_factor = ek.backward_reference(
+        kern, torch.from_numpy(wgt), bin_, img, p["factor"], tuple(p["const"].shape),
+        tuple(p["factor"].shape))
+    np.testing.assert_allclose(d_const.numpy(), np.asarray(g_j["const"]), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(d_img.numpy(), np.asarray(g_j["images"][kern.img_id]),
+                               rtol=1e-4, atol=1e-5)
+    assert not d_img[..., 3:].any()
+    assert (d_factor is None) == (kern.factor_idx is None)
+    if d_factor is not None:
+        np.testing.assert_allclose(d_factor.numpy(), np.asarray(g_j["factor"]), rtol=1e-4,
+                                   atol=1e-5)

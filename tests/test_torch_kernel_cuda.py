@@ -19,8 +19,9 @@ value's error against a float64 recompute plus 1e-4 relative (near-grazing
 lanes are ill-conditioned).  K3 and K8 add with atomics in a varying
 order: ``1e-5`` of each texel's sum of |ct|, or, for K8's degenerate
 cases, the reordered-sum bound ``2·n·2⁻²⁴·Σ|ct|``.  K4 must equal the dense hit
-as K1 does; K7 its plain lanes, with texel indices equal except where a
-float64 recompute puts the lane within 1e-6 of a texel boundary.  K5 must
+as K1 does; K7 its plain lanes, with bins equal except where a float64
+recompute puts the lane within 1e-6 of a texel boundary, and its backward
+within the reordered-sum bound of its plain version.  K5 must
 equal its plain version as K1 does, and culling must not change a bit;
 its list route must equal its recompute route (list capacities 0) and
 lists of one bit for bit on the full-width stress scenes S1 and S2.  K1 and
@@ -371,9 +372,14 @@ def test_k4_matches_its_plain_version(config4_cuda):
 
 @pytest.mark.cuda
 def test_k7_matches_its_plain_version(monkeypatch):
-    """The demo with ``PTX_EMK=1``: K7's outputs against its plain lanes and
-    ``eval_emissive`` on random positions, and its backward (one histogram)
-    against autograd of ``eval_emissive``."""
+    """The demo with ``PTX_EMK=1``: K7's ``em`` and bins against its plain
+    lanes (``lanes_reference``) and ``eval_emissive`` on random positions;
+    its backward, in each regime, against ``backward_reference`` run in
+    float64, each entry within the reordered-sum bound ``2·n·2⁻²⁴·Σ|term|``
+    (n its terms with a nonzero ct) and within 1e-4 of ``Σ|term|`` (a
+    sparse cotangent, as a train step's); through autograd one forward
+    launch and one backward launch, with gradients as autograd of
+    ``eval_emissive``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the emission kernel has no CPU mode")
     from ptx_torch.ops import emission_kernel as ek
@@ -387,22 +393,43 @@ def test_k7_matches_its_plain_version(monkeypatch):
     pos = torch.randn((N, 3), device=dev, generator=g) * 30.0
     mid = torch.randint(0, scene.material_fn.n_materials, (N,), device=dev, generator=g)
     p = scene.params
-    args = (p["tex_xform"], p["const"], p["factor"], p["images"][kern.img_id], pos, mid)
-    got = kern.launch(*args)
-    want = ek.lanes_reference(kern, *args)
+    img = p["images"][kern.img_id]
+    args = (p["tex_xform"], p["const"], p["factor"], img, pos, mid)
+    em, bin_ = kern.launch(*args)
+    em_p, bin_p = ek.lanes_reference(kern, *args)
+    want = scene.material_fn.eval_emissive(p, pos, mid)
     torch.cuda.synchronize()
-    same = (got[2] == want[2]) & (got[3] == want[3]) & (got[4] == want[4])
+    same = bin_ == bin_p
     assert float(same.float().mean()) > 0.999
-    for a, b in zip(got[:2], want[:2]):
-        torch.testing.assert_close(a[same], b[same], rtol=1e-5, atol=1e-6)
-    assert torch.equal(got[5], want[5])
+    torch.testing.assert_close(em[same], em_p[same], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(em[same], want[same], rtol=1e-5, atol=1e-6)
+
+    ct = torch.randn((N, 3), device=dev, generator=g)
+    ct = ct * (torch.rand(N, device=dev, generator=g) < 0.3)[:, None]
+    bargs = (ct, bin_, img, p["factor"], tuple(p["const"].shape), tuple(p["factor"].shape))
+    d = lambda x: x.double()
+    ref = ek.backward_reference(kern, d(ct), bin_, d(img), d(p["factor"]), *bargs[4:])
+    mag = ek.backward_reference(kern, d(ct).abs(), bin_, d(img).abs(), d(p["factor"]).abs(),
+                                *bargs[4:])
+    n = ek.backward_reference(kern, d(ct != 0), bin_, torch.ones_like(d(img)),
+                              torch.ones_like(d(p["factor"])), *bargs[4:])
+    for plan in (0, 1):
+        got = kern.launch_bwd(*bargs, plan=plan)
+        torch.cuda.synchronize()
+        for k, a, b, m, c in zip(("d_img", "d_const", "d_factor"), got, ref, mag, n):
+            assert bool(torch.isfinite(a).all()), (plan, k)
+            lim = torch.clamp(2 * c * 2.0 ** -24, max=1e-4) * m
+            assert bool(((d(a) - b).abs() <= lim).all()), (plan, k)
+        assert float(got[1].abs().sum()) > 0 and float(got[2].abs().sum()) > 0
 
     leaf = lambda: {k: ([x.detach().clone().requires_grad_(True) for x in v]
                         if isinstance(v, list) else v.detach().clone().requires_grad_(True))
                     for k, v in p.items()}
     wgt = torch.rand((N, 3), device=dev, generator=g) * same[:, None]
     pk, pp = leaf(), leaf()
+    fwd, bwd = ek.LAUNCHES, ek.BWD_LAUNCHES
     (kern(pk, pos, mid) * wgt).sum().backward()
+    assert (ek.LAUNCHES, ek.BWD_LAUNCHES) == (fwd + 1, bwd + 1)
     (scene.material_fn.eval_emissive(pp, pos, mid) * wgt).sum().backward()
     for k in ("const", "factor"):
         torch.testing.assert_close(pk[k].grad, pp[k].grad, rtol=1e-4, atol=1e-4)

@@ -145,3 +145,25 @@ def test_layer_profile_runs_a_large_scene_on_the_cpu(tmp_path, capsys):
     assert s["scene"] == "S2" and s["peak_gib"] is None and s["rays_per_chunk"] == 16 * 16
     assert s["layers"]["bounce"]["host_share"] > 0
     assert (tmp_path / "trace_S2_grad.json").exists()
+
+
+def test_summarize_counts_k7s_backward_apart_from_its_forward():
+    """K7's two kernels are counted apart: ``emission_forward_kernel`` as
+    k7, ``emission_backward_kernel`` (one launch a backward) as k7_bwd, and
+    the backward's launch falls in the ``emission_bwd`` range."""
+    events = [
+        _x("user_annotation", "emission", 0.0, 10.0),
+        _x("cuda_runtime", "cudaLaunchKernel", 2.0, 1.0, correlation=1),
+        _x("user_annotation", "emission_bwd", 20.0, 10.0),
+        _x("cuda_runtime", "cudaLaunchKernel", 22.0, 1.0, correlation=2),
+        _x("kernel", "(anonymous namespace)::emission_forward_kernel(float const*)", 40.0,
+           7.0, correlation=1),
+        _x("kernel", "void (anonymous namespace)::emission_backward_kernel<false, true>"
+           "(float const*)", 50.0, 3.0, correlation=2),
+    ]
+    s = summarize(events, ("emission", "emission_bwd"))
+    assert s["k7_calls"] == 1 and s["k7_mean_us"] == pytest.approx(7.0)
+    assert s["k7_bwd_calls"] == 1 and s["k7_bwd_mean_us"] == pytest.approx(3.0)
+    assert s["layers"]["emission"]["kernels"] == 1
+    assert s["layers"]["emission_bwd"] == pytest.approx(
+        {"kernels": 1, "device_ms": 0.003, "host_share": 10.0 / 30.0})
