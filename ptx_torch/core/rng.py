@@ -74,6 +74,12 @@ def uniform(key, shape, device) -> torch.Tensor:
     return uniform_many([key], shape, device)[0]
 
 
+def sample_square(key, shape, device) -> torch.Tensor:
+    """Uniform in [0, 1)² with shape ``shape + (2,)``: the in-pixel
+    anti-aliasing jitter (``ptx.core.rng.sample_square``)."""
+    return uniform(key, tuple(shape) + (2,), device)
+
+
 def uniform_many(keys, shape, device) -> torch.Tensor:
     """``stack([uniform(k, shape) for k in keys])`` in one batched hash —
     the port of ``trace_rays``'s vmapped per-phase draws."""

@@ -62,10 +62,10 @@ def pixel_rays(cam: Camera, px, py, jitter=None):
 def sample_rays(cam: Camera, key, ys, xs, spp: int, device):
     """Jittered rays for the pixel grid ``ys × xs`` (sequences of ints):
     ``(origin, dir)`` of shape ``(spp, len(ys), len(xs), 3)``.  The jitter
-    is ``uniform(key, (spp, rows, cols, 2))`` as in the JAX package."""
+    is ``sample_square(key, (spp, rows, cols))`` as in the JAX package."""
     ys = torch.as_tensor(ys, dtype=torch.float32, device=device)
     xs = torch.as_tensor(xs, dtype=torch.float32, device=device)
     py, px = torch.meshgrid(ys, xs, indexing="ij")
     shape = (spp,) + tuple(py.shape)
-    jitter = rng.uniform(key, shape + (2,), device)
+    jitter = rng.sample_square(key, shape, device)
     return pixel_rays(cam, px.expand(shape), py.expand(shape), jitter)

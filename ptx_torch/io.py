@@ -1,11 +1,15 @@
-"""Image readers and writers: 24-bit BMP and Radiance ``.hdr`` (RGBE).
+"""Image readers and writers: PNG, 24-bit BMP and Radiance ``.hdr`` (RGBE).
 
-The port's own copies of the JAX package's numpy-only codecs
-(``ptx/io/bmp.py`` ``read`` / ``write``, ``ptx/io/hdr.py`` ``read``,
-``rgbe_to_float``, ``float_to_rgbe`` and ``_rle_encode``, and
-``ptx/io/image.py`` ``load``); they read and write the same bytes.  The
-JAX package's native RGBE fast path is not ported: :func:`read_hdr` is its
-portable decoder.
+The port's own copies of the JAX package's codecs (``ptx/io/png.py``
+``decode``, ``_unfilter``, ``write``, ``read_float``; ``ptx/io/bmp.py``
+``read`` / ``write``; ``ptx/io/hdr.py`` ``read``, ``rgbe_to_float``,
+``float_to_rgbe``, ``_rle_encode``; ``ptx/io/image.py`` ``load`` /
+``save``); they read and write the same bytes.  The PNG decoder is the
+self-contained one (stdlib ``zlib`` + numpy): where the JAX package
+imports Pillow, the port never does.  The HDR scanlines go through the
+native RGBE codec of :mod:`ptx_torch.runtime` where that library builds,
+and through the Python codec here where it does not, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from __future__ import annotations
 import io as _io
 import os
 import struct
+import zlib
 
 import numpy as np
 
@@ -21,20 +26,200 @@ class HDRError(ValueError):
     pass
 
 
+class PNGError(ValueError):
+    pass
+
+
 def load(path) -> np.ndarray:
-    """An image file → float32 (H, W, 4) RGBA by extension: ``.hdr`` /
-    ``.pic`` through :func:`read_hdr`, ``.bmp`` as 8-bit ÷ 255 with alpha
-    1.  A ``.png`` raises: the PNG reader comes with a later slice."""
+    """An image file → float32 (H, W, 4) RGBA by extension: ``.png`` as
+    8-bit RGBA ÷ 255, ``.hdr`` / ``.pic`` through :func:`read_hdr`,
+    ``.bmp`` as 8-bit ÷ 255 with alpha 1."""
     ext = os.path.splitext(str(path))[1].lower().lstrip(".")
+    if ext == "png":
+        return read_png(path).astype(np.float32) / 255.0
     if ext in ("hdr", "pic"):
         return read_hdr(path)
     if ext == "bmp":
         rgb = read_bmp(path).astype(np.float32) / 255.0
         return np.concatenate([rgb, np.ones_like(rgb[..., :1])], axis=-1)
-    if ext == "png":
-        raise NotImplementedError(f"{path}: the PNG reader is not ported yet (ROADMAP)")
     raise ValueError(f"invalid format: {path}")
 
+
+def save(path, img) -> None:
+    """Write ``img`` by extension: ``.png`` (float clipped to [0, 1]),
+    ``.hdr`` / ``.pic``, ``.bmp``."""
+    img = np.asarray(img)
+    ext = os.path.splitext(str(path))[1].lower().lstrip(".")
+    if ext == "png":
+        write_png(path, img if img.dtype == np.uint8 else np.clip(img, 0.0, 1.0))
+    elif ext in ("hdr", "pic"):
+        write_hdr(path, img)
+    elif ext == "bmp":
+        write_bmp(path, img)
+    else:
+        raise ValueError(f"invalid format: {path}")
+
+
+# ---------------------------------------------------------------------------
+# PNG
+# ---------------------------------------------------------------------------
+
+_PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+
+
+def read_png(path) -> np.ndarray:
+    """A PNG file → uint8 (H, W, 4) RGBA (16-bit stripped, palette
+    expanded, alpha filled opaque: the reference's png_decoder.cpp:85-97)."""
+    with open(path, "rb") as f:
+        return decode_png(f.read())
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes → uint8 (H, W, 4) RGBA; non-interlaced, any bit depth and
+    color type."""
+    if data[:8] != _PNG_MAGIC:
+        raise PNGError("bad signature")
+    pos = 8
+    ihdr = None
+    idat = bytearray()
+    palette = None
+    trns = None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        ctype = data[pos + 4:pos + 8]
+        chunk = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if ctype == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", chunk)
+        elif ctype == b"PLTE":
+            palette = np.frombuffer(chunk, np.uint8).reshape(-1, 3)
+        elif ctype == b"tRNS":
+            trns = np.frombuffer(chunk, np.uint8)
+        elif ctype == b"IDAT":
+            idat += chunk
+        elif ctype == b"IEND":
+            break
+    if ihdr is None:
+        raise PNGError("missing IHDR")
+    w, h, depth, color, comp, filt, interlace = ihdr
+    if comp != 0 or filt != 0:
+        raise PNGError("unsupported compression/filter method")
+    if interlace != 0:
+        raise PNGError("interlaced PNG not supported")
+    if color not in (0, 2, 3, 4, 6):
+        raise PNGError(f"bad color type {color}")
+
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color]
+    raw = zlib.decompress(bytes(idat))
+
+    if depth in (8, 16):
+        sample_bytes = depth // 8
+        bpp = channels * sample_bytes
+        img = _unfilter(raw, h, w * bpp, bpp)
+        arr = img.reshape(h, w, channels, sample_bytes)[..., 0]  # strip 16→8
+    elif depth in (1, 2, 4):
+        stride = (w * channels * depth + 7) // 8
+        img = _unfilter(raw, h, stride, 1)
+        bits = np.unpackbits(img.reshape(h, -1), axis=1)
+        vals = bits.reshape(h, -1, depth)
+        weights = 1 << np.arange(depth - 1, -1, -1)
+        arr = (vals * weights).sum(axis=2)[:, :w * channels]
+        arr = arr.reshape(h, w, channels).astype(np.uint8)
+        if color != 3:     # grayscale scale-up to 8-bit
+            arr = (arr * (255 // ((1 << depth) - 1))).astype(np.uint8)
+    else:
+        raise PNGError(f"unsupported bit depth {depth}")
+
+    if color == 3:
+        if palette is None:
+            raise PNGError("palette image without PLTE")
+        idx = arr[..., 0]
+        rgb = palette[idx]
+        if trns is not None:
+            a = np.full(len(palette), 255, np.uint8)
+            a[:len(trns)] = trns[:len(palette)]
+            alpha = a[idx]
+        else:
+            alpha = np.full_like(idx, 255)
+        return np.dstack([rgb, alpha]).astype(np.uint8)
+    if color == 0:
+        g = arr[..., 0]
+        return np.dstack([g, g, g, np.full_like(g, 255)])
+    if color == 2:
+        return np.dstack([arr, np.full(arr.shape[:2] + (1,), 255, np.uint8)])
+    if color == 4:
+        g, a = arr[..., 0], arr[..., 1]
+        return np.dstack([g, g, g, a])
+    return arr   # color == 6
+
+
+def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-row filters (none, sub, up, average, Paeth) of ``h``
+    rows of ``stride`` bytes, ``bpp`` bytes a pixel."""
+    if len(raw) < h * (stride + 1):
+        raise PNGError("truncated IDAT")
+    rows = np.frombuffer(raw, np.uint8, count=h * (stride + 1)).reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(h):
+        ftype, cur = rows[y, 0], rows[y, 1:]
+        if ftype == 0:
+            rec = cur
+        elif ftype == 1:       # sub: a running sum mod 256 per byte of a pixel
+            rec = np.empty(stride, np.uint8)
+            for j in range(min(bpp, stride)):
+                rec[j::bpp] = np.cumsum(cur[j::bpp], dtype=np.uint64) & 0xFF
+        elif ftype == 2:       # up
+            rec = cur + prev   # uint8 arithmetic wraps mod 256
+        elif ftype in (3, 4):  # average, Paeth: serial in x
+            c, b = cur.tolist(), prev.tolist()
+            r = [0] * stride
+            for x in range(stride):
+                a = r[x - bpp] if x >= bpp else 0
+                if ftype == 3:
+                    r[x] = (c[x] + ((a + b[x]) >> 1)) & 0xFF
+                else:
+                    cc = b[x - bpp] if x >= bpp else 0
+                    p = a + b[x] - cc
+                    pa, pb, pc = abs(p - a), abs(p - b[x]), abs(p - cc)
+                    pred = a if (pa <= pb and pa <= pc) else (b[x] if pb <= pc else cc)
+                    r[x] = (c[x] + pred) & 0xFF
+            rec = np.asarray(r, np.uint8)
+        else:
+            raise PNGError(f"bad filter {ftype}")
+        out[y] = rec
+        prev = out[y]
+    return out
+
+
+def write_png(path, img) -> None:
+    """Encode uint8 (H, W, 1/3/4) or float (clipped to [0, 1], ×255) as an
+    8-bit PNG, filter 0, zlib level 6."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        img = (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    if img.ndim == 2:
+        img = img[..., None]
+    h, w, ch = img.shape
+    color = {1: 0, 3: 2, 4: 6}[ch]
+    rows = np.concatenate(
+        [np.zeros((h, 1), np.uint8), img.reshape(h, w * ch)], axis=1)
+    payload = zlib.compress(rows.tobytes(), 6)
+
+    def chunk(tag, body):
+        out = struct.pack(">I", len(body)) + tag + body
+        return out + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF)
+
+    with open(path, "wb") as f:
+        f.write(_PNG_MAGIC)
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)))
+        f.write(chunk(b"IDAT", payload))
+        f.write(chunk(b"IEND", b""))
+
+
+# ---------------------------------------------------------------------------
+# BMP and HDR
+# ---------------------------------------------------------------------------
 
 def read_bmp(path) -> np.ndarray:
     """A 24/32-bit uncompressed BMP → uint8 (H, W, 3)."""
@@ -104,6 +289,14 @@ def read_hdr(path_or_bytes) -> np.ndarray:
     h, w = int(parts[1]), int(parts[3])
     if h <= 0 or w <= 0 or w >= 1 << 15:
         raise HDRError("invalid resolution string")
+
+    from ptx_torch import runtime
+    if runtime.runtime_available():
+        pos = buf.tell()
+        try:
+            return rgbe_to_float(runtime.rgbe_decode(buf.read(), w, h), scale)
+        except ValueError:
+            buf.seek(pos)         # the Python decoder below names the fault
 
     rgbe = np.empty((h, w, 4), np.uint8)
     for y in range(h):
@@ -262,9 +455,13 @@ def write_hdr(path, img) -> None:
     h, w = rgbe.shape[:2]
     out = bytearray(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n")
     out += f"-Y {h} +X {w}\n".encode()
-    for y in range(h):
-        out += bytes([2, 2, (w >> 8) & 0xFF, w & 0xFF])
-        for comp in range(4):
-            out += _rle_encode(rgbe[y, :, comp])
+    from ptx_torch import runtime
+    if runtime.runtime_available():
+        out += runtime.rgbe_encode(rgbe)
+    else:
+        for y in range(h):
+            out += bytes([2, 2, (w >> 8) & 0xFF, w & 0xFF])
+            for comp in range(4):
+                out += _rle_encode(rgbe[y, :, comp])
     with open(path, "wb") as f:
         f.write(bytes(out))

@@ -275,13 +275,13 @@ def _backward_ranges():
 
 def main(argv=None):
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from ptx_torch.core import rng
     from ptx_torch.integrate import render
     from ptx_torch.integrate.camera import Camera
     from ptx_torch.integrate.trace import compile_scene
     from ptx_torch.scenes import builders
+    from ptx_torch.utils import profiling
 
     ap = argparse.ArgumentParser(prog="python -m ptx_torch.layer_profile")
     ap.add_argument("--chunks", type=int, default=4)
@@ -366,16 +366,13 @@ def main(argv=None):
         t0 = time.perf_counter()
         run(rows, args.chunks)
         walls.append(time.perf_counter() - t0)
-    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    grad_ranges = _backward_ranges() if args.grad else contextlib.nullcontext()
-    with _layer_ranges(), grad_ranges, profile(activities=activities) as prof:
-        run(rows, args.chunks)
-    os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, f"trace_{name}"
                         f"{'_sky' + args.sky if args.sky else ''}"
                         f"{'_train' if args.train else '_grad' if args.grad else ''}"
                         f"{f'_spp{args.spp}' if args.spp != 16 else ''}.json")
-    prof.export_chrome_trace(path)
+    grad_ranges = _backward_ranges() if args.grad else contextlib.nullcontext()
+    with _layer_ranges(), grad_ranges, profiling.trace(path, cuda):
+        run(rows, args.chunks)
     names = [n for n, _, _ in LAYERS]
     if args.grad:
         names += [g for *_, g in GRAD_LAYERS] + [SKY_HIST]

@@ -6,7 +6,11 @@
   scene on the CPU is what it picks on the card, where every kernel
   wrapper launches its kernel or raises (no quiet fallback);
 - ``render --scene scenes/composed.json`` (52 leaves: the large-scene
-  path) runs on the CPU and never imports jax.
+  path) runs on the CPU and never imports jax;
+- ``render``, ``serve`` and ``farm`` take the JAX CLI's flags (``serve``
+  refuses the default ``--device cuda`` without a card, as ``render``
+  does); ``render --adaptive`` runs on the CPU and resumes from its
+  checkpoint to the uninterrupted image.
 """
 
 import os
@@ -150,3 +154,71 @@ def test_cli_scene_spec_render_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert "JAX_IMPORTED False" in proc.stdout and "PTX_FILES []" in proc.stdout
     assert np.load(out + ".npy").shape == (16, 32, 3)
+
+
+@pytest.mark.parametrize("argv, want", [
+    (["render", "--adaptive", "--checkpoint", "c.npz", "--preview", "--device", "cpu"],
+     dict(adaptive=True, checkpoint="c.npz", preview=True, device="cpu", spp_chunk=1,
+          rays_per_chunk=2 ** 16)),
+    (["serve", "--port", "0", "--bind", "0.0.0.0", "--max-inflight", "3", "--chunk-rows",
+      "8", "--adaptive", "--adaptive-rounds", "3", "--adaptive-frac", "0.5", "--demo",
+      "config4"],
+     dict(port=0, bind="0.0.0.0", max_inflight=3, chunk_rows=8, adaptive=True,
+          adaptive_rounds=3, adaptive_frac=0.5, demo="config4", device="cuda")),
+    (["serve"], dict(port=12346, bind="127.0.0.1", max_inflight=0, chunk_rows=16,
+                     adaptive=False, adaptive_rounds=2, adaptive_frac=0.25)),
+    (["farm", "h1:1", "h2", "--tile", "32", "--parallel", "2", "--spp", "4"],
+     dict(addresses=["h1:1", "h2"], port=12346, tile=32, parallel=2, spp=4)),
+], ids=["render", "serve", "serve-defaults", "farm"])
+def test_cli_parses_the_jax_flags(argv, want):
+    from ptx_torch import cli
+
+    args = vars(cli.parser().parse_args(argv))
+    assert {k: args[k] for k in want} == want
+    assert "device" not in args or argv[0] != "farm"
+
+
+def test_cli_serve_needs_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device serves")
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get(
+        "PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-m", "ptx_torch", "serve", "--port", "0",
+                           "--width", "8", "--height", "8"], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+
+
+def test_cli_adaptive_render_and_resume(tmp_path, capsys):
+    """``render --adaptive`` on the CPU: base 2 spp, 4 rounds of 8 pixels ×
+    4 spp on the 8×8 frame (mean 4 spp); stopped after round 2 with its
+    checkpoint written, the command resumes to the uninterrupted image."""
+    from ptx_torch import cli
+    from ptx_torch.core import rng
+    from ptx_torch.integrate.adaptive import render_adaptive
+    from ptx_torch.integrate.camera import Camera
+    from ptx_torch.parallel.checkpoint import AdaptiveCheckpoint
+
+    argv = ["render", "--adaptive", "--device", "cpu", "--width", "8", "--height", "8",
+            "--spp", "4", "--depth", "2", "--out", str(tmp_path / "x")]
+    whole = cli.main(argv + ["--checkpoint", str(tmp_path / "w.npz")])
+    assert "adaptive spp 2-" in capsys.readouterr().out
+    done = AdaptiveCheckpoint(8, 8, str(tmp_path / "w.npz"))
+    assert done.rounds_done == 4 and done.count.sum() == 8 * 8 * 2 + 4 * 8 * 4
+    np.testing.assert_array_equal(whole, done.s1 / done.count[..., None])
+
+    part = AdaptiveCheckpoint(8, 8, str(tmp_path / "p.npz"))
+
+    def stop_after_round_2(*state):
+        part.update(*state)
+        if state[3] == 2:
+            raise KeyboardInterrupt
+
+    scene = trace.compile_scene(builders.make_world(), "cpu")
+    with pytest.raises(KeyboardInterrupt):
+        render_adaptive(scene, Camera.reference_demo(8, 8), rng.PRNGKey(0), spp_base=2,
+                        rounds=4, frac=0.125, spp_refine=4, depth=2,
+                        on_round=stop_after_round_2)
+    resumed = cli.main(argv + ["--checkpoint", str(tmp_path / "p.npz")])
+    np.testing.assert_array_equal(resumed, whole)

@@ -17,8 +17,10 @@ K2's hand adjoint orders its float32 operations unlike autograd: an
 element passes within ``rtol 1e-5, atol 1e-6`` or within twice the plain
 value's error against a float64 recompute plus 1e-4 relative (near-grazing
 lanes are ill-conditioned).  K3 and K8 add with atomics in a varying
-order: ``1e-5`` of each texel's sum of |ct|, or, for K8's degenerate
-cases, the reordered-sum bound ``2·n·2⁻²⁴·Σ|ct|``.  K4 must equal the dense hit
+order: ``1e-5`` of each texel's sum of |ct|, or, for K3 and K8's
+degenerate cases, ``chip_smoke._hist_bound_ok``: ``min(2·n·2⁻²⁴,
+HIST_REL)·Σ|ct|`` of the float64 sum (n the texel's lanes with a nonzero
+ct), the one limit the smoke run holds them to.  K4 must equal the dense hit
 as K1 does; K7 its plain lanes, with bins equal except where a float64
 recompute puts the lane within 1e-6 of a texel boundary, and its backward
 within the reordered-sum bound of its plain version.  K5 must
@@ -35,8 +37,14 @@ K4 writes the dense hit's dict itself: ``mat_id``, ``hit``, ``entering``
 and ``_evt`` must equal the plain dict's, in its dtypes.
 """
 
+import sys
+from pathlib import Path
+
 import pytest
 import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import _hist_bound_ok  # noqa: E402
 
 from ptx_torch.core import rng
 from ptx_torch.integrate import trace
@@ -225,7 +233,7 @@ def _k3_case(shape, N, seed=1):
 def test_k3_matches_its_plain_version(shape, N, regime):
     """K3 in the regime ``k3_plan`` routes to and in each one forced: on
     the demo sky at the chunk and train widths, the 8x8 checker and a
-    ragged three-channel image, within the reordered-sum bound."""
+    ragged three-channel image, within ``_hist_bound_ok``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the histogram kernel has no CPU mode")
     from ptx_torch.ops import imagegrad
@@ -237,7 +245,7 @@ def test_k3_matches_its_plain_version(shape, N, regime):
            else imagegrad.k3.launch(yi, xi, inb, ct, shape, plan=plan))
     torch.cuda.synchronize()
     assert imagegrad.LAUNCHES == launches + 1
-    assert _reordered_sum_ok(got, yi, xi, inb, ct, shape)
+    _hist_bound_ok("K3", got, yi, xi, inb, ct, shape)
 
 
 @pytest.mark.cuda
@@ -262,7 +270,7 @@ def test_k3_degenerate_lanes(case, C, regime):
         ct = torch.randn(ct.numel() + 1, device=ct.device)[1:].view(ct.shape)
     got = imagegrad.k3.launch(yi, xi, inb, ct, shape, plan=_k3_plan(regime, 65_536, shape))
     torch.cuda.synchronize()
-    assert _reordered_sum_ok(got, yi, xi, inb, ct, shape)
+    _hist_bound_ok("K3", got, yi, xi, inb, ct, shape)
     if case == "all-skipped":
         assert not bool(got.any())
     if case == "one-texel":
@@ -285,18 +293,6 @@ def test_k8_matches_its_plain_version(shape):
     torch.cuda.synchronize()
     assert (imagegrad.LAUNCHES, imagegrad.BandedHistKernel.LAUNCHES) == (k3, k8 + 1)
     assert bool(((got - want).abs() <= 1e-5 * scale + 1e-7).all())
-
-
-def _reordered_sum_ok(got, yi, xi, inb, ct, shape):
-    """Within the reordered-sum bound ``2·n·2⁻²⁴·Σ|ct|`` per texel of n
-    lanes (float atomics add in a varying order)."""
-    from ptx_torch.ops import imagegrad
-
-    want = imagegrad.hist_reference(yi, xi, inb, ct, shape)
-    mag = imagegrad.hist_reference(yi, xi, inb, ct.abs(), shape)
-    n = imagegrad.hist_reference(yi, xi, inb, torch.ones_like(ct), shape)
-    return bool(torch.isfinite(got).all()) and bool(
-        ((got - want).abs() <= 2 * n * 2.0 ** -24 * mag).all())
 
 
 @pytest.mark.cuda
@@ -322,7 +318,7 @@ def test_k8_degenerate_lanes(case, C):
     got = imagegrad.hist(yi, xi, inb, ct, shape)
     torch.cuda.synchronize()
     assert imagegrad.BandedHistKernel.LAUNCHES == launches + 1
-    assert _reordered_sum_ok(got, yi, xi, inb, ct, shape)
+    _hist_bound_ok("K8", got, yi, xi, inb, ct, shape)
     if case == "all-skipped":
         assert not bool(got.any())
     if case == "one-texel":

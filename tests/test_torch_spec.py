@@ -7,7 +7,8 @@
   equal, except the composed transforms (``xform``), within 1e-6: a
   float32 matrix product and cos / sin of two libraries round their last
   bit differently;
-- ``load`` takes ``.hdr`` and ``.bmp`` and refuses ``.png`` (a later slice).
+- ``load`` takes ``.hdr``, ``.bmp`` and ``.png`` (the PNG cases are in
+  ``tests/test_torch_png.py``).
 """
 
 import os
@@ -60,8 +61,10 @@ def test_load_by_extension(tmp_path):
     np.testing.assert_array_equal(
         got[..., :3], jbmp.read(str(tmp_path / "a.bmp")).astype(np.float32) / 255.0)
     np.testing.assert_array_equal(io.load(PROBE), jhdr.read(PROBE))
-    with pytest.raises(NotImplementedError, match="PNG"):
-        io.load(tmp_path / "a.png")
+    io.write_png(tmp_path / "a.png", img)
+    assert io.load(tmp_path / "a.png").shape == (3, 5, 4)
+    with pytest.raises(ValueError, match="invalid format"):
+        io.load(tmp_path / "a.tga")
 
 
 def test_composed_spec_builds_the_jax_params():
