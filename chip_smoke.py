@@ -219,6 +219,47 @@ F3. ``serve --demo demo`` and ``serve --adaptive`` subprocesses on the card
     to ``adaptive_tile_moments`` at their seeds with each count budget met
     (every band is 64 × 16).
 
+Path G, the mesh (``ptx_torch.parallel``: ``torch.distributed``, a
+(tiles × samples) ``DeviceMesh``) and the routing knobs, on the demo:
+G1. a world-1 NCCL group made with a ``HashStore`` (NCCL's all-reduces
+    run) and its 1×1 mesh at 512², spp 16, depth 16, each call with the
+    counters zeroed just before: ``render_sharded`` (K1 17) and
+    ``render_sharded_moments`` (K1 17) equal to the unsharded ``trace_rays``
+    of the same rays under ``fold(key, 0, 0)`` bit for bit; one
+    ``make_train_step(mesh=)`` step (K1 17, K2 16, K3 3) against the step
+    without a mesh, run twice: the loss bit for bit, the params bit for
+    bit wherever the two runs agree, and where float atomics make them
+    differ, within twice their distance (at least one ulp; the counts are
+    logged); ``render_adaptive(mesh=)`` (K1 34: a base pass at spp 16 and
+    a round of 32,768 pixels × 16) equal to the adaptive render from the
+    unsharded moments; seconds beside the unsharded calls; the all-reduce
+    of the frame (3 MiB) and of the gradient buffer timed;
+G2. S1 on the same mesh: the render (K5 17) against the unsharded one;
+    one step counted (K5 17, K6 16) and timed as the main path runs it,
+    then the mesh step and two unsharded steps compared as in G1 under
+    ``torch.use_deterministic_algorithms`` (S1's const gradient sums 16.9 M
+    emission records through autograd's ``index_add_``, whose atomics
+    make two runs of one step differ by up to 230 ulps otherwise);
+G3. two ranks on the one card, both on ``cuda:0``: first two NCCL ranks
+    (NCCL refuses two ranks on one GPU; the outcome is logged), then a
+    gloo world of 2 (subprocesses of this script, ``--g3-rank``) with a
+    2×1 and a 1×2 mesh at 512², spp 16, depth 16: each rank's frame and
+    one step's loss equal bit for bit, and its params by G1's rule, to
+    this process's per-(tile, sample) band renders on the card combined in
+    the JAX order (computed twice); each rank's counts exact (K1 17 a
+    render; K1 17, K2 16, K3 3 a step); each rank also logs whether gloo's
+    ``all_gather`` takes CUDA tensors (the mesh itself needs only
+    all-reduces);
+G4. ``PTX_FUSED=0`` on a demo chunk (128 rows × 512, spp 1, depth 16, no
+    compaction): K4 17 and nothing else; equal to the default route's
+    chunk within ``rtol 1e-4, atol 1e-5`` except pixels whose paths hold a
+    decision flip the float64 adjudicator puts at a near-tie;
+    ``PTX_PALLAS=0`` (the plain route) and ``fast=False`` (the span merge)
+    launch nothing on phase 4's band, which agrees with the kernel band
+    by phase 4's rule; for the span merge a flip of ``mat_id`` alone at an
+    exactly coincident boundary (the demo's two spheres of one centre and
+    radius) is its payload choice, as in the JAX package, and counted.
+
 Then:
 9. a forward + backward chunk at the bench's shape (128 rows × 512, spp 1,
    depth 16, ``loss = radiance.mean()``): rays/s over the median of 10
@@ -247,8 +288,8 @@ Then:
     time at the demo's two widths; and the device time a call of
     both K7 launches over one ``PTX_EMK=1`` train step (the profiler); the
     least time the card could take (``bound_ms``) from this run's inputs;
-11. the summary line (with path F's rays/s and K1 launches and the largest
-    K3 / K8 ratio), then the JSON lines: the nine kernels (launches from
+11. the summary line (with path F's rays/s and K1 launches, the largest
+    K3 / K8 ratio and path G's seconds and all-reduce times), then the JSON lines: the nine kernels (launches from
     the paths' train steps: the demo's for K1-K3, config 4's for K4, S1's
     for K5 and K6, C2's for K7, the probe's for K8, E3's S1 for K9; K1's
     ``max_abs_err`` includes path F's; K7's entry carries its backward's
@@ -534,6 +575,64 @@ def phase_slice(scene):
     return launches, wall, rays / wall
 
 
+def _coincident(scene, inputs, evt, lanes):
+    """Per lane of ``lanes``: whether another leaf boundary lies at exactly
+    the float64 time of the winning event ``evt`` (the demo's bulb: two
+    spheres of one centre and radius)."""
+    import torch
+    from ptx_torch.geom import fasthit
+
+    o, d = (x.cpu()[lanes.cpu()].double() for x in inputs[:2])
+    t0, t1, _, _ = fasthit._leaf_intervals(fasthit.collect_leaves(scene.plan),
+                                           _f64_cpu(scene.params), *o.unbind(-1), *d.unbind(-1))
+    t_evt = torch.cat([t0, t1])
+    te = t_evt[evt.cpu()[lanes.cpu()].long(), torch.arange(lanes.numel())]
+    return (t_evt == te[None]).sum(dim=0) >= 2
+
+
+def _flipped_pixels(scene, log_a, log_b, lanes, n_chunks, spans=False):
+    """Pixels (lane = pixel: no compaction) whose paths in route B first
+    diverge from route A at a decision a float64 recompute puts at a
+    near-tie (:func:`adjudicate` on route B's inputs); raises on any other
+    divergence.  ``spans`` (route B the span merge, which has no ``evt``):
+    ``entering`` is compared only where both routes hit (a span walk's
+    ``entering`` on a miss means nothing), ties are judged on route A's
+    winner, and a flip of ``mat_id`` alone at an exactly coincident
+    boundary is the span merge's payload choice (the first operand's; the
+    fast hit's is the leaf order's), as in the JAX package.  Returns
+    ``(flipped (n_chunks · lanes,) bool, flips, of which payload flips)``."""
+    import torch
+
+    decisions = tuple(k for k in DECISIONS if not (spans and k == "evt"))
+    per_chunk = len(log_a) // n_chunks
+    flipped, flips, payload = [], 0, 0
+    for chunk in range(n_chunks):
+        diverged = torch.zeros(lanes, dtype=torch.bool, device=scene.device)
+        for b in range(per_chunk):
+            (_, out_a), (inp_b, out_b) = log_a[chunk * per_chunk + b], log_b[chunk * per_chunk + b]
+            if spans:
+                out_b = dict(out_b, evt=out_a["evt"])
+            differ = {}
+            for k in decisions:
+                differ[k] = out_a[k] != out_b[k]
+                if spans and k == "entering":
+                    differ[k] &= out_a["hit"] & out_b["hit"]
+            first = torch.stack(list(differ.values())).any(dim=0) & ~diverged
+            idx = first.nonzero().flatten()
+            ok = adjudicate(scene, inp_b, out_a, out_b, idx)
+            if spans and idx.numel():
+                others = torch.stack([v for k, v in differ.items() if k != "mat_id"]).any(dim=0)
+                is_payload = (~others)[idx].cpu() & _coincident(scene, inp_b, out_a["evt"], idx)
+                payload += int((is_payload & ~ok).sum())
+                ok = ok | is_payload
+            if not bool(ok.all()):
+                raise AssertionError(f"{int((~ok).sum())} unexplained flips")
+            flips += int(idx.numel())
+            diverged |= first
+        flipped.append(diverged)
+    return torch.cat(flipped), flips, payload
+
+
 def _recording(fn, log_list):
     def call(params, *inputs, packed=None):
         out = fn(params, *inputs, packed=packed)
@@ -565,25 +664,8 @@ def phase_band_vs_plain(scene):
         raise AssertionError(f"band: {len(log_k)} kernel and {len(log_p)} "
                              f"plain bounces, expected {2 * (DEPTH + 1)} each")
 
-    pixel_flipped = torch.zeros(rows * W, dtype=torch.bool, device=scene.device)
-    flips = 0
-    for chunk in range(2):
-        diverged = torch.zeros_like(pixel_flipped)
-        for b in range(DEPTH + 1):
-            (_, out_k), (inp_p, out_p) = (log_k[chunk * (DEPTH + 1) + b],
-                                          log_p[chunk * (DEPTH + 1) + b])
-            differ = torch.zeros_like(diverged)
-            for k in DECISIONS:
-                differ |= out_k[k] != out_p[k]
-            first = differ & ~diverged   # this path's first divergence
-            lanes = first.nonzero().flatten()
-            ok = adjudicate(scene, inp_p, out_k, out_p, lanes)
-            if not bool(ok.all()):
-                raise AssertionError(f"band: {int((~ok).sum())} unexplained flips")
-            flips += int(lanes.numel())
-            diverged |= first
-        pixel_flipped |= diverged
-    keep = ~pixel_flipped.reshape(rows, W)
+    flipped, flips, _ = _flipped_pixels(scene, log_k, log_p, rows * W, 2)
+    keep = ~flipped.reshape(2, rows, W).any(dim=0)
     torch.testing.assert_close(img_k[keep], img_p[keep], rtol=1e-4, atol=1e-5)
     log(f"[4 slice] band {rows}x{W} spp 2 kernel vs plain: {int(keep.sum())} "
         f"pixels equal within rtol 1e-4 atol 1e-5, {flips} adjudicated flips, "
@@ -3178,6 +3260,575 @@ def run_path_f(scene):
     return f1, f2, f3
 
 
+# ---------------------------------------------------------------------------
+# path G, the mesh (ptx_torch.parallel on torch.distributed) and the knobs
+# ---------------------------------------------------------------------------
+
+G_RENDER_KEY, G_STEP_KEY, G_ADAPT_KEY = 21, 22, 23
+G3_SHAPES = ((2, 1), (1, 2))
+G3_TIMEOUT = 600
+
+
+def _perturbed(params):
+    """Phase 7's start: sphere radii ×1.05, const row 0 lowered by 0.1."""
+    out = dict(params)
+    out["sphere_radius"] = params["sphere_radius"] * 1.05
+    const = params["const"].clone()
+    const[0] -= 0.1
+    out["const"] = const
+    return out
+
+
+def _flat(params):
+    import torch
+
+    return torch.cat([x.reshape(-1) for v in params.values()
+                      for x in (v if isinstance(v, list) else [v])])
+
+
+def _unsharded(scene, key, params=None):
+    """The whole frame's radiance (spp, H, W, 3) in one wavefront under
+    ``fold(key, 0, 0)``: what a 1×1 mesh renders."""
+    import torch
+    from ptx_torch.core import rng
+    from ptx_torch.integrate.camera import Camera, sample_rays
+    from ptx_torch.integrate.trace import trace_rays
+
+    k = rng.fold(key, 0, 0)
+    o, d = sample_rays(Camera.reference_demo(W, H), k, range(H), range(W), SPP, scene.device)
+    with torch.no_grad():
+        return trace_rays(scene, scene.params if params is None else params, o, d, k, DEPTH)
+
+
+def _equal(tag, what, got, want):
+    import torch
+
+    if not torch.equal(got, want):
+        n = int((got != want).sum()) if got.shape == want.shape else -1
+        raise AssertionError(f"{tag}: {what} differs from the unsharded one at {n} entries")
+
+
+def _ulps(a, b):
+    """The distance between float32 tensors of one sign in units in the last
+    place (the difference of their bit patterns)."""
+    import torch
+
+    return (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+
+
+def _params_check(tag, got, want, again):
+    """A mesh step's new params ``got`` against the step without the mesh,
+    run twice (``want``, ``again``), per param key (or one flat tensor):
+    bit for bit wherever the two runs agree; where they differ (float
+    atomics adding in a varying order), within the larger of one ulp and
+    twice their distance in ulps.  Returns per key ``(entries off the
+    first run, entries where the runs differ, the largest distance in
+    ulps from the first run)``."""
+    import torch
+
+    pairs = lambda d: ([(k, x) for k, v in d.items() for x in (v if isinstance(v, list) else [v])]
+                       if isinstance(d, dict) else [("params", d)])
+    rep = {}
+    for (k, g), (_, w), (_, a) in zip(pairs(got), pairs(want), pairs(again)):
+        n_off, n_noisy, ulps = rep.get(k, (0, 0, 0))
+        stable = w == a
+        off = g != w
+        far = _ulps(g, w)
+        bad = (off & stable) | (~stable & (far > torch.clamp(2 * _ulps(w, a), min=1)))
+        if bad.any():
+            raise AssertionError(f"{tag}: param {k} differs from the step without the mesh at "
+                                 f"{int(bad.sum())} entries beyond its run-to-run spread")
+        rep[k] = (n_off + int(off.sum()), n_noisy + int((~stable).sum()),
+                  max(ulps, int(far.max()) if far.numel() else 0))
+    return rep
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """PyTorch's deterministic algorithms for the block (warnings where an
+    operation has none)."""
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _frame_ms(mesh, numel, device):
+    """Median of 20 all-reduces of ``numel`` float32 over the mesh's tile
+    group, each between CUDA events."""
+    import torch
+    import torch.distributed as dist
+    from ptx_torch.parallel.mesh import TILE_AXIS
+
+    buf = torch.ones(numel, device=device)
+    group = mesh.get_group(TILE_AXIS)
+    return _time_ms(lambda: dist.all_reduce(buf, group=group))
+
+
+def phase_g1_mesh_demo(scene):
+    """G1: the demo on a 1×1 mesh over a world-1 NCCL group, against the
+    unsharded computation, bit for bit, with exact launch counts."""
+    import torch
+    from ptx_torch.core import rng
+    from ptx_torch.integrate import adaptive
+    from ptx_torch.integrate.camera import Camera
+    from ptx_torch.parallel import mesh as pmesh
+    from ptx_torch.parallel import render as prender
+
+    cam, dev = Camera.reference_demo(W, H), scene.device
+    mesh = pmesh.make_mesh(1, 1, device=dev)
+    params = pmesh.shard_params(scene.params, mesh)
+    out = {}
+
+    def counted(tag, expect, fn):
+        _reset_counters()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        c = _counters()
+        log(f"[{tag}] {secs:.3f} s; launches {c} (expected {expect})")
+        if c != expect:
+            raise AssertionError(f"{tag}: launches {c}, expected {expect}")
+        return res, secs
+
+    key = rng.PRNGKey(G_RENDER_KEY)
+    prender.render_sharded(scene, cam, mesh, key, SPP, DEPTH, params)   # NCCL's first use
+    img, out["render_s"] = counted("G1 render_sharded", _expect(K1=DEPTH + 1),
+                                   lambda: prender.render_sharded(scene, cam, mesh, key, SPP,
+                                                                  DEPTH, params))
+    t0 = time.perf_counter()
+    rad = _unsharded(scene, key)
+    torch.cuda.synchronize()
+    out["render_u_s"] = time.perf_counter() - t0
+    _equal("G1", "render_sharded", img, rad.mean(dim=0))
+    (s1, s2), _ = counted("G1 render_sharded_moments", _expect(K1=DEPTH + 1),
+                          lambda: prender.render_sharded_moments(scene, cam, mesh, key, SPP,
+                                                                 DEPTH, params))
+    _equal("G1", "s1", s1, rad.sum(dim=0))
+    _equal("G1", "s2", s2, (rad ** 2).sum(dim=0))
+    del rad, s1, s2
+
+    start, step_key = _perturbed(params), rng.PRNGKey(G_STEP_KEY)
+    step_m = prender.make_train_step(scene, cam, mesh, spp=SPP, depth=DEPTH,
+                                     learning_rate=LR)
+    (new_m, loss_m), out["step_s"] = counted(
+        "G1 make_train_step(mesh)", _expect(1, K1=DEPTH + 1, K2=DEPTH, K3=3),
+        lambda: step_m(start, img, step_key))
+    step_u = prender.make_train_step(scene, cam, spp=SPP, depth=DEPTH, learning_rate=LR)
+    t0 = time.perf_counter()
+    new_u, loss_u = step_u(start, img, step_key)
+    torch.cuda.synchronize()
+    out["step_u_s"] = time.perf_counter() - t0
+    again, _ = step_u(start, img, step_key)
+    _equal("G1", "loss", loss_m, loss_u)
+    rep = _params_check("G1", new_m, new_u, again)
+    log(f"[G1 make_train_step(mesh)] loss {float(loss_m):.6g} == unsharded; params (entries "
+        f"off the unsharded step, entries two unsharded steps differ at, largest ulps): {rep}; "
+        f"seconds: render {out['render_s']:.3f} (unsharded {out['render_u_s']:.3f}), step "
+        f"{out['step_s']:.3f} (unsharded {out['step_u_s']:.3f})")
+    out["params_demo"] = rep
+    del new_m, new_u, again
+
+    kw = dict(spp_base=SPP, rounds=1, frac=0.125, spp_refine=SPP, depth=DEPTH, params=params)
+    akey = rng.PRNGKey(G_ADAPT_KEY)
+    (a_img, a_count, _), out["adaptive_s"] = counted(
+        "G1 render_adaptive(mesh)", _expect(K1=2 * (DEPTH + 1)),
+        lambda: adaptive.render_adaptive(scene, cam, akey, mesh=mesh, **kw))
+    rad = _unsharded(scene, akey)
+    base = (rad.sum(dim=0), (rad ** 2).sum(dim=0),
+            torch.full((H, W), float(SPP), device=dev), 0)
+    del rad
+    u_img, u_count, _ = adaptive.render_adaptive(scene, cam, akey, state=base, **kw)
+    _equal("G1", "adaptive image", a_img, u_img)
+    _equal("G1", "adaptive counts", a_count, u_count)
+    if float(a_count.sum()) != W * H * SPP + int(W * H * 0.125) * SPP:
+        raise AssertionError("G1: adaptive counts miss the budget")
+
+    out["frame_ms"] = _frame_ms(mesh, H * W * 3, dev)
+    out["grad_numel"] = int(_flat(params).numel())
+    out["grad_ms"] = _frame_ms(mesh, out["grad_numel"], dev)
+    log(f"[G1 collectives] NCCL world 1: the frame's all-reduce ({H}x{W}x3 float32, "
+        f"{H * W * 3 * 4 / 2 ** 20:.2f} MiB) {out['frame_ms']:.4f} ms; the gradient buffer's "
+        f"({out['grad_numel']:,} float32) {out['grad_ms']:.4f} ms (median of 20)")
+    torch.save(img.cpu(), os.path.join(OUT, "g3_target.pt"))
+    return out
+
+
+def phase_g2_mesh_s1(dev):
+    """G2: S1 (K5, K6) on the 1×1 NCCL mesh: its render and one train step
+    against the unsharded ones."""
+    import torch
+    from ptx_torch.core import rng
+    from ptx_torch.integrate.camera import Camera
+    from ptx_torch.integrate.trace import compile_scene
+    from ptx_torch.parallel import mesh as pmesh
+    from ptx_torch.parallel import render as prender
+    from ptx_torch.scenes import builders
+
+    scene = compile_scene(builders.stress_spheres(249), dev)
+    cam, mesh = Camera.reference_demo(W, H), pmesh.make_mesh(1, 1, device=dev)
+    key = rng.PRNGKey(G_RENDER_KEY)
+    _reset_counters()
+    img = prender.render_sharded(scene, cam, mesh, key, SPP, DEPTH)
+    torch.cuda.synchronize()
+    c_render = _counters()
+    _equal("G2 S1", "render_sharded", img, _unsharded(scene, key).mean(dim=0))
+    start, step_key = _perturbed(scene.params), rng.PRNGKey(G_STEP_KEY)
+    step_m = prender.make_train_step(scene, cam, mesh, spp=SPP, depth=DEPTH,
+                                     learning_rate=LR)
+    step_u = prender.make_train_step(scene, cam, spp=SPP, depth=DEPTH, learning_rate=LR)
+    _reset_counters()
+    t0 = time.perf_counter()
+    step_m(start, img, step_key)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    c_step = _counters()
+    # S1's const gradient sums 16.9 M emission records through autograd's
+    # index_add_, whose atomics make two runs of one step differ by up to
+    # 230 ulps; PyTorch's deterministic algorithms sort them instead
+    with _deterministic():
+        new_m, loss_m = step_m(start, img, step_key)
+        new_u, loss_u = step_u(start, img, step_key)
+        again, _ = step_u(start, img, step_key)
+    _equal("G2 S1", "loss", loss_m, loss_u)
+    rep = _params_check("G2 S1", new_m, new_u, again)
+    log(f"[G2 S1] render launches {c_render}; step launches {c_step}, {secs:.3f} s; loss "
+        f"{float(loss_m):.6g} == unsharded; params (entries off, entries two unsharded "
+        f"steps differ at, largest ulps): {rep}")
+    if c_render != _expect(K5=DEPTH + 1):
+        raise AssertionError(f"G2 S1 render launches {c_render}")
+    if c_step != _expect(k6_steps=1, K5=DEPTH + 1, K6=DEPTH):
+        raise AssertionError(f"G2 S1 step launches {c_step}")
+    return {"s1_step_s": secs, "params_s1": rep}
+
+
+def _g_rank_reference(scene, tiles, samples, params, target, key, step_key):
+    """One process's combination of the per-(tile, sample) band renders on
+    the card, in the JAX order (``tests/test_torch_mesh.py``): the frame,
+    and one train step's new flat params and loss."""
+    import torch
+    from ptx_torch.integrate.camera import Camera
+    from ptx_torch.parallel import render as prender
+
+    cam, rows, spp = Camera.reference_demo(W, H), H // tiles, SPP // samples
+    leaves = prender._leaves(params)
+    frame, grads, losses = [], [], []
+    for t in range(tiles):
+        y0 = t * rows
+        with torch.no_grad():
+            bands = [prender._local_render(scene, cam, DEPTH, spp, params, key, y0, rows, t, s)
+                     for s in range(samples)]
+        frame.append(sum(bands[1:], bands[0]) / samples)
+        per_sample = []
+        for s in range(samples):
+            xs = [x.detach().requires_grad_(True) for _, _, x in leaves]
+            band = prender._local_render(scene, cam, DEPTH, spp,
+                                         prender._rebuild(params, leaves, xs), step_key, y0,
+                                         rows, t, s)
+            per_sample.append((xs, band))
+        mean = sum((b.detach() for _, b in per_sample[1:]), per_sample[0][1].detach())
+        mean = (mean / samples).requires_grad_(True)
+        loss = torch.mean((mean - target[y0:y0 + rows]) ** 2)
+        (ct,) = torch.autograd.grad(loss, mean)
+        losses.append(loss.detach())
+        grads.append([torch.cat([(torch.zeros_like(x) if g is None else g).reshape(-1)
+                                 for x, g in zip(xs, torch.autograd.grad(
+                                     band, xs, ct, allow_unused=True))])
+                      for xs, band in per_sample])
+        del per_sample
+    by_sample = [sum((grads[t][s] for t in range(1, tiles)), grads[0][s]) / tiles
+                 for s in range(samples)]
+    g = sum(by_sample[1:], by_sample[0]) / samples
+    loss = sum(losses[1:], losses[0]) / tiles
+    return torch.cat(frame), _flat(params) - LR * g, loss
+
+
+def _g3_rank(rank, port):
+    """One rank of G3 (``chip_smoke.py --g3-rank RANK PORT``): a gloo world
+    of 2 on ``cuda:0``; each mesh of ``G3_SHAPES`` renders the frame and
+    takes one train step, with its launch counts; results under ``OUT``."""
+    import torch
+    import torch.distributed as dist
+    from ptx_torch.core import rng
+    from ptx_torch.integrate.camera import Camera
+    from ptx_torch.integrate.trace import compile_scene
+    from ptx_torch.parallel import mesh as pmesh
+    from ptx_torch.parallel import render as prender
+    from ptx_torch.scenes import builders
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank)
+    scene = compile_scene(builders.make_world(), dev)
+    target = torch.load(os.path.join(OUT, "g3_target.pt")).to(dev)
+    cam = Camera.reference_demo(W, H)
+    # the render's frame gather is an all-reduce, which both backends run
+    # on CUDA tensors; the probe records whether gloo gathers them too
+    x = torch.full((4,), float(rank), device=dev)
+    try:
+        dist.all_gather([torch.empty_like(x) for _ in range(2)], x)
+        gather = "ran"
+    except RuntimeError as e:
+        gather = f"refused: {str(e).splitlines()[0][:200]}"
+    report = {"all_gather": gather}
+    for tiles, samples in G3_SHAPES:
+        mesh = pmesh.make_mesh(tiles, samples, device=dev)
+        params = pmesh.shard_params(_perturbed(scene.params), mesh)
+        _reset_counters()
+        frame = prender.render_sharded(scene, cam, mesh, rng.PRNGKey(G_RENDER_KEY), SPP,
+                                       DEPTH, params)
+        torch.cuda.synchronize()
+        c_render = _counters()
+        step = prender.make_train_step(scene, cam, mesh, spp=SPP, depth=DEPTH,
+                                       learning_rate=LR)
+        _reset_counters()
+        t0 = time.perf_counter()
+        new, loss = step(params, target, rng.PRNGKey(G_STEP_KEY))
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        c_step = _counters()
+        torch.save({"frame": frame.cpu(), "params": _flat(new).cpu(), "loss": loss.cpu()},
+                   os.path.join(OUT, f"g3_{tiles}x{samples}_{rank}.pt"))
+        report[f"{tiles}x{samples}"] = {"render": c_render, "step": c_step, "step_s": step_s,
+                                        "backend": dist.get_backend()}
+    dist.destroy_process_group()
+    report["seconds"] = time.perf_counter() - t_start
+    print("G3_REPORT " + json.dumps(report), flush=True)
+    return 0
+
+
+def _g3_nccl_rank(rank, port):
+    """``chip_smoke.py --g3-nccl RANK PORT``: two NCCL ranks on ``cuda:0``,
+    one all-reduce; NCCL is expected to refuse the pair."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank)
+    x = torch.ones(4, device="cuda:0")
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    print(f"G3_NCCL all-reduce ran: {x.tolist()}", flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(mode, timeout):
+    """Two ranks of this script in ``mode``; ``[(returncode, output), ...]``.
+    A rank still running at ``timeout`` seconds is killed (rc None)."""
+    port = _free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), mode, str(r),
+                               str(port)], cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    out = []
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        try:
+            text = p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0]
+            out.append((p.returncode, text))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out.append((None, p.communicate()[0]))
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    return out
+
+
+def phase_g3_two_ranks(scene):
+    """G3: two ranks on the one card.  NCCL first (expected to refuse two
+    ranks on one GPU; logged), then gloo: 2×1 and 1×2 meshes, each rank's
+    frame, step params and loss equal to this process's per-(tile, sample)
+    combination, with exact counts."""
+    import torch
+    from ptx_torch.core import rng
+    from ptx_torch.parallel import mesh as pmesh
+
+    t0 = time.perf_counter()
+    nccl = _run_ranks("--g3-nccl", 120)
+    for r, (rc, text) in enumerate(nccl):
+        tail = [ln for ln in text.strip().splitlines() if ln.strip()][-3:]
+        log(f"[G3 NCCL] rank {r}: exit {rc}; " + " | ".join(ln.strip()[:300] for ln in tail))
+    refused = any(rc not in (0, None) for rc, _ in nccl)
+    log(f"[G3 NCCL] two NCCL ranks on one card: {'refused' if refused else 'not refused'} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    runs = _run_ranks("--g3-rank", G3_TIMEOUT)
+    reports = []
+    for r, (rc, text) in enumerate(runs):
+        with open(os.path.join(OUT, f"g3_rank{r}.log"), "w") as f:
+            f.write(text)
+        if rc != 0:
+            raise AssertionError(f"G3 rank {r} exit {rc}:\n{text[-4000:]}")
+        reports.append(json.loads(text.split("G3_REPORT ", 1)[1].splitlines()[0]))
+    target = torch.load(os.path.join(OUT, "g3_target.pt")).to(scene.device)
+    params = _perturbed(pmesh.shard_params(scene.params, pmesh.LocalMesh(scene.device)))
+    out = {"rank_s": [rep["seconds"] for rep in reports]}
+    for tiles, samples in G3_SHAPES:
+        name = f"{tiles}x{samples}"
+        frame, new, loss = _g_rank_reference(scene, tiles, samples, params, target,
+                                             rng.PRNGKey(G_RENDER_KEY),
+                                             rng.PRNGKey(G_STEP_KEY))
+        again = _g_rank_reference(scene, tiles, samples, params, target,
+                                  rng.PRNGKey(G_RENDER_KEY), rng.PRNGKey(G_STEP_KEY))[1]
+        for r, rep in enumerate(reports):
+            got = torch.load(os.path.join(OUT, f"g3_{name}_{r}.pt"))
+            for what, a, b in (("frame", got["frame"], frame.cpu()),
+                               ("loss", got["loss"], loss.cpu())):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"G3 {name} rank {r}: {what} differs from the "
+                                         f"per-band combination at {int((a != b).sum())} "
+                                         "entries")
+            rep_p = _params_check(f"G3 {name} rank {r}", got["params"], new.cpu(),
+                                  again.cpu())["params"]
+            log(f"[G3 gloo {name}] rank {r}: params (entries off the per-band combination, "
+                f"entries where two combinations differ, largest ulps) {rep_p}")
+            if rep[name]["render"] != _expect(K1=DEPTH + 1):
+                raise AssertionError(f"G3 {name} rank {r} render launches {rep[name]['render']}")
+            if rep[name]["step"] != _expect(1, K1=DEPTH + 1, K2=DEPTH, K3=3):
+                raise AssertionError(f"G3 {name} rank {r} step launches {rep[name]['step']}")
+        log(f"[G3 gloo {name}] both ranks ({reports[0][name]['backend']}): frame and loss "
+            f"{float(loss):.6g} equal the per-band combination bit for bit; "
+            f"launches K1 {DEPTH + 1} a render, K1 {DEPTH + 1} K2 {DEPTH} K3 3 a step; step "
+            f"seconds {[round(rep[name]['step_s'], 3) for rep in reports]}")
+        out[name] = [rep[name]["step_s"] for rep in reports]
+    log(f"[G3] seconds per rank process {[round(s, 2) for s in out['rank_s']]}; gloo's "
+        f"all_gather of CUDA tensors: {reports[0]['all_gather']}")
+    return out
+
+
+def _band(scene, bounce_log, y0=248, rows=16, spp=2):
+    """Phase 4's band (``rows`` rows from ``y0``, ``spp`` one-sample
+    chunks, no compaction), each bounce recorded: through ``bounce_fn``, or
+    (a scene without one) through ``trace._bounce_live``."""
+    import torch
+    from ptx_torch.core import rng
+    from ptx_torch.integrate import trace
+    from ptx_torch.integrate.camera import Camera
+    from ptx_torch.integrate.render import render_rows
+
+    cam = Camera.reference_demo(W, H)
+    if scene.bounce_fn is not None:
+        sk = dataclasses.replace(scene, bounce_fn=_recording(scene.bounce_fn, bounce_log))
+        return render_rows(sk, scene.params, cam, rng.PRNGKey(0), y0, rows, 1, spp, DEPTH)
+    live = trace._bounce_live
+
+    def recorded(hit_fn, material_fn, params, o, d, thr, strength, alive, in_depth, uc, u3):
+        carry, dec = live(hit_fn, material_fn, params, o, d, thr, strength, alive, in_depth,
+                          uc, u3)
+        # the inputs in the order of K1's wrapper (``adjudicate`` reads them so)
+        bounce_log.append(((o, d, thr, strength, alive, uc, u3, in_depth),
+                           dict(dec, o2=carry[0], d2=carry[1], thr2=carry[2],
+                                strength2=carry[3], alive2=carry[4])))
+        return carry, dec
+    with _swapped(trace, "_bounce_live", recorded), torch.no_grad():
+        return render_rows(scene, scene.params, cam, rng.PRNGKey(0), y0, rows, 1, spp, DEPTH)
+
+
+def phase_g4_knobs(scene):
+    """G4: ``PTX_FUSED=0`` on a demo chunk (K4 17, K1 0) against the default
+    route; ``PTX_PALLAS=0`` and ``fast=False`` (no kernel) on phase 4's band
+    against the kernel band, by phase 4's rule."""
+    import torch
+    from ptx_torch.core import rng
+    from ptx_torch.integrate import trace
+    from ptx_torch.integrate.camera import Camera
+    from ptx_torch.integrate.render import render_tile
+    from ptx_torch.scenes import builders
+
+    dev, cam = scene.device, Camera.reference_demo(W, H)
+    with _env(PTX_FUSED="0"):
+        unfused = trace.compile_scene(builders.make_world(), dev)
+    if not isinstance(unfused.bounce_fn, trace.UnfusedBounce):
+        raise AssertionError("G4: PTX_FUSED=0 kept the fused bounce")
+    y0, rows, key = 192, BAND_ROWS, rng.PRNGKey(3)
+    log_k, log_u = [], []
+    sk = dataclasses.replace(scene, bounce_fn=_recording(scene.bounce_fn, log_k))
+    su = dataclasses.replace(unfused, bounce_fn=_recording(unfused.bounce_fn, log_u))
+    img_k = render_tile(sk, scene.params, cam, key, 0, y0, W, rows, 1, DEPTH, compact=False)
+    _reset_counters()
+    img_u = render_tile(su, unfused.params, cam, key, 0, y0, W, rows, 1, DEPTH, compact=False)
+    torch.cuda.synchronize()
+    c = _counters()
+    if c != _expect(K4=DEPTH + 1):
+        raise AssertionError(f"G4 PTX_FUSED=0 chunk launches {c}, expected K4 {DEPTH + 1}")
+    flipped, flips, _ = _flipped_pixels(scene, log_k, log_u, rows * W, 1)
+    keep = ~flipped.reshape(rows, W)
+    torch.testing.assert_close(img_u[keep], img_k[keep], rtol=1e-4, atol=1e-5)
+    log(f"[G4 PTX_FUSED=0] {rows}x{W} chunk spp 1 depth {DEPTH} (no compaction): launches "
+        f"{c}; {int(keep.sum())} pixels equal the default route's within rtol 1e-4 atol "
+        f"1e-5, {flips} adjudicated flips, max abs diff "
+        f"{float((img_u - img_k).abs().max()):.3g}")
+    del log_k, log_u
+    out = {"fused0_flips": flips}
+
+    log_k = []
+    band_k = _band(scene, log_k)
+    for name, make in (("PTX_PALLAS=0", lambda: _plain_route(dev)),
+                       ("fast=False", lambda: trace.compile_scene(builders.make_world(), dev,
+                                                                  fast=False))):
+        plain = make()
+        log_p = []
+        _reset_counters()
+        band_p = _band(plain, log_p)
+        torch.cuda.synchronize()
+        c = _counters()
+        if c != _expect():
+            raise AssertionError(f"G4 {name}: launches {c}, expected none")
+        flipped, flips, payload = _flipped_pixels(scene, log_k, log_p, 16 * W, 2,
+                                                  spans=plain.hit_fn is None)
+        keep = ~flipped.reshape(2, 16, W).any(dim=0)
+        torch.testing.assert_close(band_p[keep], band_k[keep], rtol=1e-4, atol=1e-5)
+        log(f"[G4 {name}] phase 4's band: no launch ({c}); {int(keep.sum())} pixels equal "
+            f"the kernel band within rtol 1e-4 atol 1e-5, {flips} adjudicated flips ({payload} "
+            f"of them the span merge's payload at a coincident boundary), max abs diff "
+            f"{float((band_p - band_k).abs().max()):.3g}")
+        out[name] = flips
+    return out
+
+
+def _plain_route(dev):
+    from ptx_torch.integrate import trace
+    from ptx_torch.scenes import builders
+
+    with _env(PTX_PALLAS="0"):
+        plain = trace.compile_scene(builders.make_world(), dev)
+    if plain.hit_fn is not plain.plain_hit_fn or plain.emission_fn is not None:
+        raise AssertionError("G4: PTX_PALLAS=0 kept a kernel")
+    return plain
+
+
+def run_path_g(scene, dev):
+    """Path G; G1 and G2 on a world-1 NCCL group made with a HashStore."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        g1 = _timed("G1 mesh demo", phase_g1_mesh_demo, scene)
+        g2 = _timed("G2 mesh S1", phase_g2_mesh_s1, dev)
+    finally:
+        dist.destroy_process_group()
+    g3 = _timed("G3 two ranks", phase_g3_two_ranks, scene)
+    g4 = _timed("G4 knobs", phase_g4_knobs, scene)
+    return g1, g2, g3, g4
+
+
 def _timed(label, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -3289,6 +3940,9 @@ def main():
         (f3_rays, f3a_rays, f3c_rays, f3ca_rays, f3_flips, f3_err, f3_k1, f3a_k1) = \
         run_path_f(scene)
 
+    # path G: the mesh on torch.distributed, the routing knobs
+    g1, g2, g3, g4 = run_path_g(scene, dev)
+
     fb_rays, f_rays = _timed("9 fwd+bwd", phase_fwd_bwd, scene)
     w_ms, p_ms, dev_ms, _ = _timed("10 K1 timing", phase_timing, scene, inputs)
     k2_ms, k2p_ms, k2_bound, k2_pack_ms, k2_step, k2_step_old = _timed(
@@ -3346,7 +4000,13 @@ def main():
         f"adaptive farm {f3a_rays:.4g} rays/s (K1 {f3a_k1}), from the serve subprocesses "
         f"{f3c_rays:.4g} / {f3ca_rays:.4g} rays/s, band flips {f3_flips}; K3 / K8 largest "
         f"|k − p| / "
-        f"Σ|ct| {HIST_WORST['ratio']:.3g} ({HIST_WORST['where']}, limit {HIST_REL:g}); total "
+        f"Σ|ct| {HIST_WORST['ratio']:.3g} ({HIST_WORST['where']}, limit {HIST_REL:g}); path G: "
+        f"1x1 NCCL mesh render {g1['render_s']:.3f} s (phase 4: {rays_s:.4g} rays/s), step "
+        f"{g1['step_s']:.3f} s (phase 7: {min(secs):.3f} s), adaptive {g1['adaptive_s']:.3f} s, "
+        f"S1 step {g2['s1_step_s']:.3f} s; all-reduce of the frame {g1['frame_ms']:.4f} ms, of "
+        f"the gradient buffer ({g1['grad_numel']:,} floats) {g1['grad_ms']:.4f} ms; two gloo "
+        f"ranks on the card: seconds per rank {[round(x, 2) for x in g3['rank_s']]}; knob "
+        f"flips {g4}; total "
         f"{time.perf_counter() - t_start:.1f} s; {smi}")
     entry = lambda name_, source, replaces, launches, err, ms, plain, bound, lib: {
         "name": name_, "route": "cuda", "source": source, "replaces": replaces,
@@ -3397,4 +4057,9 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] in ("--g3-rank", "--g3-nccl"):
+        # path G3's ranks, started by phase_g3_two_ranks
+        sys.path.insert(0, ROOT)
+        worker = _g3_rank if sys.argv[1] == "--g3-rank" else _g3_nccl_rank
+        sys.exit(worker(int(sys.argv[2]), int(sys.argv[3])))
     sys.exit(main())

@@ -9,8 +9,10 @@ pulled into object space with ``A⁻¹`` and normals pushed back with
 ``A⁻ᵀ`` (see the JAX module's docstring for why this differs from the
 reference's convention).
 
-The span-merge evaluator (``eval_fn`` and ``ptx/geom/spans.py``) is not
-ported: the port's first hit is :mod:`ptx_torch.geom.fasthit`.
+:func:`span_evaluator` is the JAX ``compile_geometry``'s ``eval_fn``: the
+plan evaluated as span lists (:mod:`ptx_torch.geom.spans`), the
+span-merge path that ``compile_scene(fast=False)`` and the cross-checks
+of the fast hit (:mod:`ptx_torch.geom.fasthit`) use.
 """
 
 from __future__ import annotations
@@ -20,6 +22,9 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from ptx_torch.core import linalg
+from ptx_torch.geom import primitives, spans
 
 
 # ---------------------------------------------------------------------------
@@ -151,3 +156,36 @@ def compile_geometry(root, material_ids: dict, device):
         "xform": table(xforms, (-1, 3, 4)),
     }
     return params, plan
+
+
+def span_evaluator(plan):
+    """``eval_fn(params, origin, direction) -> SpanList`` over ``plan``:
+    leaves through :mod:`~ptx_torch.geom.primitives` (rays pulled into
+    object space by ``W⁻¹``, normals pushed back by ``W⁻ᵀ``), operators
+    through the span merges (``ptx/geom/tape.py:185-212``)."""
+
+    def eval_plan(node, params, origin, direction):
+        if isinstance(node, _LeafPlan):
+            o, d, nrm_mat = origin, direction, None
+            if node.xform_chain:
+                w = params["xform"][node.xform_chain[0]]
+                for i in node.xform_chain[1:]:
+                    w = linalg.compose(w, params["xform"][i])
+                w_inv = linalg.inverse(w)
+                o, d = linalg.transform_ray(w_inv, o, d)
+                nrm_mat = w_inv[:, :3].T                    # A^{-T}
+            if node.kind == "sphere":
+                sl = primitives.sphere_spans(o, d, params["sphere_center"][node.index],
+                                             params["sphere_radius"][node.index], node.mat_id)
+            else:
+                sl = primitives.plane_spans(o, d, params["plane_normal"][node.index],
+                                            params["plane_d"][node.index], node.mat_id)
+            return sl if nrm_mat is None else spans.transform_normals(sl, nrm_mat)
+        kids = [eval_plan(c, params, origin, direction) for c in node.children]
+        if node.op == "union":
+            return spans.union(*kids)
+        if node.op == "intersection":
+            return spans.intersection(*kids)
+        return spans.difference(kids[0], kids[1])
+
+    return lambda params, origin, direction: eval_plan(plan, params, origin, direction)

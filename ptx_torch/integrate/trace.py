@@ -52,6 +52,31 @@ decision-frozen replay.  ``compile_scene`` routes as the JAX package's
 
 Each kernel wrapper runs its plain version on CPU tensors, so the same
 routing serves the CPU and the card; no branch of it reads the device.
+
+The JAX package's routing knobs, read by ``compile_scene`` and
+``trace_rays`` as it reads them:
+
+- ``compile_scene(pallas=)``, else ``PTX_PALLAS`` ("1" / "0"): False is
+  the JAX package's plain route, asked for explicitly: the plain hit
+  (:func:`~ptx_torch.geom.fasthit.compile_fast_hit`'s, no K4 or K5), the
+  unfused bounce with :func:`replay_vjp`, no K7 and no tile ordering;
+  True is the kernel route on a CUDA device (it raises on any other);
+  unset, the kernel route, whose wrappers run their plain versions on
+  the CPU;
+- ``PTX_FUSED=0`` keeps the hit kernel and drops the fused bounce and
+  everything that needs it (``want_fused``, ``ptx/integrate/trace.py:185``):
+  the unfused bounce with :func:`replay_vjp` (on K4 up to 24 leaves), no
+  K6 and no K7;
+- ``compile_scene(fast=False)``: no fast hit and no hit replay; the first
+  hit is :func:`first_hit` of the span merge (``spans_fn``) and
+  ``trace_rays`` differentiates the bounces by plain autograd;
+- ``trace_rays(manual_vjp=False)``: plain autograd through
+  :func:`_bounce_live` (the default where the scene has no hit replay);
+  ``trace_rays(skysel=)``, else ``PTX_SKYSEL`` (on unless "0").
+
+The JAX ``trace_rays(remat=)`` has no counterpart: it is XLA's
+rematerialisation of a bounce under plain autodiff, a memory setting that
+changes no value.
 """
 
 from __future__ import annotations
@@ -65,7 +90,7 @@ from typing import Any, Callable
 import torch
 
 from ptx_torch.core import linalg, rng
-from ptx_torch.core.constants import DEFAULT_RAY_DEPTH, EPS
+from ptx_torch.core.constants import DEFAULT_RAY_DEPTH, EPS, MAX_VALUE
 from ptx_torch.geom import hitreplay, tape
 from ptx_torch.geom.fasthit import collect_leaves, compile_fast_hit
 from ptx_torch.shade import materials as mats
@@ -101,13 +126,17 @@ class CompiledScene:
     turns on :func:`trace_rays`'s tile ordering.  Above 24 leaves
     ``plain_hit_fn`` is :func:`~ptx_torch.geom.fasthit.compile_fast_hit`'s
     hit and ``hit_fn`` K5's hit mode on it in ``mega`` mode, else that hit
-    itself."""
+    itself.  ``spans_fn`` is the span-merge evaluator
+    (:func:`~ptx_torch.geom.tape.span_evaluator`); with ``fast=False``
+    ``hit_fn``, ``hit_replay_fn`` and the bounces are None and the hit is
+    ``first_hit(spans_fn(params, o, d))``."""
     params: dict
     plan: Any
     material_fn: mats.MaterialTable
-    hit_fn: Callable            # (params, origin, dir) -> first-hit dict
-    hit_replay_fn: Callable     # (params, o, d, evt, entering, hit) -> (t, normal)
     device: torch.device
+    spans_fn: Callable          # (params, origin, dir) -> SpanList
+    hit_fn: Callable = None     # (params, origin, dir) -> first-hit dict
+    hit_replay_fn: Callable = None   # (params, o, d, evt, entering, hit) -> (t, normal)
     plain_hit_fn: Callable = None
     bounce_fn: Callable = None
     bounce_bwd_fn: Callable = None
@@ -130,10 +159,22 @@ def _want_emission_kernel(ordered, table) -> bool:
     return not (dyn and dyn <= term)
 
 
-def compile_scene(root, device) -> CompiledScene:
-    """Compile a scene tree for ``device`` (routing: module docstring).
-    On a CUDA device every kernel wrapper launches its kernel or raises;
-    there is no quiet fallback to a plain path."""
+def _resolve_pallas(pallas, device) -> bool:
+    """``pallas``, else ``PTX_PALLAS`` ("1" / "0"), else None (the default
+    route); True needs a CUDA device."""
+    if pallas is None and os.environ.get("PTX_PALLAS") is not None:
+        pallas = os.environ["PTX_PALLAS"] == "1"
+    if pallas and device.type != "cuda":
+        raise ValueError(f"compile_scene(pallas=True) (or PTX_PALLAS=1) asks for the "
+                         f"kernels, and no kernel runs on {device}")
+    return pallas
+
+
+def compile_scene(root, device, fast: bool = True, pallas: bool | None = None) -> CompiledScene:
+    """Compile a scene tree for ``device`` (routing and the knobs ``fast``,
+    ``pallas`` / ``PTX_PALLAS``, ``PTX_FUSED``: module docstring).  On a
+    CUDA device every kernel wrapper launches its kernel or raises; there
+    is no quiet fallback to a plain path."""
     from ptx_torch.geom.fasthit import MegaHit, SweepHit, compile_mega_bounce
     from ptx_torch.ops import emission_kernel
     from ptx_torch.ops.bounce_kernel import BounceBwdKernel, BounceKernel
@@ -141,6 +182,10 @@ def compile_scene(root, device) -> CompiledScene:
     from ptx_torch.ops.replay_bwd import RowFedReplayBwd
 
     device = torch.device(device)
+    kernels = _resolve_pallas(pallas, device) is not False
+    # the JAX want_fused (ptx/integrate/trace.py:185-186): the fused bounce,
+    # K6 and K7 ride the kernel route unless PTX_FUSED=0
+    fused = fast and kernels and os.environ.get("PTX_FUSED") != "0"
     cpu = torch.device("cpu")
     ordered, mat_ids = mats.assign_material_ids(root)
     geo_params, plan = tape.compile_geometry(root, mat_ids, cpu)
@@ -152,18 +197,25 @@ def compile_scene(root, device) -> CompiledScene:
     params = dict(geo_params)
     params.update(mat_params)
     params.update(compiler.finalize(cpu))
-    plain_hit = compile_fast_hit(plan, params)
+    plain_hit = compile_fast_hit(plan, params) if fast else None
     mega = isinstance(plain_hit, SweepHit)
     params = {k: ([x.to(device) for x in v] if isinstance(v, list)
                   else v.to(device)) for k, v in params.items()}
-    scene = CompiledScene(
-        params=params, plan=plan, material_fn=table,
-        hit_fn=(HitKernel(plan, plain_hit, params) if small
-                else MegaHit(plain_hit) if mega else plain_hit),
-        hit_replay_fn=hitreplay.build_hit_replay(collect_leaves(plan)),
-        device=device, plain_hit_fn=plain_hit, tile_hint=not small)
-    if dynamic:
-        scene.diff_keys = DIFF_KEYS + TEXTURE_KEYS
+    scene = CompiledScene(params=params, plan=plan, material_fn=table, device=device,
+                          spans_fn=tape.span_evaluator(plan), plain_hit_fn=plain_hit,
+                          tile_hint=fast and kernels and not small)
+    if not fast:
+        return scene
+    if kernels and small:
+        scene.hit_fn = HitKernel(plan, plain_hit, params)
+    elif kernels and mega:
+        scene.hit_fn = MegaHit(plain_hit)
+    else:
+        scene.hit_fn = plain_hit
+    scene.hit_replay_fn = hitreplay.build_hit_replay(collect_leaves(plan))
+    if dynamic or not fused:
+        if dynamic:
+            scene.diff_keys = DIFF_KEYS + TEXTURE_KEYS
         scene.bounce_fn = UnfusedBounce(scene)
         scene.bounce_bwd_fn = functools.partial(replay_vjp, scene)
     elif small:
@@ -172,12 +224,46 @@ def compile_scene(root, device) -> CompiledScene:
     else:
         # PTX_MEGAB=0 keeps the unfused bounce on K5's hit mode
         # (ptx/integrate/trace.py:216)
-        fused = mega and os.environ.get("PTX_MEGAB") != "0"
-        scene.bounce_fn = compile_mega_bounce(scene) if fused else UnfusedBounce(scene)
+        megab = mega and os.environ.get("PTX_MEGAB") != "0"
+        scene.bounce_fn = compile_mega_bounce(scene) if megab else UnfusedBounce(scene)
         scene.bounce_bwd_fn = RowFedReplayBwd(scene)
-    if _want_emission_kernel(ordered, table) and emission_kernel.supported(table):
+    if fused and _want_emission_kernel(ordered, table) and emission_kernel.supported(table):
         scene.emission_fn = emission_kernel.EmissionKernel(table, device)
     return scene
+
+
+# ---------------------------------------------------------------------------
+# first hit of a span list
+# ---------------------------------------------------------------------------
+
+def first_hit(sl):
+    """Resolve the span walk of path-trace.h:66-99 in one pass
+    (``ptx/integrate/trace.py:260``).  Per span, in list order, the first
+    of: ``t0 >= MAX_VALUE`` (escaped), ``t0 >= EPS`` (entry boundary),
+    ``t1 >= MAX_VALUE`` (escaped), ``t1 >= EPS`` (exit boundary, normal
+    negated); no span triggering is a miss.  Returns ``t`` (0 unless
+    hit), ``normal``, ``mat_id`` (int64, 0 unless hit), ``entering`` and
+    ``hit`` (False on a miss and on an escape)."""
+    c1 = sl.t0 >= MAX_VALUE
+    c2 = sl.t0 >= EPS
+    c3 = sl.t1 >= MAX_VALUE
+    c4 = sl.t1 >= EPS
+    trigger = sl.valid & (c1 | c2 | c3 | c4)
+    idx = torch.argmax(trigger.to(torch.uint8), dim=-1, keepdim=True)   # first trigger
+    take = lambda a: a.gather(-1, idx)[..., 0]
+    take3 = lambda a: a.gather(-2, idx[..., None].expand(idx.shape + (3,)))[..., 0, :]
+    s_c1, s_c2, s_c3 = take(c1), take(c2), take(c3)
+    escaped = s_c1 | (~s_c2 & s_c3)
+    entering = ~s_c1 & s_c2
+    hit = trigger.any(dim=-1) & ~escaped
+    t = torch.where(entering, take(sl.t0), take(sl.t1))
+    return {
+        "t": torch.where(hit, t, 0.0),
+        "normal": torch.where(entering[..., None], take3(sl.n0), -take3(sl.n1)),
+        "mat_id": torch.where(hit, torch.where(entering, take(sl.m0), take(sl.m1)), 0),
+        "entering": entering,
+        "hit": hit,
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -204,7 +290,7 @@ def sample_scatter_dir(direction, normal, scatter_c, u3):
     cap is empty (the path is abandoned), ``u`` the accepted in-ball draw.
     """
     reflected = linalg.reflect(direction, normal)
-    sc = torch.clamp(scatter_c, 0.0, 1.0)
+    sc = linalg.clip01(scatter_c)
     specular = sc <= EPS
     safe_sc = torch.where(specular, 1.0, sc)
     bias = (1.0 / safe_sc - 1.0)[..., None] * reflected
@@ -231,7 +317,10 @@ def sample_scatter_dir(direction, normal, scatter_c, u3):
     b = nx * ny * a
     e1 = torch.stack([1.0 + s * nx * nx * a, s * b, -s * nx], dim=-1)
     e2 = torch.stack([b, s + ny * ny * a, -ny], dim=-1)
-    u = x[..., None] * e1 + y[..., None] * e2 + z[..., None] * nhat
+    # the accepted draw carries no gradient (the JAX sampler stops it): the
+    # direction is differentiated through ``bias`` at a fixed ``u``, as
+    # the replay (:func:`_bounce_replay`) does from the saved ``u_sel``
+    u = (x[..., None] * e1 + y[..., None] * e2 + z[..., None] * nhat).detach()
 
     out = torch.where(specular[..., None], reflected, linalg.normalize(u + bias))
     return out, specular | feasible, u
@@ -270,7 +359,7 @@ def _bounce_live(hit_fn, material_fn, params, o, d, throughput, strength,
 
     normal = hit["normal"]
     rel_ior = torch.where(hit["entering"], 1.0 / m["ior"], m["ior"])
-    trc = torch.clamp(m["transmit_reflect_f"], 0.0, 1.0)
+    trc = linalg.clip01(m["transmit_reflect_f"])
     refract_factor = trc * linalg.refract_strength(d, rel_ior, normal)
     refr_dir = linalg.refract(d, rel_ior, normal)
     refr_ok = (refract_factor > EPS) & (refr_dir != 0.0).any(dim=-1)
@@ -282,7 +371,7 @@ def _bounce_live(hit_fn, material_fn, params, o, d, throughput, strength,
     scatter_alive = cont & ~take_transmit & (add_factor >= EPS)
 
     scat_dir, scat_ok, u_sel = sample_scatter_dir(d, normal, m["scatter_f"], u3)
-    sc = torch.clamp(m["scatter_f"], 0.0, 1.0)
+    sc = linalg.clip01(m["scatter_f"])
     factor = 1.0 - (1.0 - linalg.dot(scat_dir, normal)) * sc
     scatter_alive = scatter_alive & scat_ok
 
@@ -303,7 +392,7 @@ def _bounce_live(hit_fn, material_fn, params, o, d, throughput, strength,
              torch.where(na, new_throughput, throughput),
              torch.where(new_alive, new_strength, strength), new_alive)
     decisions = {
-        "evt": hit["_evt"],
+        "evt": hit.get("_evt"),         # None for the span hit, which has no event
         "hit": hit["hit"],
         "entering": hit["entering"],
         "mat_id": hit["mat_id"],
@@ -357,8 +446,9 @@ _DEC_KEYS = ("t", "evt", "hit", "entering", "take_transmit", "scatter_alive",
 
 
 class UnfusedBounce:
-    """The bounce of a scene with a textured non-emissive slot, or of a
-    large scene off K5's fused bounce: plain-PyTorch :func:`_bounce_live`
+    """The bounce of a scene with a textured non-emissive slot, of a large
+    scene off K5's fused bounce, or of any scene under ``PTX_FUSED=0`` or
+    ``PTX_PALLAS=0``: plain-PyTorch :func:`_bounce_live`
     on ``scene.hit_fn`` (K4, K5's hit mode, or a hit of
     :func:`~ptx_torch.geom.fasthit.compile_fast_hit`), the production
     composition, as the JAX package leaves it to XLA.  Returns the dict of
@@ -568,9 +658,27 @@ def _phase_uniforms(key, start, end, width, device):
     return u_coins, u3s
 
 
+def _autograd_hit(scene):
+    """The first hit plain autograd differentiates: the span merge where
+    the scene has no fast hit, else the plain fast hit.  A scene whose hit
+    is a kernel's wrapper (K4, K5) raises: a kernel is not differentiable,
+    and plain autograd through the hit is what ``manual_vjp=False`` asks
+    for."""
+    from ptx_torch.geom.fasthit import MegaHit
+    from ptx_torch.ops.fasthit_kernel import HitKernel
+
+    if scene.hit_fn is None:
+        return lambda params, o, d: first_hit(scene.spans_fn(params, o, d))
+    if isinstance(scene.hit_fn, (HitKernel, MegaHit)):
+        raise ValueError("trace_rays(manual_vjp=False) differentiates the hit by plain "
+                         "autograd, and this scene's hit is a kernel: compile it with "
+                         "pallas=False (PTX_PALLAS=0) or fast=False")
+    return scene.hit_fn
+
+
 def trace_rays(scene: CompiledScene, params, origin, direction, key,
                depth: int = DEFAULT_RAY_DEPTH, compact: bool | None = None,
-               skysel: bool = True):
+               skysel: bool | None = None, manual_vjp: bool | None = None):
     """Trace a wavefront of rays to radiance estimates ``(..., 3)``.
 
     One stochastic path per ray, up to ``depth`` bounces plus the primary
@@ -581,8 +689,21 @@ def trace_rays(scene: CompiledScene, params, origin, direction, key,
     for flat batches of at least 16384 rays at depth ≥ 8.  ``skysel``:
     evaluate terminal dynamic-emissive chains (the sky) on one selected
     lane per path (exact; see :func:`_emission`); off when the scene has
-    the emission kernel K7.
+    the emission kernel K7; default ``PTX_SKYSEL`` (on unless "0"), read
+    at each call.  ``manual_vjp``: each bounce a :class:`ManualBounce`
+    (the decision-frozen replay backward); False differentiates
+    :func:`_bounce_live` by plain autograd (:func:`_autograd_hit`);
+    default True where the scene has a fast hit and its replay
+    (``ptx/integrate/trace.py:941-942``).
     """
+    if skysel is None:
+        skysel = os.environ.get("PTX_SKYSEL", "1") != "0"
+    if manual_vjp is None:
+        manual_vjp = scene.hit_fn is not None and scene.hit_replay_fn is not None
+    if manual_vjp and scene.hit_replay_fn is None:
+        raise ValueError("trace_rays(manual_vjp=True) needs the hit replay, and a scene "
+                         "compiled with fast=False has none")
+    hit_fn = None if manual_vjp else _autograd_hit(scene)
     batch_shape = origin.shape[:-1]
     origin = origin.reshape(-1, 3)
     direction = direction.reshape(-1, 3)
@@ -618,12 +739,12 @@ def trace_rays(scene: CompiledScene, params, origin, direction, key,
     # K1's, K4's or K5's scene buffer, packed once for all bounces of this
     # call (the plain versions on the CPU read params themselves; a hit
     # without a kernel buffer packs None)
-    pack = getattr(scene.bounce_fn, "pack", None)
+    pack = getattr(scene.bounce_fn, "pack", None) if manual_vjp else None
     packed = pack(params) if pack is not None and device.type == "cuda" else None
     # K2's and K6's scene vector, packed once per call on every device with
     # autograd history: each bounce's backward returns its cotangent,
     # autograd sums them and runs the packing's VJP once
-    packed_bwd = _replay_pack(scene, params)
+    packed_bwd = _replay_pack(scene, params) if manual_vjp else None
     orig = torch.arange(B, dtype=torch.int64, device=device)
     saved = []                  # per phase: (pos, thr, mat_id, live, orig)
     for pi, (start, div) in enumerate(phases):
@@ -635,8 +756,15 @@ def trace_rays(scene: CompiledScene, params, origin, direction, key,
         rows = []
         for b in range(start, end):
             o, d, thr, _, alive = carry
-            carry, dec = _bounce(scene, params, packed, packed_bwd, carry, b < depth,
-                                 u_coins[b - start], u3s[b - start])
+            if manual_vjp:
+                carry, dec = _bounce(scene, params, packed, packed_bwd, carry, b < depth,
+                                     u_coins[b - start], u3s[b - start])
+            else:
+                (o2, d2, thr2, st2, alive2), dec = _bounce_live(
+                    hit_fn, scene.material_fn, params, *carry, b < depth,
+                    u_coins[b - start], u3s[b - start])
+                # strength only feeds comparisons: no gradient (JAX stops it)
+                carry = (o2, d2, thr2, st2.detach(), alive2)
             # the emission record: hit position (no gradient: emission is
             # piecewise constant in it through nearest-texel gathers), the
             # bounce's input throughput (its cotangent reaches thr

@@ -1,3 +1,4 @@
 """Rendering and the gradient training step over devices (port of
-``ptx/parallel``).  One device for now: the mesh and the gradient
-allreduce come with ``torch.distributed`` (ROADMAP Queue 1 #9)."""
+``ptx/parallel``): the (tiles × samples) mesh on ``torch.distributed``
+(:mod:`.mesh`, :mod:`.dist`), the sharded renders and the train step
+(:mod:`.render`), the checkpoints (:mod:`.checkpoint`)."""

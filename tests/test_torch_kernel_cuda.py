@@ -1,4 +1,6 @@
-"""The CUDA kernels on the card against their plain PyTorch versions: K1
+"""The CUDA kernels on the card against their plain PyTorch versions (and,
+last, the 1×1 mesh on a world-1 NCCL group against the unsharded render
+and train step, bit for bit): K1
 (bounce), K2 (replay backward), K3 and K8 (image-gather transposes), K4
 (first hit), K5 (megasweep: hit and bounce modes, 16- and 32-column
 tables), K6 (row-fed replay backward), K7 (emission) and K9 (sweep
@@ -808,3 +810,38 @@ def test_k5_list_route_equals_the_recompute_route(stress_cuda, caps):
         assert over == 3 * n
     if name == "S2":
         assert culled > 0
+
+
+@pytest.mark.cuda
+def test_1x1_nccl_mesh_equals_the_unsharded_render(cuda_scene):
+    """``render_sharded`` and one ``make_train_step`` step on a world-1 NCCL
+    group (made with a ``HashStore``, so NCCL's all-reduces run) equal the
+    unsharded ``trace_rays`` of the same rays under ``fold(key, 0, 0)`` and
+    the step without a mesh, bit for bit."""
+    import torch.distributed as dist
+    from ptx_torch.parallel import mesh as pmesh
+    from ptx_torch.parallel import render as prender
+
+    scene, dev = cuda_scene, cuda_scene.device
+    cam, key = Camera.reference_demo(64, 64), rng.PRNGKey(4)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = pmesh.make_mesh(1, 1, device=torch.device("cuda", 0))
+        assert pmesh.mesh_shape(mesh) == (1, 1) and dist.get_backend() == "nccl"
+        img = prender.render_sharded(scene, cam, mesh, key, spp=2, depth=8)
+        target = torch.zeros_like(img)
+        kw = dict(spp=2, depth=8, learning_rate=0.5)
+        new_m, loss_m = prender.make_train_step(scene, cam, mesh, **kw)(scene.params, target,
+                                                                         key)
+    finally:
+        dist.destroy_process_group()
+    k = rng.fold(key, 0, 0)
+    o, d = sample_rays(cam, k, range(64), range(64), 2, dev)
+    with torch.no_grad():
+        want = trace.trace_rays(scene, scene.params, o, d, k, 8).mean(dim=0)
+    assert torch.equal(img, want)
+    new, loss = prender.make_train_step(scene, cam, None, **kw)(scene.params, target, key)
+    assert torch.equal(loss_m, loss)
+    for name in new:
+        for a, b in zip(*(x if isinstance(x, list) else [x] for x in (new_m[name], new[name]))):
+            assert torch.equal(a, b), name
