@@ -260,6 +260,38 @@ G4. ``PTX_FUSED=0`` on a demo chunk (128 rows × 512, spp 1, depth 16, no
     exactly coincident boundary (the demo's two spheres of one centre and
     radius) is its payload choice, as in the JAX package, and counted.
 
+Path H, the plain-autograd route (``trace_rays(manual_vjp=False)``: plain
+autograd through the bounce on the hit kernel, whose ``t`` and normal
+differentiate through the hit replay; ``remat`` recomputes each bounce in
+the backward), after path G:
+H1. the demo on K4: one ``make_train_step(manual_vjp=False)`` step at 512²,
+    spp 16, depth 16 (phase 7's start, target and first key; learning rate
+    2²⁰, so that ``(start − new) / 2²⁰`` is each gradient to float32
+    precision) with ``remat`` off and on, beside the manual route's step
+    (K1, K2, K3). Under deterministic algorithms first: remat off (K4's
+    inputs and outputs recorded) and on: the losses and the new params
+    equal bit for bit, but the sky image's, whose K3 histograms must have
+    inputs equal bit for bit and each output within phase 5's float64
+    bound (K3's atomics add in an order that varies with the launches
+    around them). Then each step counted and timed once
+    (``profiling.timed``, ``max_memory_allocated`` after a reset): K4 17
+    without ``remat`` and 33 with it (the backward recomputes every bounce
+    but the last, whose carry feeds nothing), K3 3, nothing else; the loss
+    within ``rtol 1e-5`` of the manual route's, each gradient entry within
+    1e-4 of its tensor's largest entry or, for the geometry, within 1e-4 of
+    its Σ|term| (the sum over the step's lanes of the absolute per-lane
+    terms, measured in the recorded step: near-grazing lanes' adjoints are
+    ill-conditioned, and phase 5 lets K2 / K6 differ from autograd by 1e-4
+    relative there); K4's recorded hits against K1's on the
+    same rays (decisions equal except float64-adjudicated near-ties, ``t``
+    within ``rtol 1e-5, atol 5e-6``);
+H2. S1 on K5's hit mode, the same: K5 17 / 33, K6 0; the manual route K5
+    17 and K6 16; the hits against K5's bounce mode;
+H3. K4's own gradient on a chunk's 65,536 primary rays: Σ w·t + Σ v·normal
+    through K4's wrapper on the card against the dense hit's autograd,
+    every geometry param and the rays within 1e-4 of each tensor's largest
+    entry.
+
 Then:
 9. a forward + backward chunk at the bench's shape (128 rows × 512, spp 1,
    depth 16, ``loss = radiance.mean()``): rays/s over the median of 10
@@ -289,7 +321,8 @@ Then:
     both K7 launches over one ``PTX_EMK=1`` train step (the profiler); the
     least time the card could take (``bound_ms``) from this run's inputs;
 11. the summary line (with path F's rays/s and K1 launches, the largest
-    K3 / K8 ratio and path G's seconds and all-reduce times), then the JSON lines: the nine kernels (launches from
+    K3 / K8 ratio, path G's seconds and all-reduce times and path H's step
+    seconds and peak memory), then the JSON lines: the nine kernels (launches from
     the paths' train steps: the demo's for K1-K3, config 4's for K4, S1's
     for K5 and K6, C2's for K7, the probe's for K8, E3's S1 for K9; K1's
     ``max_abs_err`` includes path F's; K7's entry carries its backward's
@@ -3829,6 +3862,348 @@ def run_path_g(scene, dev):
     return g1, g2, g3, g4
 
 
+# ---------------------------------------------------------------------------
+# path H: the plain-autograd route (trace_rays(manual_vjp=False), remat)
+# ---------------------------------------------------------------------------
+
+# One step each at this rate: the update is then far above the params'
+# rounding, and (start - new) / H_LR is each gradient to float32 precision.
+H_LR = 2.0 ** 20
+
+
+def _h_grads(start, new):
+    """Each param tensor's gradient from one step at ``H_LR``."""
+    out = {}
+    for k, v in start.items():
+        for i, (a, b) in enumerate(zip(*(x if isinstance(x, list) else [x]
+                                          for x in (v, new[k])))):
+            out[f"{k}[{i}]" if isinstance(v, list) else k] = (a - b) / H_LR
+    return out
+
+
+def _h_step(step, start, target, key, label):
+    """One step with the counters zeroed and the peak memory reset just
+    before: ``(new, loss, counts, seconds, peak GiB, peak above the memory
+    allocated at its start in GiB)``; the seconds through
+    ``profiling.timed``."""
+    import torch
+    from ptx_torch.utils.profiling import timed
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _reset_counters()
+    with timed(label) as rec:
+        new, loss = step(start, target, key)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return new, loss, _counters(), rec["seconds"], peak / 2 ** 30, (peak - base) / 2 ** 30
+
+
+def _h_hit_flips(scene, params, rec, tag):
+    """The autograd route's recorded hits (``rec``: rays and hit dicts, at
+    ``params``) against the manual route's fused bounce (K1, K5's bounce mode) on the
+    same rays: hit decisions equal except where a float64 recompute puts
+    the flip at a near-tie, ``t`` within ``rtol 1e-5, atol 5e-6`` on
+    agreeing lanes.  Returns (flips, lanes, max_abs_err of ``t``)."""
+    import torch
+
+    packed = scene.bounce_fn.pack(params)
+    p64 = _f64_cpu(params)
+    flips = lanes_n = 0
+    err = 0.0
+    for o, d, out in rec:
+        B, dev = o.shape[0], o.device
+        half = torch.full((B,), 0.5, device=dev)
+        with torch.no_grad():
+            kb = scene.bounce_fn(params, o, d, torch.ones((B, 3), device=dev),
+                                 torch.ones(B, device=dev),
+                                 torch.ones(B, dtype=torch.bool, device=dev), half,
+                                 torch.full((B, 3), 0.5, device=dev), True, packed=packed)
+        differ = ((out["_evt"].long() != kb["evt"].long()) | (out["hit"] != kb["hit"])
+                  | (out["entering"] != kb["entering"])
+                  | (out["mat_id"].long() != kb["mat_id"].long()))
+        lanes = differ.nonzero().flatten().cpu()
+        if lanes.numel():
+            tied = _winner_tied(scene, p64, o.cpu()[lanes].double(), d.cpu()[lanes].double(),
+                                lanes)
+            ok = tied(out["_evt"]) | tied(kb["evt"])
+            if not bool(ok.all()):
+                raise AssertionError(f"{tag}: {int((~ok).sum())} unexplained hit flips against "
+                                     f"the fused bounce, lanes {lanes[~ok][:8].tolist()}")
+        a, b = out["t"].detach()[~differ], kb["t"][~differ]
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=5e-6, msg=lambda m: f"{tag} t: {m}")
+        err = max(err, float((a - b).abs().max()) if a.numel() else 0.0)
+        flips, lanes_n = flips + int(lanes.numel()), lanes_n + B
+    return flips, lanes_n, err
+
+
+@contextlib.contextmanager
+def _hit_term_sums(scene, acc):
+    """While active, each backward of ``fasthit.HitReplay`` (the hit's
+    replay VJP) also appends to ``acc`` the (L, 26) sums over its lanes of
+    the absolute per-lane terms of the leaf rows' cotangent: the replay run
+    again on one row a lane (``hitreplay.recompute_flat`` with the lane's
+    own row), differentiated with respect to those rows.  The gradient it
+    returns is the unpatched one."""
+    import torch
+    from ptx_torch.geom import fasthit, hitreplay
+
+    leaves = fasthit.collect_leaves(scene.plan)
+    rows_of = hitreplay.LeafRows(leaves)
+    plain = fasthit.HitReplay.backward
+
+    def backward(ctx, ct_t, ct_n):
+        out = plain(ctx, ct_t, ct_n)
+        evt, entering, hit, o, d, *geo = ctx.saved_tensors
+        rows = rows_of(dict(zip(fasthit.GEO_KEYS, geo))).detach()
+        L, B, dev = rows.shape[0], evt.numel(), evt.device
+        e = evt.long()
+        leaf = torch.where(e >= L, e - L, e)
+        lane = torch.arange(B, device=dev)
+        sph = torch.tensor([lf.kind == "sphere" for lf, _ in leaves], device=dev)[leaf]
+        par = torch.tensor([p for _, p in leaves], dtype=o.dtype, device=dev)[leaf]
+        with torch.enable_grad():
+            lane_rows = rows.index_select(0, leaf).requires_grad_(True)
+            t, nx, ny, nz, pp = hitreplay.recompute_flat(
+                lane_rows, sph, par, *o.unbind(-1), *d.unbind(-1),
+                torch.where(e < L, lane, B + lane))
+            sign = pp * torch.where(entering, 1.0, -1.0)
+            n = torch.stack([torch.where(hit, nx * sign, 0.0), torch.where(hit, ny * sign, 0.0),
+                             torch.where(hit, nz * sign, 1.0)], dim=-1)
+            (g,) = torch.autograd.grad((torch.where(hit, t, 0.0), n), lane_rows, (ct_t, ct_n))
+        acc.append(torch.zeros_like(rows).index_add_(0, leaf, g.abs()))
+        return out
+
+    fasthit.HitReplay.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        fasthit.HitReplay.backward = plain
+
+
+def _geo_term_scale(scene, params, acc):
+    """Per geometry param entry, Σ|term| over the lanes of a step: the
+    leaf rows' summed absolute terms (``_hit_term_sums``) taken back to the
+    params through the rows' packing (exact for untransformed spheres'
+    centres and radii and planes' offsets, which a row holds as they are)."""
+    import torch
+    from ptx_torch.geom import fasthit, hitreplay
+
+    geo = {k: params[k].detach().requires_grad_(True) for k in fasthit.GEO_KEYS}
+    rows = hitreplay.LeafRows(fasthit.collect_leaves(scene.plan))(geo)
+    grads = torch.autograd.grad(rows, list(geo.values()), sum(acc), allow_unused=True)
+    return {k: (torch.zeros_like(x) if g is None else g.abs())
+            for (k, x), g in zip(geo.items(), grads)}
+
+
+def _h_grads_close(tag, g, g_m, scale):
+    """The autograd route's gradients ``g`` against the manual route's
+    ``g_m``: each entry within 1e-4 of its tensor's largest entry (+1e-7),
+    or, for a geometry entry, within 1e-4 of its Σ|term| (``scale``): the
+    per-lane replay adjoints may differ by 1e-4 relative on ill-conditioned
+    (near-grazing) lanes (phase 5's K2 / K6 rule), and a sum of lanes
+    inherits that of its absolute terms.  Returns (entries that needed the
+    second clause, the largest |diff| / Σ|term| among them)."""
+    import torch
+
+    offs, n_term, worst = [], 0, 0.0
+    for k in ("sphere_center", "sphere_radius"):      # Σ|term| ≥ |Σ term|: the scale is sane
+        if bool((g[k].abs() > scale[k] * (1 + 1e-5) + 1e-12).any()):
+            raise AssertionError(f"{tag}: |d {k}| above its Σ|term|")
+    for k, b in g_m.items():
+        if not b.numel():
+            continue
+        err = (g[k] - b).abs()
+        ok = err <= 1e-4 * float(b.abs().max()) + 1e-7
+        if k in scale:
+            by_term = ~ok & (err <= 1e-4 * scale[k] + 1e-7)
+            n_term += int(by_term.sum())
+            if bool(by_term.any()):
+                worst = max(worst, float((err[by_term] / scale[k][by_term]).max()))
+            ok |= by_term
+        if not bool(torch.isfinite(g[k]).all()) or not bool(ok.all()):
+            offs.append(f"{tag} {k}: {int((~ok).sum())} entries off, max err "
+                        f"{float(err.max()):.4g} (max|g| {float(b.abs().max()):.4g})")
+    if offs:
+        raise AssertionError("\n".join(offs))
+    return n_term, worst
+
+
+def _h_remat_check(tag, on, off, loss_on, loss_off, hists):
+    """Remat on against off, one step each under deterministic algorithms:
+    the loss and every new param bit for bit, but the sky image's, whose
+    gradient is the sum of the K3 histograms: their inputs must be equal
+    bit for bit and each output within the float64 bound
+    (``_check_hists``); K3's float atomics add in an order that varies
+    with the launches around them.  Returns the image entries that differ."""
+    import torch
+
+    _equal(tag, "loss with remat", loss_on, loss_off)
+    (h_off, o_off), (h_on, o_on) = hists["off"], hists["on"]
+    if len(h_on) != len(h_off) or not all(
+            torch.equal(a, b) for x, y in zip(h_on, h_off) for a, b in zip(x[:4], y[:4])):
+        raise AssertionError(f"{tag}: the K3 inputs differ with remat")
+    for name, h, o in (("off", h_off, o_off), ("on", h_on, o_on)):
+        if h:
+            _check_hists(h, f"{tag} remat {name} K3", n=len(h), outputs=o)
+    img_off = 0
+    for k in on:
+        for a, b in zip(*(x if isinstance(x, list) else [x] for x in (on[k], off[k]))):
+            if k == "images" and h_off:
+                img_off += int((a != b).sum())
+            else:
+                _equal(tag, f"param {k} with remat", a, b)
+    return img_off
+
+
+def phase_h_route(scene, tag, kernel, manual_expect, extra=None):
+    """H1 / H2: one ``make_train_step`` step of the plain-autograd route
+    (``manual_vjp=False``) at 512², spp 16, depth 16 with ``remat`` off and
+    on, against the manual route's step (phase 7's start, target and first
+    key).  ``kernel`` is the hit kernel (K4, K5), ``manual_expect`` the
+    manual step's launch counts, ``extra`` the autograd step's other
+    kernels.  Under deterministic algorithms first: remat off (its hits
+    recorded) and on, equal by :func:`_h_remat_check`; then each route counted
+    and timed once: launches exact (the hit kernel 17 without remat, 17 +
+    16 with it: the backward recomputes every bounce but the last, whose
+    carry feeds nothing), the loss within rtol 1e-5 of the manual step's,
+    every gradient by :func:`_h_grads_close`, step seconds and
+    peak memory; the recorded hits against the fused bounce
+    (:func:`_h_hit_flips`)."""
+    import torch
+    from ptx_torch.core import rng
+    from ptx_torch.integrate.camera import Camera
+    from ptx_torch.parallel.render import _local_render, make_train_step
+
+    cam = Camera.reference_demo(W, H)
+    with torch.no_grad():
+        target = _local_render(scene, cam, DEPTH, SPP, scene.params, rng.PRNGKey(1), 0, H)
+    start, key = _perturbed(scene.params), rng.fold(rng.PRNGKey(2), 0)
+    kw = dict(spp=SPP, depth=DEPTH, learning_rate=H_LR)
+    steps = {"manual": make_train_step(scene, cam, **kw),
+             "remat off": make_train_step(scene, cam, manual_vjp=False, remat=False, **kw),
+             "remat on": make_train_step(scene, cam, manual_vjp=False, remat=True, **kw)}
+    rec, hists, terms = [], {"off": ([], []), "on": ([], [])}, []
+    with _deterministic():
+        with _swapped(scene, "hit_fn", _RecordingHit(scene.hit_fn, rec)), \
+                _recording_hists(*hists["off"]), _hit_term_sums(scene, terms):
+            off, loss_off = steps["remat off"](start, target, key)
+        with _recording_hists(*hists["on"]):
+            on, loss_on = steps["remat on"](start, target, key)
+        torch.cuda.synchronize()
+    det = _h_remat_check(tag, on, off, loss_on, loss_off, hists)
+    scale = _geo_term_scale(scene, start, terms)
+    del on, off, hists, terms
+    runs = {name: _h_step(st, start, target, key, f"{tag} {name} step")
+            for name, st in steps.items()}
+    expect = {"manual": manual_expect,
+              "remat off": _expect(**{kernel: DEPTH + 1}, **(extra or {})),
+              "remat on": _expect(**{kernel: 2 * DEPTH + 1}, **(extra or {}))}
+    for name, (_, _, c, *_) in runs.items():
+        if c != expect[name]:
+            raise AssertionError(f"{tag} {name} launches {c}, expected {expect[name]}")
+    loss_m = float(runs["manual"][1])
+    g_m = _h_grads(start, runs["manual"][0])
+    worst = {}
+    for name in ("remat off", "remat on"):
+        loss = float(runs[name][1])
+        if abs(loss - loss_m) > 1e-5 * abs(loss_m):
+            raise AssertionError(f"{tag} {name}: loss {loss!r} against the manual route's "
+                                 f"{loss_m!r}")
+        g = _h_grads(start, runs[name][0])
+        by_term = _h_grads_close(f"{tag} {name}: gradients vs the manual route", g, g_m, scale)
+        # the largest |diff| / max|g| and the tensor, over the tensors whose
+        # limit is not their atol's (a tensor of |g| < 1e-3 is held to 1e-7)
+        worst[name] = max(((float((g[k] - g_m[k]).abs().max()) / float(g_m[k].abs().max()), k)
+                           for k in g_m if g_m[k].numel() and float(g_m[k].abs().max()) > 1e-3),
+                          default=(0.0, None)) + by_term
+    flips, lanes, err = _h_hit_flips(scene, start, rec, tag)
+    del rec
+    fig = {name: {"seconds": r[3], "peak_gib": r[4], "step_gib": r[5]} for name, r in runs.items()}
+    log(f"[{tag}] {W}x{H} spp {SPP} depth {DEPTH} ({W * H * SPP:,} rays), one step each: "
+        + "; ".join(f"{name}: launches {runs[name][2]}, loss {float(runs[name][1])!r}, "
+                    f"{f['seconds']:.4f} s, peak {f['peak_gib']:.3f} GiB ({f['step_gib']:.3f} "
+                    f"GiB above its start)" for name, f in fig.items())
+        + f"; gradients against the manual route: largest |diff| / max|g| and its tensor "
+        f"over the tensors of max|g| > 1e-3, entries within only 1e-4 of their Σ|term| and "
+        f"the largest |diff| / Σ|term| of those {worst}; remat on vs off under deterministic algorithms: loss and params bit for "
+        f"bit but the sky image's {det} entries (K3's inputs equal, its outputs within "
+        f"the float64 bound); "
+        f"{kernel}'s hits vs the fused bounce: {flips} flips over {lanes:,} lanes "
+        f"(float64-adjudicated near-ties), t max abs err {err:.3g}")
+    return {"runs": fig, "flips": flips, "worst": worst, "det": det}
+
+
+def phase_h3_k4_gradient(scene):
+    """H3: K4's own gradient.  On a demo chunk's 65,536 primary rays (the
+    128 rows about the frame's middle), Σ w·t + Σ v·normal (hit lanes; ``w``, ``v`` uniform in [-0.5, 0.5)
+    from a seeded generator, 0 on lanes whose decisions differ from the
+    dense hit's) differentiated through K4's wrapper on the card, with
+    respect to every geometry param and the rays, against the dense plain
+    hit's autograd: each tensor within 1e-4 of its largest entry."""
+    import torch
+    from ptx_torch.core import rng
+    from ptx_torch.geom.fasthit import GEO_KEYS
+    from ptx_torch.ops import fasthit_kernel
+
+    y0 = (H - BAND_ROWS) // 2
+    o, d, *_ = _primary_band(scene, rng.fold(rng.PRNGKey(0), 0, y0), y0, BAND_ROWS)
+    dev = o.device
+    gen = torch.Generator(dev).manual_seed(0)
+    w = torch.rand(o.shape[0], device=dev, generator=gen) - 0.5
+    v = torch.rand((o.shape[0], 3), device=dev, generator=gen) - 0.5
+    with torch.no_grad():
+        k, p = scene.hit_fn(scene.params, o, d), scene.plain_hit_fn(scene.params, o, d)
+    same = (k["_evt"] == p["_evt"]) & (k["hit"] == p["hit"]) & (k["entering"] == p["entering"])
+    w, v = torch.where(same, w, 0.0), torch.where(same[:, None], v, 0.0)
+
+    def grads(hit_fn):
+        prm = {key: scene.params[key].clone().requires_grad_(True) for key in GEO_KEYS}
+        rays = [o.clone().requires_grad_(True), d.clone().requires_grad_(True)]
+        out = hit_fn(dict(scene.params, **prm), *rays)
+        loss = (w * out["t"]).sum() + (v * torch.where(out["hit"][:, None], out["normal"],
+                                                        0.0)).sum()
+        g = torch.autograd.grad(loss, [*prm.values(), *rays], allow_unused=True)
+        torch.cuda.synchronize()
+        return {name: torch.zeros_like(x) if gx is None else gx
+                for name, x, gx in zip([*GEO_KEYS, "o", "d"], [*prm.values(), *rays], g)}
+
+    launches = fasthit_kernel.LAUNCHES
+    g_k = grads(scene.hit_fn)
+    if fasthit_kernel.LAUNCHES != launches + 1:
+        raise AssertionError("H3: K4's wrapper did not launch K4 once")
+    g_p = grads(scene.plain_hit_fn)
+    offs = _close_per_tensor("H3 K4 gradient vs the dense hit's autograd", g_k, g_p)
+    if offs:
+        raise AssertionError("\n".join(offs))
+    if not all(float(g_k[name].abs().sum()) > 0 for name in ("sphere_center", "o", "d")):
+        raise AssertionError("H3: K4's gradient is zero")
+    rel = {name: float((g_k[name] - g_p[name]).abs().max()) / max(
+        float(g_p[name].abs().max()), 1e-30) for name in g_p if g_p[name].numel()}
+    log(f"[H3 K4 gradient] {o.shape[0]:,} rays, {int((~same).sum())} lanes off the dense "
+        f"hit's decisions (weight 0); |diff| / max|g| per tensor {rel}; |d sphere_center| "
+        f"{float(g_k['sphere_center'].abs().sum()):.4g}, |d o| "
+        f"{float(g_k['o'].abs().sum()):.4g}")
+    return rel
+
+
+def run_path_h(scene, dev):
+    """Path H: the plain-autograd route on the demo (K4) and on S1 (K5's
+    hit mode), and K4's own gradient."""
+    from ptx_torch.integrate.trace import compile_scene
+    from ptx_torch.scenes import builders
+
+    h1 = _timed("H1 autograd route, demo", phase_h_route, scene, "H1 demo", "K4",
+                _expect(1, K1=DEPTH + 1, K2=DEPTH, K3=3), {"K3": 3})
+    s1 = compile_scene(builders.stress_spheres(249), dev)
+    h2 = _timed("H2 autograd route, S1", phase_h_route, s1, "H2 S1", "K5",
+                _expect(k6_steps=1, K5=DEPTH + 1, K6=DEPTH))
+    del s1
+    h3 = _timed("H3 K4 gradient", phase_h3_k4_gradient, scene)
+    return h1, h2, h3
+
+
 def _timed(label, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -3943,6 +4318,9 @@ def main():
     # path G: the mesh on torch.distributed, the routing knobs
     g1, g2, g3, g4 = run_path_g(scene, dev)
 
+    # path H: the plain-autograd route (manual_vjp=False, remat) on K4 and K5
+    h1, h2, h3 = run_path_h(scene, dev)
+
     fb_rays, f_rays = _timed("9 fwd+bwd", phase_fwd_bwd, scene)
     w_ms, p_ms, dev_ms, _ = _timed("10 K1 timing", phase_timing, scene, inputs)
     k2_ms, k2p_ms, k2_bound, k2_pack_ms, k2_step, k2_step_old = _timed(
@@ -4006,7 +4384,12 @@ def main():
         f"S1 step {g2['s1_step_s']:.3f} s; all-reduce of the frame {g1['frame_ms']:.4f} ms, of "
         f"the gradient buffer ({g1['grad_numel']:,} floats) {g1['grad_ms']:.4f} ms; two gloo "
         f"ranks on the card: seconds per rank {[round(x, 2) for x in g3['rank_s']]}; knob "
-        f"flips {g4}; total "
+        f"flips {g4}; path H: "
+        + "; ".join(f"{nm} " + ", ".join(f"{k} {v['seconds']:.3f} s / {v['peak_gib']:.3f} GiB"
+                                         for k, v in h["runs"].items())
+                    + f", hit flips vs the fused bounce {h['flips']}"
+                    for nm, h in (("demo", h1), ("S1", h2)))
+        + f"; H3 K4 gradient |diff| / max|g| {max(h3.values()):.3g}; total "
         f"{time.perf_counter() - t_start:.1f} s; {smi}")
     entry = lambda name_, source, replaces, launches, err, ms, plain, bound, lib: {
         "name": name_, "route": "cuda", "source": source, "replaces": replaces,

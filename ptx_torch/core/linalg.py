@@ -20,8 +20,18 @@ from ptx_torch.core.constants import EPS
 # vec3 ops (broadcast over leading batch dims)
 # ---------------------------------------------------------------------------
 
+def vec3(x, y, z, device=None):
+    """Stack three scalars or broadcastable arrays into (..., 3) float32."""
+    xs = [torch.as_tensor(c, dtype=torch.float32, device=device) for c in (x, y, z)]
+    return torch.stack(torch.broadcast_tensors(*xs), dim=-1)
+
+
 def dot(a, b):
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def cross(a, b):
+    return torch.linalg.cross(*torch.broadcast_tensors(a, b), dim=-1)
 
 
 def abs_squared(v):
@@ -91,6 +101,11 @@ def refract(d, relative_ior, n):
 # affine (3, 4) transforms
 # ---------------------------------------------------------------------------
 
+def identity_affine(device=None):
+    return torch.cat([torch.eye(3, device=device), torch.zeros((3, 1), device=device)],
+                     dim=-1)
+
+
 def affine(linear, translation):
     linear = torch.as_tensor(linear, dtype=torch.float32).reshape(3, 3)
     translation = torch.as_tensor(translation, dtype=torch.float32,
@@ -151,6 +166,11 @@ def compose(outer, inner):
     lin = outer[..., :, :3] @ inner[..., :, :3]
     t = apply_linear(outer, inner[..., :, 3]) + outer[..., :, 3]
     return torch.cat([lin, t[..., :, None]], dim=-1)
+
+
+def determinant(A):
+    """The determinant of the affine's linear part."""
+    return torch.linalg.det(A[..., :, :3])
 
 
 def inverse(A):

@@ -12,16 +12,29 @@ jax 0.9.0 with ``jax_threefry_partitionable=True`` (``jax/_src/prng.py``):
   words, keeps the top 23 bits as the mantissa of a float in [1, 2) and
   subtracts 1.
 
+- ``split(key, n)`` (= ``jax.random.split``) hashes the counter pairs
+  ``(0, i)``: its i-th key is ``fold(key, i)``;
+- ``normal`` is ``√2 · erfinv(u)`` of a uniform ``u`` on (-1, 1), as
+  ``jax.random.normal`` computes it; ``torch.erfinv`` is not XLA's
+  polynomial, so it agrees to a few float32 ulps, not bit for bit.
+
 Keys are tiny host values (Python ints), so folding costs no device
 launches; draws run on the device the caller names.  uint32 arithmetic
 is written on int64 tensors (or Python ints) masked with ``0xFFFFFFFF``:
 the same code serves both.
+
+:class:`ReferenceLCG` and :func:`lcg_stream` are the reference's own
+generator (path-trace.h:21-54), for single-threaded parity tests of
+scalar sampling logic: ``v = 214013·v + 2531011`` over 64 bits, the high
+32 bits returned, the seed XORed with 0x12476242; a draw maps to a float
+as ``(x - min) / (max - min) · (hi - lo) + lo`` (vector3d.h:14-34).
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 _M = 0xFFFFFFFF
@@ -69,9 +82,47 @@ def _bits_to_unit_float(bits):
     return f - 1.0
 
 
-def uniform(key, shape, device) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` (float32 in [0, 1))."""
-    return uniform_many([key], shape, device)[0]
+def split(key, n: int = 2) -> list[tuple[int, int]]:
+    """``jax.random.split(key, n)`` as ``n`` keys."""
+    return [tuple(k) for k in pixel_keys(key, n, "cpu").tolist()]
+
+
+def pixel_keys(base_key, n: int, device) -> torch.Tensor:
+    """One key per flattened ray (the JAX ``pixel_keys``): ``jax.random.
+    split(base_key, n)`` as an (n, 2) int64 tensor of the keys' uint32
+    words on ``device``."""
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    return torch.stack(threefry2x32(base_key[0], base_key[1], idx >> 32, idx & _M), dim=-1)
+
+
+def uniform(key, shape, device, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, minval=, maxval=)`` (float32 in
+    [minval, maxval))."""
+    u = uniform_many([key], shape, device)[0]
+    if (minval, maxval) == (0.0, 1.0):
+        return u
+    lo = torch.tensor(np.float32(minval), device=device)
+    span = torch.tensor(np.float32(maxval) - np.float32(minval), device=device)
+    return torch.maximum(lo, u * span + lo)
+
+
+def normal(key, shape, device) -> torch.Tensor:
+    """``jax.random.normal(key, shape)``: ``√2 · erfinv(u)``, ``u`` uniform
+    on (-1, 1) from the same bits (module docstring on the agreement)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, device, minval=lo, maxval=1.0)
+    return torch.tensor(np.float32(np.sqrt(2.0)), device=device) * torch.erfinv(u)
+
+
+def sample_unit_ball(key, shape, device) -> torch.Tensor:
+    """Uniform in the unit ball, ``shape + (3,)``: a normal direction times
+    a cube-root radius, as ``ptx.core.rng.sample_unit_ball`` draws it (the
+    exact distribution of the reference's cube rejection, vector3d.h:163-185)."""
+    kd, kr = split(key)
+    d = normal(kd, tuple(shape) + (3,), device)
+    d = d / torch.clamp(torch.linalg.vector_norm(d, dim=-1, keepdim=True), min=1e-12)
+    r = uniform(kr, shape, device) ** (1.0 / 3.0)
+    return d * r[..., None]
 
 
 def sample_square(key, shape, device) -> torch.Tensor:
@@ -89,3 +140,44 @@ def uniform_many(keys, shape, device) -> torch.Tensor:
     idx = torch.arange(n, dtype=torch.int64, device=device)
     b1, b2 = threefry2x32(k[:, 0:1], k[:, 1:2], idx >> 32, idx & _M)
     return _bits_to_unit_float(b1 ^ b2).reshape((len(keys),) + shape)
+
+
+class ReferenceLCG:
+    """Bit-exact clone of the reference ``DefaultRandomEngine`` (module
+    docstring)."""
+
+    MIN = 0
+    MAX = 0xFFFFFFFF
+
+    def __init__(self, seed: int = 0):
+        self.seed(seed)
+
+    def seed(self, value: int) -> None:
+        self.v = np.uint64(value ^ 0x12476242)
+
+    def __call__(self) -> int:
+        with np.errstate(over="ignore"):
+            self.v = np.uint64(214013) * self.v + np.uint64(2531011)
+        return int(self.v >> np.uint64(32))
+
+    def discard(self, count: int) -> None:
+        for _ in range(count):
+            self()
+
+    def uniform(self, lo: float = 0.0, hi: float = 1.0) -> float:
+        """One draw in [lo, hi], in float32 as ``uniform_real_distribution<float>``."""
+        r = np.float32(self())
+        r = np.float32(r / np.float32(self.MAX))
+        return float(np.float32(r * np.float32(hi - lo) + np.float32(lo)))
+
+
+def lcg_stream(seed: int, count: int) -> np.ndarray:
+    """The first ``count`` raw draws of ``ReferenceLCG(seed)`` (uint32)."""
+    out = np.empty(count, dtype=np.uint32)
+    v = np.uint64(seed ^ 0x12476242)
+    a, c = np.uint64(214013), np.uint64(2531011)
+    with np.errstate(over="ignore"):
+        for i in range(count):
+            v = a * v + c
+            out[i] = np.uint32(v >> np.uint64(32))
+    return out

@@ -387,12 +387,14 @@ def compile_fast_hit(plan, params_ref=None, candidate_block: int | None = None,
 # the union sweep: K5's plain version, K5's hit and bounce wrappers
 # ---------------------------------------------------------------------------
 
-class MegaReplay(torch.autograd.Function):
-    """Forward: the sweep's ``t`` / normal (kernel or plain version, no
-    history); backward: autograd of the hit replay
+class HitReplay(torch.autograd.Function):
+    """Forward: a hit's ``t`` / normal as a kernel or a plain version
+    computed them, without history (K4, K5's hit mode, the sweeps);
+    backward: autograd of the hit replay
     (:func:`~ptx_torch.geom.hitreplay.build_hit_replay`) at the frozen
     decisions ``(evt, entering, hit)`` — the JAX ``_mega_replay`` custom
-    VJP (``ptx/geom/fasthit.py:575-597``).
+    VJP (``ptx/geom/fasthit.py:575-597``) and K4's ``hit_bwd``
+    (``ptx/ops/fasthit_kernel.py:351-360``).
 
     ``apply(replay, evt, entering, hit, kt, kn, o, d, *geo)`` with ``geo``
     the params of ``GEO_KEYS``; returns ``(t, normal)``."""
@@ -413,12 +415,12 @@ class MegaReplay(torch.autograd.Function):
         return (None,) * 6 + tuple(grads)
 
 
-def _hit_dict(replay, params, o, d, t, normal, flags_hit, entering, evt, mat):
-    """The first-hit dict, ``t`` / normal through :class:`MegaReplay` when
+def hit_dict(replay, params, o, d, t, normal, flags_hit, entering, evt, mat):
+    """The first-hit dict, ``t`` / normal through :class:`HitReplay` when
     autograd would reach the geometry or the rays."""
     geo = [params[k] for k in GEO_KEYS]
     if torch.is_grad_enabled() and any(x.requires_grad for x in (*geo, o, d)):
-        t, normal = MegaReplay.apply(replay, evt, entering, flags_hit, t, normal, o, d, *geo)
+        t, normal = HitReplay.apply(replay, evt, entering, flags_hit, t, normal, o, d, *geo)
     return {"t": t, "normal": normal, "mat_id": mat, "entering": entering,
             "hit": flags_hit, "_evt": evt}
 
@@ -441,20 +443,20 @@ class SweepHit:
 
         with torch.no_grad():
             r = megasweep_reference(self.layout, params, origin, direction, cull=cull)
-        return _hit_dict(self.replay, params, origin, direction, r["t"], r["normal"],
-                         r["hit"], r["entering"], r["_evt"], r["mat_id"])
+        return hit_dict(self.replay, params, origin, direction, r["t"], r["normal"],
+                        r["hit"], r["entering"], r["_evt"], r["mat_id"])
 
 
 def _selected(replay, mats, params, o, d, evt, entering, hit):
     """The hit dict of a selected event (``evt``, ``entering``, ``hit``):
     ``t`` and the normal from the replay, without history here (autograd
-    reaches them through :class:`MegaReplay`)."""
+    reaches them through :class:`HitReplay`)."""
     L = mats.numel()
     with torch.no_grad():
         t, normal = replay(params, o, d, evt, entering, hit)
     leaf = torch.where(evt >= L, evt - L, evt).to(torch.int64)
-    return _hit_dict(replay, params, o, d, t, normal, hit, entering, evt,
-                     torch.where(hit, mats[leaf], 0))
+    return hit_dict(replay, params, o, d, t, normal, hit, entering, evt,
+                    torch.where(hit, mats[leaf], 0))
 
 
 class UnionSweepHit:
@@ -486,7 +488,7 @@ class UnionSweepHit:
     All three read the same intervals and give the same outputs bit for
     bit.  The payload is the least leaf whose raw ``t0`` (then ``t1``)
     equals the boundary; selection is without gradient, and ``t`` and the
-    normal come from the hit replay through :class:`MegaReplay`."""
+    normal come from the hit replay through :class:`HitReplay`."""
 
     def __init__(self, plan, leaves, mode: str):
         from ptx_torch.geom import hitreplay
@@ -607,7 +609,7 @@ class BlockedHit:
     blocks of ``block`` with a running first minimum, each block folding a
     (block, L, B) membership tensor through the tape — the dense fold's
     decisions at O(block·L·B) memory.  Selection is without gradient; ``t``
-    and the normal come from the hit replay through :class:`MegaReplay`.
+    and the normal come from the hit replay through :class:`HitReplay`.
     Plain PyTorch on every device (XLA in the JAX package)."""
 
     def __init__(self, plan, leaves, block: int):
@@ -678,9 +680,9 @@ class MegaHit:
             raise ValueError(f"megasweep kernel: no kernel for {o.device}")
         raw = self.kernel.launch(self.pack(params) if packed is None else packed, o, d)
         fl = raw["flags"]
-        return _hit_dict(self.sweep.replay, params, o, d, raw["t"], raw["normal"],
-                         (fl & 1).to(torch.bool), (fl & 2).to(torch.bool), raw["evt"],
-                         raw["mat"].to(torch.int64))
+        return hit_dict(self.sweep.replay, params, o, d, raw["t"], raw["normal"],
+                        (fl & 1).to(torch.bool), (fl & 2).to(torch.bool), raw["evt"],
+                        raw["mat"].to(torch.int64))
 
 
 class MegaBounce:

@@ -56,6 +56,16 @@ class SpanList(NamedTuple):
         return self.t0.shape[-1]
 
 
+def empty(batch_shape, capacity: int = 1, device=None) -> SpanList:
+    """A span list of ``capacity`` invalid slots a ray (``PAD_T`` times,
+    zero normals and material ids)."""
+    shape = tuple(batch_shape) + (capacity,)
+    pad = lambda: torch.full(shape, PAD_T, dtype=torch.float32, device=device)
+    zeros = lambda *s, dtype=torch.float32: torch.zeros(shape + s, dtype=dtype, device=device)
+    return SpanList(t0=pad(), n0=zeros(3), m0=zeros(dtype=torch.int64), t1=pad(), n1=zeros(3),
+                    m1=zeros(dtype=torch.int64), valid=zeros(dtype=torch.bool))
+
+
 def single(t0, n0, m0, t1, n1, m1, valid) -> SpanList:
     """Wrap per-ray scalars into a K=1 span list (primitive output);
     ``m0``/``m1`` are Python ints."""

@@ -71,12 +71,17 @@ The JAX package's routing knobs, read by ``compile_scene`` and
   hit is :func:`first_hit` of the span merge (``spans_fn``) and
   ``trace_rays`` differentiates the bounces by plain autograd;
 - ``trace_rays(manual_vjp=False)``: plain autograd through
-  :func:`_bounce_live` (the default where the scene has no hit replay);
+  :func:`_bounce_live` (the default where the scene has no hit replay) on
+  whatever hit the scene has: the kernels' hits (K4, K5's hit mode) and
+  the sweeps differentiate through their hit replay
+  (:class:`~ptx_torch.geom.fasthit.HitReplay`), the dense hit and the
+  span merge by autograd; ``trace_rays(remat=)`` (on by default, as in
+  JAX) runs each bounce of that route under
+  ``torch.utils.checkpoint``: the backward recomputes the bounce from its
+  inputs, so a bounce keeps its inputs in place of its intermediates.
+  The draws are functions of the key, so the recompute is bit-identical.
+  ``remat`` changes nothing under the manual VJP, as in JAX;
   ``trace_rays(skysel=)``, else ``PTX_SKYSEL`` (on unless "0").
-
-The JAX ``trace_rays(remat=)`` has no counterpart: it is XLA's
-rematerialisation of a bounce under plain autodiff, a memory setting that
-changes no value.
 """
 
 from __future__ import annotations
@@ -88,6 +93,7 @@ import os
 from typing import Any, Callable
 
 import torch
+import torch.utils.checkpoint
 
 from ptx_torch.core import linalg, rng
 from ptx_torch.core.constants import DEFAULT_RAY_DEPTH, EPS, MAX_VALUE
@@ -324,6 +330,46 @@ def sample_scatter_dir(direction, normal, scatter_c, u3):
 
     out = torch.where(specular[..., None], reflected, linalg.normalize(u + bias))
     return out, specular | feasible, u
+
+
+SCATTER_TRIES = 32              # the rejection sampler's candidates a lane
+
+
+def sample_scatter_dir_rejection(key, direction, normal, scatter_c, return_raw=False):
+    """The batched-rejection form of the scatter sampler
+    (``ptx/integrate/trace.py:378``), the cross-check oracle of
+    :func:`sample_scatter_dir`: ``SCATTER_TRIES`` cube draws a lane in
+    [-1, 1)³ from ``key`` (the JAX package's draws bit for bit), the first
+    one in the ball and above the surface wins (:func:`select_scatter_dir`).
+    ``ok`` is False for an abandoned path (the reference's bailout)."""
+    u = rng.uniform(key, tuple(direction.shape[:-1]) + (SCATTER_TRIES, 3),
+                    direction.device, minval=-1.0, maxval=1.0)
+    return select_scatter_dir(u, direction, normal, scatter_c, return_raw=return_raw)
+
+
+def select_scatter_dir(u, direction, normal, scatter_c, return_raw=False):
+    """The selection half of the reference's scatter sampler on pre-drawn
+    cube uniforms ``u`` (..., T, 3) (``ptx/integrate/trace.py:395``).  The
+    reference consumes one draw stream: its ball sampler skips draws
+    outside the unit ball (vector3d.h:173-180) and its accept loop skips
+    in-ball draws below the surface (path-trace.h:145-157), so it accepts
+    the first draw that is both.  Returns ``(dir, ok)``, and the accepted
+    raw draw as well with ``return_raw``; the selection carries no
+    gradient, the direction does through the bias."""
+    reflected = linalg.reflect(direction, normal)
+    sc = linalg.clip01(scatter_c)
+    specular = sc <= EPS
+    bias = (1.0 / torch.where(specular, 1.0, sc) - 1.0)[..., None] * reflected
+
+    in_ball = linalg.dot(u, u) <= 1.0
+    cand = u + bias[..., None, :]
+    ok_t = in_ball & (linalg.dot(normal[..., None, :], cand) > EPS)
+    first = torch.argmax(ok_t.to(torch.uint8), dim=-1)          # the first True
+    pick = lambda a: a.gather(-2, first[..., None, None].expand(
+        first.shape + (1, 3)))[..., 0, :]
+    out = torch.where(specular[..., None], reflected, linalg.normalize(pick(cand)))
+    ok = specular | ok_t.any(dim=-1)
+    return (out, ok, pick(u)) if return_raw else (out, ok)
 
 
 # ---------------------------------------------------------------------------
@@ -658,27 +704,23 @@ def _phase_uniforms(key, start, end, width, device):
     return u_coins, u3s
 
 
-def _autograd_hit(scene):
+def _autograd_hit(scene, params, device):
     """The first hit plain autograd differentiates: the span merge where
-    the scene has no fast hit, else the plain fast hit.  A scene whose hit
-    is a kernel's wrapper (K4, K5) raises: a kernel is not differentiable,
-    and plain autograd through the hit is what ``manual_vjp=False`` asks
-    for."""
-    from ptx_torch.geom.fasthit import MegaHit
-    from ptx_torch.ops.fasthit_kernel import HitKernel
-
+    the scene has no fast hit, else ``scene.hit_fn`` — on a CUDA device a
+    kernel's wrapper (K4, K5's hit mode) reads its scene buffer, packed
+    here once for all bounces of the call."""
     if scene.hit_fn is None:
         return lambda params, o, d: first_hit(scene.spans_fn(params, o, d))
-    if isinstance(scene.hit_fn, (HitKernel, MegaHit)):
-        raise ValueError("trace_rays(manual_vjp=False) differentiates the hit by plain "
-                         "autograd, and this scene's hit is a kernel: compile it with "
-                         "pallas=False (PTX_PALLAS=0) or fast=False")
-    return scene.hit_fn
+    pack = getattr(scene.hit_fn, "pack", None)
+    if pack is None or device.type != "cuda":
+        return scene.hit_fn
+    return functools.partial(scene.hit_fn, packed=pack(params))
 
 
 def trace_rays(scene: CompiledScene, params, origin, direction, key,
                depth: int = DEFAULT_RAY_DEPTH, compact: bool | None = None,
-               skysel: bool | None = None, manual_vjp: bool | None = None):
+               skysel: bool | None = None, manual_vjp: bool | None = None,
+               remat: bool = True):
     """Trace a wavefront of rays to radiance estimates ``(..., 3)``.
 
     One stochastic path per ray, up to ``depth`` bounces plus the primary
@@ -694,7 +736,11 @@ def trace_rays(scene: CompiledScene, params, origin, direction, key,
     (the decision-frozen replay backward); False differentiates
     :func:`_bounce_live` by plain autograd (:func:`_autograd_hit`);
     default True where the scene has a fast hit and its replay
-    (``ptx/integrate/trace.py:941-942``).
+    (``ptx/integrate/trace.py:941-942``).  ``remat``: under
+    ``manual_vjp=False``, each bounce runs under
+    ``torch.utils.checkpoint`` and its backward recomputes it (the JAX
+    ``jax.checkpoint`` of the bounce, ``trace.py:1000-1001``); no effect
+    under the manual VJP.
     """
     if skysel is None:
         skysel = os.environ.get("PTX_SKYSEL", "1") != "0"
@@ -703,7 +749,6 @@ def trace_rays(scene: CompiledScene, params, origin, direction, key,
     if manual_vjp and scene.hit_replay_fn is None:
         raise ValueError("trace_rays(manual_vjp=True) needs the hit replay, and a scene "
                          "compiled with fast=False has none")
-    hit_fn = None if manual_vjp else _autograd_hit(scene)
     batch_shape = origin.shape[:-1]
     origin = origin.reshape(-1, 3)
     direction = direction.reshape(-1, 3)
@@ -745,6 +790,12 @@ def trace_rays(scene: CompiledScene, params, origin, direction, key,
     # autograd history: each bounce's backward returns its cotangent,
     # autograd sums them and runs the packing's VJP once
     packed_bwd = _replay_pack(scene, params) if manual_vjp else None
+    if not manual_vjp:
+        bounce_live = functools.partial(_bounce_live, _autograd_hit(scene, params, device),
+                                        scene.material_fn, params)
+        if remat and torch.is_grad_enabled():
+            bounce_live = functools.partial(torch.utils.checkpoint.checkpoint, bounce_live,
+                                            use_reentrant=False, preserve_rng_state=False)
     orig = torch.arange(B, dtype=torch.int64, device=device)
     saved = []                  # per phase: (pos, thr, mat_id, live, orig)
     for pi, (start, div) in enumerate(phases):
@@ -760,9 +811,8 @@ def trace_rays(scene: CompiledScene, params, origin, direction, key,
                 carry, dec = _bounce(scene, params, packed, packed_bwd, carry, b < depth,
                                      u_coins[b - start], u3s[b - start])
             else:
-                (o2, d2, thr2, st2, alive2), dec = _bounce_live(
-                    hit_fn, scene.material_fn, params, *carry, b < depth,
-                    u_coins[b - start], u3s[b - start])
+                (o2, d2, thr2, st2, alive2), dec = bounce_live(
+                    *carry, b < depth, u_coins[b - start], u3s[b - start])
                 # strength only feeds comparisons: no gradient (JAX stops it)
                 carry = (o2, d2, thr2, st2.detach(), alive2)
             # the emission record: hit position (no gradient: emission is

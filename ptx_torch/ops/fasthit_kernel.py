@@ -18,17 +18,21 @@ dict itself: a call is one launch.
   (``bounce_kernel.pack_scene``) is this one with the material rows
   appended.
 
-The hit carries no gradient: the unfused bounce's backward replays the
-selected boundary (``ptx_torch.geom.hitreplay``), as the JAX package's
-custom VJP does.
+``t`` and the normal reach autograd through
+:class:`~ptx_torch.geom.fasthit.HitReplay` on both devices, as the JAX
+package's custom VJP (``ptx/ops/fasthit_kernel.py:317-362``) does: the
+forward is the kernel's (on the CPU the plain version's, without
+history), the backward autograd of the hit replay
+(``ptx_torch.geom.hitreplay``) at the frozen decisions.  Where no input
+needs a gradient (the manual bounce's forward) nothing is recorded.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ptx_torch.geom import tape
-from ptx_torch.geom.fasthit import collect_leaves, leaf_affine, plane_inv_mag
+from ptx_torch.geom import hitreplay, tape
+from ptx_torch.geom.fasthit import collect_leaves, hit_dict, leaf_affine, plane_inv_mag
 
 LAUNCHES = 0
 REFERENCE_CALLS = 0
@@ -130,11 +134,13 @@ class HitKernel:
     ``_evt`` (int32), as ``plain`` — the dense first hit — does.  On CUDA
     the kernel reads the scene buffer ``packed`` (:meth:`pack` of these
     params), packed here when it is not given; ``trace_rays`` packs once
-    per call."""
+    per call.  ``t`` and ``normal`` differentiate through the hit replay
+    (module docstring)."""
 
     def __init__(self, plan, plain, params):
         self.plan, self.plain = plan, plain
         self.layout = pack_geometry(plan, params)[1]
+        self.replay = hitreplay.build_hit_replay(collect_leaves(plan))
         stack_below_top(plan)                   # the fold's leaf order, checked
 
     def pack(self, params):
@@ -150,12 +156,14 @@ class HitKernel:
         global REFERENCE_CALLS
         if o.device.type == "cpu":
             REFERENCE_CALLS += 1
-            return self.plain(params, o, d)
-        if o.device.type != "cuda":
+            with torch.no_grad():
+                out = self.plain(params, o, d)
+        elif o.device.type != "cuda":
             raise ValueError(f"hit kernel: no kernel for {o.device}")
-        if packed is None:
-            packed = self.pack(params)
-        return self.launch(packed, o, d)
+        else:
+            out = self.launch(self.pack(params) if packed is None else packed, o, d)
+        return hit_dict(self.replay, params, o, d, out["t"], out["normal"], out["hit"],
+                        out["entering"], out["_evt"], out["mat_id"])
 
     def launch(self, buf, o, d):
         """One kernel launch on the current stream, no synchronisation: the

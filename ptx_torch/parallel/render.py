@@ -40,15 +40,16 @@ from ptx_torch.parallel.mesh import (SAMPLE_AXIS, TILE_AXIS, LocalMesh, coordina
 
 def _local_render(scene: CompiledScene, cam: Camera, depth: int, spp_local: int,
                   params, key, y0: int, rows: int, tile_idx: int = 0, samp_idx: int = 0,
-                  compact=None, manual_vjp=None):
+                  remat: bool = True, compact=None, manual_vjp=None):
     """``rows`` rows from ``y0`` at ``spp_local`` samples: this rank's mean
     radiance (rows, W, 3) under ``fold(key, tile_idx, samp_idx)``
-    (``ptx/parallel/render.py:32``, before its ``pmean``)."""
+    (``ptx/parallel/render.py:32``, before its ``pmean``); ``remat``,
+    ``compact`` and ``manual_vjp`` pass through to ``trace_rays``."""
     k = rng.fold(key, tile_idx, samp_idx)
     o, d = sample_rays(cam, k, range(y0, y0 + rows), range(cam.width), spp_local,
                        scene.device)
     return trace_rays(scene, params, o, d, k, depth, compact=compact,
-                      manual_vjp=manual_vjp).mean(dim=0)
+                      manual_vjp=manual_vjp, remat=remat).mean(dim=0)
 
 
 def _sum(x, mesh, axis):
@@ -144,7 +145,7 @@ def _rebuild(params, leaves, tensors):
 
 def make_train_step(scene: CompiledScene, cam: Camera, mesh=None, spp: int = 16,
                     depth: int = DEFAULT_RAY_DEPTH, learning_rate: float = 1e-2,
-                    compact=None, manual_vjp=None):
+                    remat: bool = True, compact=None, manual_vjp=None):
     """``step(params, target, key) -> (params, loss)`` over ``mesh`` (None:
     the 1×1 mesh).  Each rank renders its band (module docstring) and
     takes the mean squared error against its rows of ``target``, the full
@@ -152,7 +153,9 @@ def make_train_step(scene: CompiledScene, cam: Camera, mesh=None, spp: int = 16,
     gradients of every param tensor (images included; zeros where a
     tensor does not reach the loss) and the loss are averaged over the
     tile group, then over the sample group; every rank returns ``p −
-    learning_rate · g`` for each param, without autograd history."""
+    learning_rate · g`` for each param, without autograd history.
+    ``remat``, ``compact`` and ``manual_vjp`` pass through to
+    ``trace_rays`` (``remat`` acts only under ``manual_vjp=False``)."""
     mesh = LocalMesh(scene.device) if mesh is None else mesh
 
     def step(params, target, key):
@@ -160,7 +163,8 @@ def make_train_step(scene: CompiledScene, cam: Camera, mesh=None, spp: int = 16,
         leaves = _leaves(params)
         xs = [x.detach().requires_grad_(True) for _, _, x in leaves]
         band = _local_render(scene, cam, depth, spp_local, _rebuild(params, leaves, xs),
-                             key, y0, rows, t, s, compact=compact, manual_vjp=manual_vjp)
+                             key, y0, rows, t, s, remat=remat, compact=compact,
+                             manual_vjp=manual_vjp)
         # the loss sees the sample group's mean band; its cotangent goes to
         # this rank's band as it is (JAX transposes the pmean so), and the
         # sample-group mean of the gradients below divides it back

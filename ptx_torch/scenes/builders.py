@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ptx_torch.core import linalg
+from ptx_torch.core.constants import EPS
 from ptx_torch.geom.tape import (Difference, Intersection, Plane, Sphere,
                                  Transformed, Union)
 from ptx_torch.shade import textures as tx
@@ -38,6 +39,20 @@ def make_lens(position, orientation, radius, sphere_radius, material):
         Sphere(position + orientation * dist, sphere_radius, material),
         Sphere(position - orientation * dist, sphere_radius, material),
     )
+
+
+def make_lens_pointed_at(position, focus, focus_factor, radius, material):
+    """A lens at ``position`` facing ``focus``, its curvature from the
+    lensmaker's equation for the material's ior and the focus distance
+    times ``focus_factor`` (test.cpp:74-81)."""
+    ior = material.ior
+    assert ior > 1 + EPS
+    position = np.asarray(position, np.float32)
+    focus = np.asarray(focus, np.float32)
+    distance = float(np.linalg.norm(focus - position)) * focus_factor
+    assert distance > EPS
+    return make_lens(position, focus - position, radius, 2.0 * distance * (ior - 1.0),
+                     material)
 
 
 def make_sky_box(face_images) -> Material:

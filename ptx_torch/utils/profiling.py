@@ -6,6 +6,7 @@ PyTorch profiler (port of ``ptx/utils/profiling.py``).
   the :class:`Meter` line);
 - :class:`Meter` — rays/s, samples and tiles counters with periodic
   emission;
+- :func:`timed` — the seconds a block takes, as a ``timed`` record;
 - :func:`trace` — a ``torch.profiler`` capture of the CPU and, where
   there is a card, its kernels, written as a Chrome trace (the layer
   profile's and the smoke run's).
@@ -51,6 +52,20 @@ class Meter:
         dt = max(time.perf_counter() - self.t0, 1e-9)
         log(self.name, rays=self.rays, rays_per_sec=round(self.rays / dt, 1),
             samples=self.samples, tiles=self.tiles, elapsed_s=round(dt, 2))
+
+
+@contextlib.contextmanager
+def timed(label: str):
+    """Log the block's wall seconds as ``{"event": "timed", "label": ...,
+    "seconds": ...}``, rounded to 0.1 ms as the JAX package logs them.
+    Yields a dict that holds the unrounded ``seconds`` after the block.
+    Nothing here synchronises a device: time a device's work with a
+    synchronisation inside the block."""
+    rec = {}
+    t0 = time.perf_counter()
+    yield rec
+    rec["seconds"] = time.perf_counter() - t0
+    log("timed", label=label, seconds=round(rec["seconds"], 4))
 
 
 @contextlib.contextmanager

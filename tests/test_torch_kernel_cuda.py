@@ -845,3 +845,113 @@ def test_1x1_nccl_mesh_equals_the_unsharded_render(cuda_scene):
     for name in new:
         for a, b in zip(*(x if isinstance(x, list) else [x] for x in (new_m[name], new[name]))):
             assert torch.equal(a, b), name
+
+
+def _k4_hit_grads(scene, hit_fn, o, d, w, v):
+    """Gradients of Σ w·t + Σ v·normal (hit lanes) through ``hit_fn`` with
+    respect to the geometry params and the rays."""
+    from ptx_torch.geom.fasthit import GEO_KEYS
+
+    p = {k: scene.params[k].clone().requires_grad_(True) for k in GEO_KEYS}
+    rays = [o.clone().requires_grad_(True), d.clone().requires_grad_(True)]
+    out = hit_fn(dict(scene.params, **p), *rays)
+    loss = (w * out["t"]).sum() + (v * torch.where(out["hit"][:, None], out["normal"],
+                                                    0.0)).sum()
+    grads = torch.autograd.grad(loss, [*p.values(), *rays], allow_unused=True)
+    return out, dict(zip([*GEO_KEYS, "o", "d"], grads))
+
+
+@pytest.mark.cuda
+def test_k4_gradient_is_the_dense_hits(cuda_scene):
+    """K4's wrapper differentiates through its hit replay (the JAX custom
+    VJP's backward): on 64×64 primary demo rays and 1,024 rays from inside
+    the spheres, the gradient of Σ w·t + Σ v·normal with respect to every
+    geometry param and the rays equals the dense hit's autograd within
+    1e-4 of each tensor's largest entry (lanes whose decisions differ
+    weigh 0)."""
+    from ptx_torch.ops import fasthit_kernel
+
+    scene, dev = cuda_scene, cuda_scene.device
+    o, d = sample_rays(Camera.reference_demo(64, 64), rng.PRNGKey(6), range(64), range(64), 1,
+                       dev)
+    gen = torch.Generator(dev).manual_seed(0)
+    c = scene.params["sphere_center"]
+    pick = torch.randint(0, c.shape[0], (1024,), device=dev, generator=gen)
+    o = torch.cat([o.reshape(-1, 3), c[pick] + 0.2 * (torch.rand(
+        (1024, 3), device=dev, generator=gen) - 0.5)])
+    d = torch.cat([d.reshape(-1, 3), torch.randn((1024, 3), device=dev, generator=gen)])
+    w = torch.rand(o.shape[0], device=dev, generator=gen) - 0.5
+    v = torch.rand((o.shape[0], 3), device=dev, generator=gen) - 0.5
+    with torch.no_grad():
+        k, p = scene.hit_fn(scene.params, o, d), scene.plain_hit_fn(scene.params, o, d)
+    same = (k["_evt"] == p["_evt"]) & (k["hit"] == p["hit"]) & (k["entering"] == p["entering"])
+    w, v = torch.where(same, w, 0.0), torch.where(same[:, None], v, 0.0)
+    launches = fasthit_kernel.LAUNCHES
+    out_k, g_k = _k4_hit_grads(scene, scene.hit_fn, o, d, w, v)
+    torch.cuda.synchronize()
+    assert fasthit_kernel.LAUNCHES == launches + 1 and out_k["t"].grad_fn is not None
+    _, g_p = _k4_hit_grads(scene, scene.plain_hit_fn, o, d, w, v)
+    assert int(same.sum()) >= o.shape[0] - 8
+    for name, want in g_p.items():
+        got = g_k[name]
+        if want is None or want.numel() == 0:
+            assert got is None or not bool(got.any()), name
+            continue
+        scale = float(want.abs().max())
+        assert got is not None and (name not in ("sphere_center", "o", "d") or scale > 0), name
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * scale + 1e-7, msg=name)
+
+
+@pytest.mark.cuda
+def test_autograd_route_on_k4_with_and_without_remat(cuda_scene):
+    """``trace_rays(manual_vjp=False)`` on the demo's K4 at 64×64, spp 2,
+    depth 8 (compacted): K4 once a bounce without ``remat`` and once more a
+    bounce but the last with it; under deterministic algorithms the
+    gradients with ``remat`` equal those without bit for bit, but the sky
+    image's: that one is K3's histograms, whose inputs must be equal bit
+    for bit and each output within ``chip_smoke._hist_bound_ok`` (K3's
+    float atomics add in an order that varies with the launches around
+    them); the manual route's gradients (K1, K2) within 1e-4 of each
+    tensor's largest entry."""
+    from chip_smoke import _recording_hists
+    from ptx_torch.ops import fasthit_kernel
+
+    scene, dev = cuda_scene, cuda_scene.device
+    key = rng.PRNGKey(8)
+    o, d = sample_rays(Camera.reference_demo(64, 64), key, range(64), range(64), 2, dev)
+
+    def grads(**kw):
+        p = {k: ([x.clone().requires_grad_(True) for x in v] if isinstance(v, list)
+                 else v.clone().requires_grad_(True)) for k, v in scene.params.items()}
+        launches = fasthit_kernel.LAUNCHES
+        trace.trace_rays(scene, p, o, d, key, 8, compact=True, **kw).mean().backward()
+        torch.cuda.synchronize()
+        flat = {f"{k}{i}": x.grad for k, v in p.items()
+                for i, x in enumerate(v if isinstance(v, list) else [v]) if x.grad is not None}
+        return fasthit_kernel.LAUNCHES - launches, flat
+
+    hists = {False: ([], []), True: ([], [])}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with _recording_hists(*hists[False]):
+            n_off, off = grads(manual_vjp=False, remat=False)
+        with _recording_hists(*hists[True]):
+            n_on, on = grads(manual_vjp=False, remat=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert (n_off, n_on) == (9, 17)
+    assert off.keys() == on.keys()
+    for k in off:
+        if not k.startswith("images"):
+            assert torch.equal(off[k], on[k]), k
+    (h_off, o_off), (h_on, o_on) = hists[False], hists[True]
+    assert len(h_off) == len(h_on) > 0
+    for x, y, a, b in zip(h_off, h_on, o_off, o_on):
+        for u, v in zip(x[:4], y[:4]):
+            assert torch.equal(u, v)
+        for out in (a, b):
+            _hist_bound_ok("K3 (remat)", out, *x)
+    _, manual = grads(manual_vjp=True)
+    for k in manual:
+        scale = float(manual[k].abs().max()) if manual[k].numel() else 0.0
+        torch.testing.assert_close(off[k], manual[k], rtol=0, atol=1e-4 * scale + 1e-7, msg=k)

@@ -3,9 +3,10 @@ pallas=)``, ``PTX_PALLAS``, ``PTX_FUSED``, ``PTX_SKYSEL`` and
 ``trace_rays(manual_vjp=)``.
 
 - the routes each knob picks (the hit, the bounce and its backward, K7,
-  the tile ordering), on the demo and on a 27-leaf union of spheres, and
-  the requests that raise: the kernels on the CPU, plain autograd through
-  a hit kernel, the manual VJP without a hit replay;
+  the tile ordering), on the demo and on a 27-leaf union of spheres; the
+  requests that raise: the kernels on the CPU, the manual VJP without a
+  hit replay; and plain autograd through K4's wrapper (its hit replay
+  VJP), whose gradient matches the JAX package's plain autodiff;
 - on the demo (8×6, spp 2, depth 3, the mean radiance), the port under
   each knob against the JAX package under the same knob: ``PTX_PALLAS=0``,
   ``fast=False`` (the span merge under plain autodiff),
@@ -101,9 +102,28 @@ def test_requests_that_raise(monkeypatch):
     monkeypatch.delenv("PTX_PALLAS")
     o, d = sample_rays(Camera.reference_demo(W, H), rng.PRNGKey(0), range(H), range(W), 1,
                        "cpu")
+    # plain autograd through K4's wrapper: its hit replay VJP, as JAX's
+    # plain autodiff through its hit (JAX side: the dense hit, pallas=False)
     s = trace.compile_scene(make_world(), "cpu")
-    with pytest.raises(ValueError, match="hit is a kernel"):
-        trace.trace_rays(s, s.params, o, d, rng.PRNGKey(0), 2, manual_vjp=False)
+    assert isinstance(s.hit_fn, HitKernel)
+    js = jtr.compile_scene(jax_make_world(), pallas=False)
+    s.params = params_from_jax(jax.tree.map(np.asarray, js.params), "cpu")
+    kj = jax.random.PRNGKey(0)
+    oj, dj = jax_sample_rays(JCamera.reference_demo(W, H), kj, jnp.arange(H), jnp.arange(W),
+                             SPP)
+    g_j = jax.jit(jax.grad(lambda p: jnp.mean(jtr.trace_rays(js, p, oj, dj, kj, DEPTH,
+                                                            manual_vjp=False))))(js.params)
+    p = {k: ([x.clone().requires_grad_(True) for x in v] if isinstance(v, list)
+             else v.clone().requires_grad_(True)) for k, v in s.params.items()}
+    ot, dt = sample_rays(Camera.reference_demo(W, H), rng.PRNGKey(0), range(H), range(W),
+                         SPP, "cpu")
+    trace.trace_rays(s, p, ot, dt, rng.PRNGKey(0), DEPTH, manual_vjp=False).mean().backward()
+    g_t, g_j = grads_to_numpy(p), jax.tree.map(np.asarray, g_j)
+    for k in g_j:
+        for a, b in zip(*(x if isinstance(x, list) else [x] for x in (g_t[k], g_j[k]))):
+            scale = np.abs(b).max() if b.size else 0.0
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-4 * scale + 1e-7, err_msg=k)
+    assert np.abs(g_t["sphere_radius"]).sum() > 0
     s = trace.compile_scene(make_world(), "cpu", fast=False)
     with pytest.raises(ValueError, match="needs the hit replay"):
         trace.trace_rays(s, s.params, o, d, rng.PRNGKey(0), 2, manual_vjp=True)
