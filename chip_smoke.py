@@ -292,6 +292,32 @@ H3. K4's own gradient on a chunk's 65,536 primary rays: Σ w·t + Σ v·normal
     every geometry param and the rays within 1e-4 of each tensor's largest
     entry.
 
+Path I, the roofline (``python -m ptx_torch.roofline``, the port of
+``tools/roofline.py``; K10, the float32 chain, and K11, the copy, in
+``csrc/roofline_kernel.cu``), after path H:
+I1. K10 on (8192, 128) float32 uniform in [0.25, 0.5] from a seed, c 1e-3,
+    R 1 (every element moves; at the tool's x = 0.5 and c = 1e-9 the chain
+    returns 0.5), and K11 on (32768, 1024) normal float32 (128 MiB), each
+    against its plain version on the card: equal bit for bit, one launch
+    each;
+I2. ``ptx_torch.roofline.main(["--device", "cuda:0"])`` at the tool's
+    sizes with the counters zeroed just before, every JSON line it prints
+    logged here: the FP32 chain (K10), the HBM ``mul_`` loop, the HBM copy
+    (K11), the bf16 ``torch.matmul`` chain, K4 on 131,072 demo rays (chained
+    and its bare launch queued) and the forward trace with ``compact`` off
+    and on; exact launches (K10 8: one a window, 2 warm-ups and 3 windows
+    at each R; K11 256 and K4 1,024: one an R over the same windows; K4 192
+    bare launches queued; K1 1,394: 17 a forward, 41 forwards a setting),
+    no plain call, every figure finite and positive, and no K10, K11 or
+    loop rate above 1.02 of its ceiling (then the work counted was not done);
+I3. K10 at R 16 (the wrapper, twice, and its plain version: 768 launches an
+    R) and K11 on 128 MiB (the wrapper, twice, ``x + 1`` and the library
+    call ``torch.add(x, 1, out=)``), each the median of 20 single calls
+    between CUDA events (K10's plain version of 3), beside its bound: K10's
+    operations at the unfused float32 rate, 33.5e12/s (the port builds with
+    ``-fmad=false``; the published 67e12 counts an FFMA as two), K11's
+    bytes at 3.35 TB/s.
+
 Then:
 9. a forward + backward chunk at the bench's shape (128 rows × 512, spp 1,
    depth 16, ``loss = radiance.mean()``): rays/s over the median of 10
@@ -321,12 +347,14 @@ Then:
     both K7 launches over one ``PTX_EMK=1`` train step (the profiler); the
     least time the card could take (``bound_ms``) from this run's inputs;
 11. the summary line (with path F's rays/s and K1 launches, the largest
-    K3 / K8 ratio, path G's seconds and all-reduce times and path H's step
-    seconds and peak memory), then the JSON lines: the nine kernels (launches from
-    the paths' train steps: the demo's for K1-K3, config 4's for K4, S1's
-    for K5 and K6, C2's for K7, the probe's for K8, E3's S1 for K9; K1's
-    ``max_abs_err`` includes path F's; K7's entry carries its backward's
-    figures under ``backward``), then the device.
+    K3 / K8 ratio, path G's seconds and all-reduce times, path H's step
+    seconds and peak memory and path I's ceilings), then the JSON lines: the
+    eleven kernels (launches from the paths' train steps: the demo's for
+    K1-K3, config 4's for K4, S1's for K5 and K6, C2's for K7, the probe's
+    for K8, E3's S1 for K9; I2's for K10 and K11; K1's ``max_abs_err``
+    includes path F's; K7's entry carries its backward's figures under
+    ``backward``; K10's its bound's rate under ``bound_note``), then the
+    device.
 
 Outputs (the rendered image, the nvcc report) go to ``build/chip_smoke/``.
 """
@@ -1175,7 +1203,8 @@ def phase_gradients(scene, tag="6 gradients", plain_cm=None):
 
 def _reset_counters():
     from ptx_torch.ops import bounce_kernel as bk, emission_kernel as ek
-    from ptx_torch.ops import fasthit_kernel as fk, imagegrad, megasweep, sweep_kernel
+    from ptx_torch.ops import fasthit_kernel as fk, imagegrad, megasweep, roofline_kernel
+    from ptx_torch.ops import sweep_kernel
     from ptx_torch.ops.replay_bwd import RowFedReplayBwd
 
     bk.LAUNCHES = bk.REFERENCE_CALLS = bk.BWD_REFERENCE_CALLS = 0
@@ -1188,11 +1217,14 @@ def _reset_counters():
     megasweep.MegaSweepKernel.LAUNCHES = megasweep.REFERENCE_CALLS = 0
     RowFedReplayBwd.LAUNCHES = RowFedReplayBwd.PACKS = RowFedReplayBwd.PACK_VJPS = 0
     sweep_kernel.LAUNCHES = sweep_kernel.REFERENCE_CALLS = 0
+    roofline_kernel.FMA_LAUNCHES = roofline_kernel.COPY_LAUNCHES = 0
+    roofline_kernel.REFERENCE_CALLS = 0
 
 
 def _counters():
     from ptx_torch.ops import bounce_kernel as bk, emission_kernel as ek
-    from ptx_torch.ops import fasthit_kernel as fk, imagegrad, megasweep, sweep_kernel
+    from ptx_torch.ops import fasthit_kernel as fk, imagegrad, megasweep, roofline_kernel
+    from ptx_torch.ops import sweep_kernel
     from ptx_torch.ops.replay_bwd import RowFedReplayBwd
 
     return {"K1": bk.LAUNCHES, "K2": bk.BounceBwdKernel.LAUNCHES,
@@ -1204,9 +1236,10 @@ def _counters():
             "K7": ek.LAUNCHES, "K7 bwd": ek.BWD_LAUNCHES,
             "K8": imagegrad.BandedHistKernel.LAUNCHES,
             "K9": sweep_kernel.LAUNCHES,
+            "K10": roofline_kernel.FMA_LAUNCHES, "K11": roofline_kernel.COPY_LAUNCHES,
             "plain": (bk.REFERENCE_CALLS + bk.BWD_REFERENCE_CALLS + imagegrad.REFERENCE_CALLS
                       + fk.REFERENCE_CALLS + ek.REFERENCE_CALLS + megasweep.REFERENCE_CALLS
-                      + sweep_kernel.REFERENCE_CALLS)}
+                      + sweep_kernel.REFERENCE_CALLS + roofline_kernel.REFERENCE_CALLS)}
 
 
 def _expect(steps=0, k6_steps=0, **per_kernel):
@@ -1215,7 +1248,7 @@ def _expect(steps=0, k6_steps=0, **per_kernel):
     backward passes, each packing the replay backward's scene vector once
     and running its VJP once."""
     out = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K7 bwd", "K8", "K9",
-                         "plain"), 0)
+                         "K10", "K11", "plain"), 0)
     out.update(per_kernel)
     out["K2 packs"] = out["K2 pack VJPs"] = steps
     out["K6 packs"] = out["K6 pack VJPs"] = k6_steps
@@ -4204,6 +4237,167 @@ def run_path_h(scene, dev):
     return h1, h2, h3
 
 
+# ---------------------------------------------------------------------------
+# path I: the roofline (python -m ptx_torch.roofline): K10, K11, and K4 and
+# the forward trace placed against the card's measured ceilings
+# ---------------------------------------------------------------------------
+
+I_K10_SHAPE = (8192, 128)       # tools/roofline.py:58: GRID x ROWS, LANES
+I_K11_SHAPE = (32768, 1024)     # tools/roofline.py:121: 128 MiB of float32
+I_K10_TIMING_R = 16             # K10's R where the kernels line times it beside its plain version
+I_MEASURES = ("fp32_chain", "hbm_torch_loop", "hbm_copy_kernel", "tensor_bf16_matmul",
+              "hit_kernel", "trace_forward", "trace_forward")
+
+
+def bound_k10(n, reps):
+    """K10 on n elements, ``reps`` passes: 3 × 256 operations an element a
+    pass at the unfused float32 rate (the port builds with -fmad=false, and
+    the published 67 TFLOP/s counts a fused multiply-add as two), or 8 bytes
+    an element at the HBM rate."""
+    from ptx_torch import roofline
+    from ptx_torch.ops import roofline_kernel
+
+    t_o = n * roofline_kernel.STEPS * 3 * reps / roofline.FP32_UNFUSED * 1e3
+    t_b = 8 * n / HBM_BPS * 1e3
+    return (t_o, "operations") if t_o >= t_b else (t_b, "bytes")
+
+
+def bound_k11(n):
+    """K11 on n elements: each read once and written once, one add each."""
+    return _bound(8 * n, n)
+
+
+def _i_inputs(dev, seed=14):
+    """K10's input, uniform in [0.25, 0.5], and K11's, normal, at the tool's
+    full shapes, from a seed."""
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    x = torch.empty(I_K10_SHAPE, device=dev).uniform_(0.25, 0.5, generator=gen)
+    return x, torch.randn(I_K11_SHAPE, device=dev, generator=gen)
+
+
+def phase_i1_roofline_kernels(dev):
+    """K10 (R 1, c 1e-3: every element moves) and K11 against their plain
+    versions on the card at the tool's full shapes, bit for bit; one launch
+    each."""
+    import torch
+    from ptx_torch.ops import roofline_kernel as rk
+
+    x, y = _i_inputs(dev)
+    _reset_counters()
+    k10, k11 = rk.fma_chain(x, 1, c=1e-3), rk.copy_plus_one(y)
+    torch.cuda.synchronize()
+    c = _counters()
+    if c != _expect(K10=1, K11=1):
+        raise AssertionError(f"I1: launch counts {c}")
+    p10, p11 = rk.fma_chain_reference(x, 1, c=1e-3), rk.copy_plus_one_reference(y)
+    moved = int((p10 != x).sum())
+    if moved != x.numel():
+        raise AssertionError(f"I1: K10's plain chain left {x.numel() - moved} elements unmoved")
+    errs = {}
+    for name, k, p in (("K10", k10, p10), ("K11", k11, p11)):
+        diff = int((k != p).sum())
+        errs[name] = float((k - p).abs().max())
+        if diff or not bool(torch.isfinite(k).all()):
+            raise AssertionError(f"I1: {name} differs from its plain version on {diff} of "
+                                 f"{k.numel()} elements (max abs err {errs[name]:.3g})")
+    log(f"[I1 roofline kernels] K10 (8192x128, R 1, c 1e-3) and K11 (32768x1024, 128 MiB) "
+        f"equal to their plain versions bit for bit; launches {c['K10']} / {c['K11']}")
+    return errs
+
+
+def phase_i2_roofline(dev):
+    """``python -m ptx_torch.roofline`` through its ``main``, at the tool's
+    sizes, the counters zeroed just before: every line re-logged, the
+    launches exact (K10 one a window, K11 and K4 one an R, K1 17 a forward
+    and its warm-up; K4 also 64 bare launches in each of 3 queued windows),
+    no measured rate above its physical ceiling."""
+    import io
+    import math
+    from ptx_torch import roofline
+
+    _reset_counters()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = roofline.main(["--device", f"cuda:{dev.index or 0}"])
+    c = _counters()
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+    for ln in lines:
+        log("[I2 roofline] " + json.dumps(ln))
+    if rc != 0 or tuple(ln["measure"] for ln in lines) != I_MEASURES:
+        raise AssertionError(f"I2: exit {rc}, measures {[ln['measure'] for ln in lines]}")
+    w = 1 + roofline.REPS
+    expect = _expect(K10=2 * w, K11=(16 + 48) * w, K4=(64 + 192) * w + 64 * roofline.REPS,
+                     K1=2 * (40 + 1) * (DEPTH + 1))
+    if c != expect:
+        raise AssertionError(f"I2: launch counts {c}, expected {expect}")
+    for ln in lines:
+        bad = [k for k, v in ln.items() if isinstance(v, float) and not (math.isfinite(v)
+                                                                           and v > 0)]
+        if bad:
+            raise AssertionError(f"I2 {ln['measure']}: not a positive finite figure: {bad}")
+    fp32, loop, copy, mm, hit, tf0, tf1 = lines
+    # the chain cannot beat 128 unfused operations a clock an SM, nor a copy the HBM
+    for name, share in (("K10", fp32["share_of_unfused_peak"]),
+                        ("K11", copy["share_of_published_peak"]),
+                        ("torch loop", loop["share_of_published_peak"])):
+        if share > 1.02:
+            raise AssertionError(f"I2: {name} at {share:.4f} of its ceiling: it cannot "
+                                 "have done the work counted")
+    log(f"[I2 roofline] K10 {fp32['fp32_tops_per_s']:.4f} T op/s ("
+        f"{fp32['share_of_unfused_peak']:.4f} of the unfused 33.5, SM clock "
+        f"{fp32.get('clocks_sm_mhz')} MHz); HBM torch loop {loop['hbm_gb_per_s']:.1f} GB/s, "
+        f"K11 {copy['hbm_gb_per_s']:.1f} GB/s; bf16 matmul {mm['bf16_tflops_per_s']:.1f} "
+        f"TFLOP/s; K4 {hit['seconds_per_call'] * 1e3:.4f} ms a chained call, "
+        f"{hit['share_of_fp32_chain']:.4f} of K10's rate (the bare launch queued "
+        f"{hit['launch_queued_seconds'] * 1e3:.4f} ms, {hit['launch_share_of_fp32_chain']:.4f}); "
+        f"forward "
+        f"{tf0['seconds'] * 1e3:.3f} / {tf1['seconds'] * 1e3:.3f} ms (compact off / on), "
+        f"hit fraction {tf0['hit_kernel_fraction_at_full_width']:.4f} / "
+        f"{tf1['hit_kernel_fraction_at_full_width']:.4f}; launches {c}")
+    return {"lines": lines, "counts": c}
+
+
+def phase_i3_timing(dev):
+    """K10 (R ``I_K10_TIMING_R``) and K11 (one pass over 128 MiB): the
+    wrapper, the plain version (K10's the median of 3: 768 launches an R),
+    K11's library call ``torch.add(x, 1, out=)``, the wrapper again; each
+    beside its bound.  Returns ``(ms, plain_ms, bound, library_ms)`` a
+    kernel, ``ms`` the better of the wrapper's two readings."""
+    import torch
+    from ptx_torch.ops import roofline_kernel as rk
+
+    x, y = _i_inputs(dev)
+    o10, o11 = torch.empty_like(x), torch.empty_like(y)
+    R = I_K10_TIMING_R
+    kern = {"K10": lambda: rk.fma_chain(x, R, out=o10), "K11": lambda: rk.copy_plus_one(y, out=o11)}
+    first = {k: _time_ms(fn) for k, fn in kern.items()}
+    plain = {"K10": _time_ms(lambda: rk.fma_chain_reference(x, R), reps=3, warmup=1),
+             "K11": _time_ms(lambda: rk.copy_plus_one_reference(y))}
+    lib = {"K10": None, "K11": _time_ms(lambda: torch.add(y, 1, out=o11))}
+    again = {k: _time_ms(fn) for k, fn in kern.items()}
+    bound = {"K10": bound_k10(x.numel(), R), "K11": bound_k11(y.numel())}
+    out = {}
+    for k in kern:
+        ms = min(first[k], again[k])
+        out[k] = (ms, plain[k], bound[k], lib[k])
+        log(f"[I3 timing] {k}: wrapper {first[k]:.4f} / {again[k]:.4f} ms (each the median of "
+            f"20 calls between CUDA events), plain {plain[k]:.4f} ms, library "
+            f"{'none' if lib[k] is None else f'{lib[k]:.4f} ms'}; bound {bound[k][0]:.4g} ms "
+            f"({bound[k][1]}), the wrapper at {bound[k][0] / ms:.4f} of it")
+    return out
+
+
+def run_path_i(dev):
+    """Path I: the roofline's kernels against their plain versions, the
+    roofline itself through its entry point, the kernels' timings."""
+    errs = _timed("I1 roofline kernels", phase_i1_roofline_kernels, dev)
+    i2 = _timed("I2 roofline", phase_i2_roofline, dev)
+    timing = _timed("I3 roofline timing", phase_i3_timing, dev)
+    return errs, i2, timing
+
+
 def _timed(label, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -4321,6 +4515,9 @@ def main():
     # path H: the plain-autograd route (manual_vjp=False, remat) on K4 and K5
     h1, h2, h3 = run_path_h(scene, dev)
 
+    # path I: the roofline (python -m ptx_torch.roofline): K10, K11, K4, the forward
+    err_i, i2, time_i = run_path_i(dev)
+
     fb_rays, f_rays = _timed("9 fwd+bwd", phase_fwd_bwd, scene)
     w_ms, p_ms, dev_ms, _ = _timed("10 K1 timing", phase_timing, scene, inputs)
     k2_ms, k2p_ms, k2_bound, k2_pack_ms, k2_step, k2_step_old = _timed(
@@ -4389,7 +4586,10 @@ def main():
                                          for k, v in h["runs"].items())
                     + f", hit flips vs the fused bounce {h['flips']}"
                     for nm, h in (("demo", h1), ("S1", h2)))
-        + f"; H3 K4 gradient |diff| / max|g| {max(h3.values()):.3g}; total "
+        + f"; H3 K4 gradient |diff| / max|g| {max(h3.values()):.3g}; path I: K10 "
+        f"{i2['lines'][0]['fp32_tops_per_s']:.4f} T op/s, K11 "
+        f"{i2['lines'][2]['hbm_gb_per_s']:.1f} GB/s, K4 at "
+        f"{i2['lines'][4]['share_of_fp32_chain']:.4f} of K10's rate; total "
         f"{time.perf_counter() - t_start:.1f} s; {smi}")
     entry = lambda name_, source, replaces, launches, err, ms, plain, bound, lib: {
         "name": name_, "route": "cuda", "source": source, "replaces": replaces,
@@ -4433,6 +4633,14 @@ def main():
         entry("sweep_select (K9: union-sweep prefix max, break minima, payload match, S1)",
               "ptx_torch/csrc/sweep_kernel.cu", "ptx/ops/sweep_kernel.py:164",
               trainE["S1"][0]["K9"], err9, k9_ms, k9p_ms, k9_bound, None),
+        dict(entry(f"fma_chain (K10: dependent float32 chain, the FP32 ceiling; timed at R "
+                   f"{I_K10_TIMING_R})", "ptx_torch/csrc/roofline_kernel.cu",
+                   "tools/roofline.py:48", i2["counts"]["K10"], err_i["K10"], *time_i["K10"]),
+             bound_note="operations at the unfused float32 rate, 33.5e12/s: the port builds "
+                        "with -fmad=false and the published 67e12 counts an FFMA as two"),
+        entry("copy_plus_one (K11: o = x + 1 over 128 MiB, the HBM ceiling)",
+              "ptx_torch/csrc/roofline_kernel.cu", "tools/roofline.py:109",
+              i2["counts"]["K11"], err_i["K11"], *time_i["K11"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

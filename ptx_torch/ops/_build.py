@@ -86,6 +86,8 @@ def _entry_points():
          [vp, vp, i, vp, vp, i, i]        # s, e, S, t0, t1, L, B
          + [ctypes.c_float, i, i, i]      # eps, sort, Sp, tile width
          + [vp] * 5 + [vp], i),           # t_star entering m_start m_end found, stream
+        ("ptx_fma_chain", [vp, vp, i, i, ctypes.c_float, i, vp], i),   # x o n reps c block stream
+        ("ptx_copy_plus_one", [vp, vp, ctypes.c_int64, i, vp], i),    # x o n block stream
         ("ptx_cuda_error_name", [i], ctypes.c_char_p),
     ]
 

@@ -3,8 +3,9 @@ last, the 1×1 mesh on a world-1 NCCL group against the unsharded render
 and train step, bit for bit): K1
 (bounce), K2 (replay backward), K3 and K8 (image-gather transposes), K4
 (first hit), K5 (megasweep: hit and bounce modes, 16- and 32-column
-tables), K6 (row-fed replay backward), K7 (emission) and K9 (sweep
-select, with and without its in-kernel sort).
+tables), K6 (row-fed replay backward), K7 (emission), K9 (sweep
+select, with and without its in-kernel sort), and the roofline's K10 (the
+float32 chain) and K11 (the copy).
 
 This file imports no jax, so it runs on a machine with a card and no jax:
 
@@ -36,7 +37,9 @@ its five outputs must equal its plain version's bit for bit, with both
 flags, at every tile width and segment count, and through the kernel
 mode's route (the sort inside K9) as through the ``torch.sort`` route.
 K4 writes the dense hit's dict itself: ``mat_id``, ``hit``, ``entering``
-and ``_evt`` must equal the plain dict's, in its dtypes.
+and ``_evt`` must equal the plain dict's, in its dtypes.  K10 and K11 run
+their plain versions' float32 operations in the same order, each rounded
+on its own: they must equal them bit for bit.
 """
 
 import sys
@@ -955,3 +958,68 @@ def test_autograd_route_on_k4_with_and_without_remat(cuda_scene):
     for k in manual:
         scale = float(manual[k].abs().max()) if manual[k].numel() else 0.0
         torch.testing.assert_close(off[k], manual[k], rtol=0, atol=1e-4 * scale + 1e-7, msg=k)
+
+
+@pytest.fixture
+def roofline_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the roofline kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,reps", [((8192, 128), 1), ((1000,), 3), ((1,), 2)])
+def test_k10_matches_its_plain_version(roofline_card, shape, reps):
+    """K10 equals its plain version bit for bit on x uniform in [0.25, 0.5]
+    with c 1e-3, where every element moves; one launch."""
+    from ptx_torch.ops import roofline_kernel as rk
+
+    gen = torch.Generator(roofline_card).manual_seed(10)
+    x = torch.empty(shape, device=roofline_card).uniform_(0.25, 0.5, generator=gen)
+    launches = rk.FMA_LAUNCHES
+    got = rk.fma_chain(x, reps, c=1e-3)
+    torch.cuda.synchronize()
+    assert rk.FMA_LAUNCHES == launches + 1
+    want = rk.fma_chain_reference(x, reps, c=1e-3)
+    assert bool((want != x).all())
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 4096 + 3, 32768 * 1024])
+def test_k11_matches_its_plain_version(roofline_card, n):
+    """K11 equals ``x + 1`` bit for bit, the n mod 4 tail included; one
+    launch."""
+    from ptx_torch.ops import roofline_kernel as rk
+
+    gen = torch.Generator(roofline_card).manual_seed(11)
+    x = torch.randn(n, device=roofline_card, generator=gen)
+    launches = rk.COPY_LAUNCHES
+    got = rk.copy_plus_one(x)
+    torch.cuda.synchronize()
+    assert rk.COPY_LAUNCHES == launches + 1
+    assert torch.equal(got, rk.copy_plus_one_reference(x))
+
+
+@pytest.mark.cuda
+def test_roofline_wrappers_raise(roofline_card, monkeypatch):
+    """A launch the card refuses (blocks of 2,048 threads) raises and counts
+    nothing; so do a K11 input off 16-byte alignment and an output on the
+    CPU."""
+    from ptx_torch.ops import roofline_kernel as rk
+
+    x = torch.ones(1024, device=roofline_card)
+    launches = (rk.FMA_LAUNCHES, rk.COPY_LAUNCHES)
+    with monkeypatch.context() as m:
+        m.setattr(rk, "BLOCK", 2048)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            rk.fma_chain(x, 1)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            rk.copy_plus_one(x)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        rk.copy_plus_one(x[1:])
+    with pytest.raises(ValueError, match="must be a contiguous"):
+        rk.fma_chain(x, 1, out=torch.empty(1024))
+    assert (rk.FMA_LAUNCHES, rk.COPY_LAUNCHES) == launches
+    torch.cuda.synchronize()
+    assert torch.equal(rk.copy_plus_one(x), x + 1)
