@@ -1,0 +1,10 @@
+"""Device ms a step in the random draws' range (``trace._phase_uniforms``)."""
+
+def _layer_ms(ctx, *names):
+    layers = ctx["summary"]["layers"]
+    ms = sum(layers[n]["device_ms"] for n in names)
+    return ms / ctx["units"] if ms > 0 else None
+
+
+def read(ctx):
+    return _layer_ms(ctx, 'rng_draws')
