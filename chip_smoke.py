@@ -2153,9 +2153,7 @@ def phase_k7_step_profile():
     with _env(PTX_EMK="1"):
         layer_profile.main(["--train", "--chunks", "1", "--out", out])
     with open(os.path.join(out, "trace_demo_train.json")) as f:
-        names = tuple(n for n, _, _ in layer_profile.LAYERS) + tuple(
-            g for *_, g in layer_profile.GRAD_LAYERS)
-        s = layer_profile.summarize(json.load(f)["traceEvents"], names)
+        s = layer_profile.summarize(json.load(f)["traceEvents"])
     log(f"[10 K7 step profile] one PTX_EMK=1 demo train step: K7 forward {s['k7_calls']} "
         f"call(s), {s['k7_mean_us']:.2f} us a call; backward {s['k7_bwd_calls']} call(s), "
         f"{s['k7_bwd_mean_us']:.2f} us a call; emission layer "

@@ -19,6 +19,7 @@ from ptx_torch.core import linalg, rng
 from ptx_torch.core.constants import (DEFAULT_SCREEN_DISTANCE,
                                       DEFAULT_SCREEN_HEIGHT,
                                       DEFAULT_SCREEN_WIDTH)
+from ptx_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +60,7 @@ def pixel_rays(cam: Camera, px, py, jitter=None):
     return origin, direction
 
 
+@profiling.spanned("camera")
 def sample_rays(cam: Camera, key, ys, xs, spp: int, device):
     """Jittered rays for the pixel grid ``ys × xs`` (sequences of ints):
     ``(origin, dir)`` of shape ``(spp, len(ys), len(xs), 3)``.  The jitter

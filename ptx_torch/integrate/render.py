@@ -15,6 +15,7 @@ from ptx_torch.core import rng
 from ptx_torch.core.constants import DEFAULT_RAY_DEPTH
 from ptx_torch.integrate.camera import Camera, sample_rays
 from ptx_torch.integrate.trace import CompiledScene, trace_rays
+from ptx_torch.utils import profiling
 
 
 def render_tile(scene: CompiledScene, params, cam: Camera, key,
@@ -29,6 +30,7 @@ def render_tile(scene: CompiledScene, params, cam: Camera, key,
     return radiance.mean(dim=0)
 
 
+@profiling.spanned("render_rows")
 def render_rows(scene: CompiledScene, params, cam: Camera, key, y0: int,
                 rows: int, spp_chunk: int, n_chunks: int, depth: int):
     """A full-width row band at ``n_chunks · spp_chunk`` samples, one

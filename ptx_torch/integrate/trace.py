@@ -101,6 +101,7 @@ from ptx_torch.geom import hitreplay, tape
 from ptx_torch.geom.fasthit import collect_leaves, compile_fast_hit
 from ptx_torch.shade import materials as mats
 from ptx_torch.shade import textures as tx
+from ptx_torch.utils import profiling
 
 # The hit kernels' limit: at most 24 leaves (48 candidates fit one 64-bit
 # mask).  K1 also needs every non-emissive slot Constant (it reads material
@@ -618,6 +619,7 @@ class ManualBounce(torch.autograd.Function):
                 + tuple(_diff_inputs(scene, d_params)))
 
 
+@profiling.spanned("replay_pack", backward="replay_pack_bwd")
 def _replay_pack(scene, params):
     """The replay backward's packed scene vector for one ``trace_rays``
     call, with autograd history from ``params``, or None where the backward
@@ -628,6 +630,7 @@ def _replay_pack(scene, params):
     return scene.bounce_bwd_fn.pack(params)
 
 
+@profiling.spanned("bounce", backward="bounce_bwd")
 def _bounce(scene: CompiledScene, params, packed, packed_bwd, carry, in_depth, u_coin,
             u3):
     diff = (packed_bwd,) if _takes_packed(scene) else _diff_inputs(scene, params)
@@ -639,7 +642,8 @@ def _bounce(scene: CompiledScene, params, packed, packed_bwd, carry, in_depth, u
 # dead-lane compaction
 # ---------------------------------------------------------------------------
 
-def _compact_wavefront(carry, orig, cap: int, key=None):
+@profiling.spanned("compaction", backward="compaction_bwd")
+def _compact_wavefront(carry, orig, cap: int, key=None, bounces: int = 1):
     """Pack live lanes into a ``cap``-wide wavefront.
 
     Live lanes go to the front in lane order.  If more than ``cap`` are
@@ -649,10 +653,13 @@ def _compact_wavefront(carry, orig, cap: int, key=None):
     pixel — see the JAX function's docstring for the stripes it fixed).
     Tail rows past the kept count are dead fillers with ``orig`` set to a
     sentinel ≥ the original width.  ``orig`` maps lanes to the original
-    wavefront (int64; the JAX version bitcasts it through f32)."""
+    wavefront (int64; the JAX version bitcasts it through f32).  ``bounces``:
+    the bounces the new wavefront is traced through, the weight of its
+    filler rows in :func:`~ptx_torch.utils.profiling.count_fillers`."""
     o, d, throughput, strength, alive = carry
     alive_i = alive.to(torch.int64)
     n = alive_i.sum()
+    profiling.count_fillers(cap, bounces, n)
     n_safe = torch.clamp(n, min=1)
     ncap = torch.clamp(n_safe, max=cap)
     ranks = torch.cumsum(alive_i, dim=0)             # 1-based among alive
@@ -694,6 +701,7 @@ _COMPACT_MIN_BATCH = 16384
 # trace_rays (forward)
 # ---------------------------------------------------------------------------
 
+@profiling.spanned("rng_draws")
 def _phase_uniforms(key, start, end, width, device):
     """All of a phase's bounce uniforms in two batched draws — the values
     each bounce b would draw itself: ``u_coin = uniform(fold(key, b, 1),
@@ -717,6 +725,7 @@ def _autograd_hit(scene, params, device):
     return functools.partial(scene.hit_fn, packed=pack(params))
 
 
+@profiling.spanned("trace_rays")
 def trace_rays(scene: CompiledScene, params, origin, direction, key,
                depth: int = DEFAULT_RAY_DEPTH, compact: bool | None = None,
                skysel: bool | None = None, manual_vjp: bool | None = None,
@@ -785,7 +794,8 @@ def trace_rays(scene: CompiledScene, params, origin, direction, key,
     # call (the plain versions on the CPU read params themselves; a hit
     # without a kernel buffer packs None)
     pack = getattr(scene.bounce_fn, "pack", None) if manual_vjp else None
-    packed = pack(params) if pack is not None and device.type == "cuda" else None
+    with profiling.span("scene_pack"):
+        packed = pack(params) if pack is not None and device.type == "cuda" else None
     # K2's and K6's scene vector, packed once per call on every device with
     # autograd history: each bounce's backward returns its cotangent,
     # autograd sums them and runs the packing's VJP once
@@ -802,7 +812,9 @@ def trace_rays(scene: CompiledScene, params, origin, direction, key,
         end = phases[pi + 1][0] if pi + 1 < len(phases) else depth + 1
         if pi > 0:
             carry, orig = _compact_wavefront(carry, orig, B // div,
-                                             key=rng.fold(key, 0x00C0, pi))
+                                             key=rng.fold(key, 0x00C0, pi),
+                                             bounces=end - start)
+        profiling.count("lane_bounces", B // div * (end - start))
         u_coins, u3s = _phase_uniforms(key, start, end, B // div, device)
         rows = []
         for b in range(start, end):
@@ -839,6 +851,7 @@ def trace_rays(scene: CompiledScene, params, origin, direction, key,
     return radiance.reshape(batch_shape + (3,))
 
 
+@profiling.spanned("emission", backward="emission_bwd")
 def _emission(scene, params, saved, skysel):
     """Radiance each phase banks per lane, from its (nb, Bp) bounce records
     ``saved[pi] = (pos, thr, mid, live, orig)`` (``trace.py:1098-1227``):

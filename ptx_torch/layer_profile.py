@@ -13,15 +13,19 @@ does (128-row
 bands of 65,536 rays, one sample per chunk): one warm-up band, then
 ``--chunks`` chunks of rows 128-255 three times without the profiler
 (the best wall is kept), then the same chunks once under
-``torch.profiler`` with one ``record_function`` range per layer.  The
-Chrome trace goes to ``--out`` and is parsed here (:func:`summarize`):
+``torch.profiler``, where the port records its spans
+(:mod:`ptx_torch.utils.profiling`: one ``record_function`` range a span
+on the profiler's clock, and in memory each span's host time,
+synchronises and collector time).  The Chrome trace goes to ``--out``,
+the recorder's :func:`~ptx_torch.utils.profiling.snapshot` beside it as
+``<trace>.spans.json``; the trace is parsed here (:func:`summarize`):
 
 - kernels: trace events of category ``kernel``, one per launch;
 - device busy: the union of kernel, memcpy and memset intervals; the
   idle share is ``1 − busy / unprofiled wall``;
-- per layer: the kernels whose launch call (matched by correlation id)
-  lies inside the layer's host range, their device time, and the
-  range's share of the profiled host wall;
+- per span: the kernels whose launch call (matched by correlation id)
+  lies inside the span's host range and in none of its child spans,
+  their device time, and the range's share of the profiled host wall;
 - K1-K9: calls and mean device time per call, over all of a kernel's
   launches: ``bounce_forward_kernel``; ``bounce_bwd_kernel`` and the
   ``reduce_partials_kernel`` launched after it; ``hist_direct_kernel`` or
@@ -33,27 +37,28 @@ Chrome trace goes to ``--out`` and is parsed here (:func:`summarize`):
   ``hist_atomic_kernel``; ``sweep_select_kernel`` or
   ``sweep_sort_select_kernel`` (the union sweep's ``kernel`` mode:
   ``PTX_SWEEP_MODE=kernel PTX_MEGAB=0`` with ``--large``);
-- the ``TOP`` kernels by total device time, with their calls;
+- the ``TOP`` kernels by total device time, with their calls, and the
+  ``TOP`` longest device idle gaps, each named by the innermost span open
+  on the host at its midpoint (:func:`idle_gaps`);
 - peak device memory (``max_memory_allocated``) over the unprofiled runs.
 
 ``--train`` profiles ``--chunks`` ``make_train_step`` steps instead of
 render chunks: each one 4,194,304-ray wavefront (512², spp 16, depth 16)
-forward and backward, against a target rendered before the timing, with
-the backward ranges of ``--grad``; ``--spp`` sets the step's samples per
+forward and backward, against a target rendered before the timing;
+``--spp`` sets the step's samples per
 pixel (``--spp 4``: the 1,048,576-ray step of chip_smoke.py's path E, whose
 sweep holds (rows, B) tensors per bounce).
 
 ``--grad`` runs each chunk forward and backward (``radiance.mean()``,
-then ``backward()``) and adds one range per backward layer: K2's or K6's
-scene vector, packed once per ``trace_rays`` call (``replay_pack``), and its
-VJP to the params (``replay_pack_bwd``), the replay backward (``bounce_bwd``:
-K2 or K6), the compaction
-transpose (``compaction_bwd``), the emission backward (``emission_bwd``)
-and the sky image's histogram (``sky_hist``: K3).  The backward runs in
-autograd's engine, so those ranges open and close in hooks on the
-autograd nodes each forward layer created (:func:`_backward_ranges`).
+then ``backward()``), so the backward's spans appear: the VJP of K2's or
+K6's scene vector (``replay_pack_bwd``; the vector is packed once per
+``trace_rays`` call, ``replay_pack``), the replay backward
+(``bounce_bwd``: K2 or K6), the compaction transpose
+(``compaction_bwd``), the emission backward (``emission_bwd``) and the
+sky image's histogram (``sky_hist``: K3).
 
-It prints the card's name and power limit, the figures, and last a JSON
+It prints the card's name and power limit, the figures, per span its
+host self ms, device ms, synchronises and collector ms, and last a JSON
 object with the same numbers.
 """
 
@@ -61,29 +66,14 @@ from __future__ import annotations
 
 import argparse
 import bisect
-import contextlib
-import functools
 import json
 import os
 import subprocess
 import sys
 import time
 
-LAYERS = (                      # (range name, module, function)
-    ("camera", "ptx_torch.integrate.render", "sample_rays"),
-    ("rng_draws", "ptx_torch.integrate.trace", "_phase_uniforms"),
-    ("replay_pack", "ptx_torch.integrate.trace", "_replay_pack"),
-    ("bounce", "ptx_torch.integrate.trace", "_bounce"),
-    ("compaction", "ptx_torch.integrate.trace", "_compact_wavefront"),
-    ("emission", "ptx_torch.integrate.trace", "_emission"),
-)
-GRAD_LAYERS = (                 # (range name, module, function, its backward range)
-    ("replay_pack", "ptx_torch.integrate.trace", "_replay_pack", "replay_pack_bwd"),
-    ("bounce", "ptx_torch.integrate.trace", "_bounce", "bounce_bwd"),
-    ("compaction", "ptx_torch.integrate.trace", "_compact_wavefront", "compaction_bwd"),
-    ("emission", "ptx_torch.integrate.trace", "_emission", "emission_bwd"),
-)
-SKY_HIST = "sky_hist"           # the image gather's backward node, inside emission
+from ptx_torch.utils import profiling
+
 # per kernel: the names of the launch that starts a call (one per call),
 # and of the launch that follows it in the same call, if any
 KERNELS = {"k1": (("bounce_forward_kernel",), None),
@@ -97,7 +87,7 @@ KERNELS = {"k1": (("bounce_forward_kernel",), None),
            "k8": (("hist_atomic_kernel",), None),
            "k9": (("sweep_select_kernel", "sweep_sort_select_kernel"), None)}
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-TOP = 8                         # kernels listed by total device time
+TOP = 8                         # kernels listed by total device time, and idle gaps
 
 
 def large_world(name):
@@ -124,23 +114,45 @@ def _union_us(intervals):
     return total
 
 
-def summarize(events, layers=tuple(n for n, _, _ in LAYERS)):
-    """Derive the layer figures from a Chrome trace's ``traceEvents``.
+def _innermost(events, layers):
+    """The ``layers`` ranges of a trace, sorted by start (the longer
+    first), and a function from a host time to the innermost of them open
+    at it (its index, or -1)."""
+    ranges = sorted(((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                     if e.get("cat") == "user_annotation" and e["name"] in layers),
+                    key=lambda r: (r[0], -r[1]))
+    starts = [r[0] for r in ranges]
+    parent, open_ = [], []      # each range's innermost enclosing range
+    for a, b, _ in ranges:
+        while open_ and ranges[open_[-1]][1] < b:
+            open_.pop()
+        parent.append(open_[-1] if open_ else -1)
+        open_.append(len(parent) - 1)
+
+    def at(ts):
+        i = bisect.bisect_right(starts, ts) - 1
+        while i >= 0 and ranges[i][1] < ts:
+            i = parent[i]
+        return i
+    return ranges, at
+
+
+def summarize(events, layers=profiling.SPANS):
+    """Derive the span figures from a Chrome trace's ``traceEvents``.
 
     Returns a dict: ``kernels`` (launches), ``busy_ms`` (device),
     ``host_ms`` (profiled host wall, first to last host event),
     ``k1_calls``, ``k1_mean_us`` (device time per call; also for k2-k9
     and ``k7_bwd``;
     ``k2_second_us``, ``k6_second_us``: the second launch's share)
-    and ``layers``: per layer
-    ``kernels``, ``device_ms`` and ``host_share``."""
+    and ``layers``: per span name ``kernels`` and ``device_ms`` (of the
+    launches it is the innermost of ``layers`` open at) and
+    ``host_share``."""
     kernels = [e for e in events if e.get("cat") == "kernel"]
     device = [e for e in events if e.get("cat") in _DEVICE_CATS]
     launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
                  if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
-    ranges = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                    if e.get("cat") == "user_annotation" and e["name"] in layers)
-    starts = [r[0] for r in ranges]
+    ranges, at = _innermost(events, layers)
     host = [e for e in events if e.get("cat") in ("cpu_op", "cuda_runtime",
                                                   "user_annotation")]
     host_us = (max(e["ts"] + e["dur"] for e in host) - min(e["ts"] for e in host)
@@ -151,8 +163,8 @@ def summarize(events, layers=tuple(n for n, _, _ in LAYERS)):
         per[name]["host_share"] += (b - a) / host_us
     for k in kernels:
         ts = launch_ts.get(k["args"].get("correlation"))
-        i = bisect.bisect_right(starts, ts) - 1 if ts is not None else -1
-        if i >= 0 and ts <= ranges[i][1]:
+        i = at(ts) if ts is not None else -1
+        if i >= 0:
             per[ranges[i][2]]["kernels"] += 1
             per[ranges[i][2]]["device_ms"] += k["dur"] / 1e3
     out = {"kernels": len(kernels),
@@ -181,96 +193,25 @@ def summarize(events, layers=tuple(n for n, _, _ in LAYERS)):
     return out
 
 
-@contextlib.contextmanager
-def _layer_ranges():
-    """Wrap each layer's function in a ``record_function`` range of its
-    name for the duration of the block."""
-    import importlib
-
-    from torch.profiler import record_function
-
-    saved = []
-    for label, mod_name, fn_name in LAYERS:
-        mod = importlib.import_module(mod_name)
-        fn = getattr(mod, fn_name)
-
-        def ranged(*a, _fn=fn, _label=label, **k):
-            with record_function(_label):
-                return _fn(*a, **k)
-        saved.append((mod, fn_name, fn))
-        setattr(mod, fn_name, functools.wraps(fn)(ranged))
-    try:
-        yield
-    finally:
-        for mod, fn_name, fn in saved:
-            setattr(mod, fn_name, fn)
-
-
-def _sequence_nr():
-    """The autograd node counter's current value (a throwaway node's)."""
-    import torch
-
-    return (torch.zeros((), requires_grad=True) * 1.0).grad_fn._sequence_nr()
-
-
-@contextlib.contextmanager
-def _backward_ranges():
-    """While active, each GRAD_LAYERS function tags the autograd nodes its
-    call creates, so that their backward runs inside a range named after
-    the layer (the image gather's node, inside emission, gets
-    ``SKY_HIST``)."""
-    import importlib
-
-    import torch
-    from torch.profiler import record_function
-
-    open_ranges = {}
-
-    def tag(node, label):
-        def pre(_grads):
-            rf = record_function(label)
-            rf.__enter__()
-            open_ranges[node] = rf
-
-        def post(_gin, _gout):
-            open_ranges.pop(node).__exit__(None, None, None)
-
-        node.register_prehook(pre)
-        node.register_hook(post)
-
-    def tag_between(outputs, lo, hi, label):
-        stack = [t.grad_fn for t in outputs
-                 if isinstance(t, torch.Tensor) and t.grad_fn is not None]
-        seen = set()
-        while stack:
-            node = stack.pop()
-            if node is None or node in seen or not lo < node._sequence_nr() < hi:
-                continue
-            seen.add(node)
-            tag(node, SKY_HIST if "ImageGather" in type(node).__name__ else label)
-            stack += [n for n, _ in node.next_functions]
-
-    saved = []
-    for _, mod_name, fn_name, label in GRAD_LAYERS:
-        mod = importlib.import_module(mod_name)
-        fn = getattr(mod, fn_name)
-
-        def tagged(*a, _fn=fn, _label=label, **k):
-            lo = _sequence_nr()
-            out = _fn(*a, **k)
-            flat = []
-            for x in (out if isinstance(out, tuple) else (out,)):
-                flat += list(x) if isinstance(x, (tuple, list)) else (
-                    list(x.values()) if isinstance(x, dict) else [x])
-            tag_between(flat, lo, _sequence_nr(), _label)
-            return out
-        saved.append((mod, fn_name, fn))
-        setattr(mod, fn_name, functools.wraps(fn)(tagged))
-    try:
-        yield
-    finally:
-        for mod, fn_name, fn in saved:
-            setattr(mod, fn_name, fn)
+def idle_gaps(events, layers=profiling.SPANS, top=TOP):
+    """The ``top`` longest gaps between device work (kernel, memcpy and
+    memset intervals), longest first, as ``[span, ms]``: the innermost of
+    ``layers`` open on the host at the gap's midpoint, or
+    ``outside_spans``."""
+    busy = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                  if e.get("cat") in _DEVICE_CATS)
+    merged = []
+    for a, b in busy:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    ranges, at = _innermost(events, layers)
+    gaps = []
+    for (_, b), (a, _) in zip(merged, merged[1:]):
+        i = at((a + b) / 2)
+        gaps.append([ranges[i][2] if i >= 0 else "outside_spans", (a - b) / 1e3])
+    return sorted(gaps, key=lambda g: -g[1])[:top]
 
 
 def main(argv=None):
@@ -281,7 +222,6 @@ def main(argv=None):
     from ptx_torch.integrate.camera import Camera
     from ptx_torch.integrate.trace import compile_scene
     from ptx_torch.scenes import builders
-    from ptx_torch.utils import profiling
 
     ap = argparse.ArgumentParser(prog="python -m ptx_torch.layer_profile")
     ap.add_argument("--chunks", type=int, default=4)
@@ -370,14 +310,16 @@ def main(argv=None):
                         f"{'_sky' + args.sky if args.sky else ''}"
                         f"{'_train' if args.train else '_grad' if args.grad else ''}"
                         f"{f'_spp{args.spp}' if args.spp != 16 else ''}.json")
-    grad_ranges = _backward_ranges() if args.grad else contextlib.nullcontext()
-    with _layer_ranges(), grad_ranges, profiling.trace(path, cuda):
+    profiling.reset()
+    with profiling.trace(path, cuda):
         run(rows, args.chunks)
-    names = [n for n, _, _ in LAYERS]
-    if args.grad:
-        names += [g for *_, g in GRAD_LAYERS] + [SKY_HIST]
+    spans = profiling.snapshot()
+    with open(path[:-len(".json")] + ".spans.json", "w") as f:
+        json.dump(spans, f, indent=1)
     with open(path) as f:
-        s = summarize(json.load(f)["traceEvents"], tuple(names))
+        events = json.load(f)["traceEvents"]
+    s = summarize(events)
+    s.update(gaps=idle_gaps(events), spans=spans)
 
     wall_ms = min(walls) * 1e3
     s.update(scene=name, sky=args.sky, chunks=args.chunks, train=args.train,
@@ -402,10 +344,18 @@ def main(argv=None):
               f"{s[f'{tag}_mean_us']:.2f} us per call{second}")
     for t in s["top"]:
         print(f"top kernel: {t['device_ms']:9.3f} ms in {t['calls']:6d} calls  {t['name']}")
-    print("layer            kernels  device_ms  share of profiled host wall")
+    print("span             calls  host_self_ms  kernels  device_ms  syncs  gc_ms  "
+          "share of profiled host wall")
     for name, v in s["layers"].items():
-        print(f"{name:<16} {v['kernels']:>7}  {v['device_ms']:>9.3f}  "
+        r = spans["spans"].get(name, {"calls": 0, "self_ms": 0.0, "syncs": 0, "gc_ms": 0.0})
+        print(f"{name:<16} {r['calls']:>5}  {r['self_ms']:>12.3f}  {v['kernels']:>7}  "
+              f"{v['device_ms']:>9.3f}  {r['syncs']:>5}  {r['gc_ms']:>5.2f}  "
               f"{v['host_share']:.4f}")
+    print(f"outside every span: syncs {spans['outside']['syncs']}, gc "
+          f"{spans['outside']['gc_ms']:.2f} ms; counters {spans['counters']}"
+          f"{'' if spans['cuda'] else ' (no CUDA: synchronises not counted)'}")
+    for span, ms in s["gaps"]:
+        print(f"idle gap: {ms:8.3f} ms in {span}")
     print(f"trace: {path}")
     print(json.dumps(s))
     return 0

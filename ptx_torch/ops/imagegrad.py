@@ -39,6 +39,7 @@ import torch
 
 from ptx_torch.ops import _build
 from ptx_torch.ops.bounce_kernel import _check_inputs, _ptr, _raise_on, _stream
+from ptx_torch.utils import profiling
 
 LAUNCHES = 0
 REFERENCE_CALLS = 0
@@ -197,6 +198,8 @@ class _ImageGather(torch.autograd.Function):
         ctx.save_for_backward(xi, yi, inb)
         ctx.shape = tuple(img.shape)
         return torch.where(inb[..., None], img[yi, xi], 0.0)
+
+    backward_span = "sky_hist"     # the span of its backward (profiling.spanned)
 
     @staticmethod
     def backward(ctx, ct):

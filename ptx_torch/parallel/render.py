@@ -36,6 +36,7 @@ from ptx_torch.integrate.camera import Camera, sample_rays
 from ptx_torch.integrate.trace import CompiledScene, trace_rays
 from ptx_torch.parallel.mesh import (SAMPLE_AXIS, TILE_AXIS, LocalMesh, coordinate,
                                      image_rows, mesh_device, mesh_shape)
+from ptx_torch.utils import profiling
 
 
 def _local_render(scene: CompiledScene, cam: Camera, depth: int, spp_local: int,
@@ -158,27 +159,31 @@ def make_train_step(scene: CompiledScene, cam: Camera, mesh=None, spp: int = 16,
     ``trace_rays`` (``remat`` acts only under ``manual_vjp=False``)."""
     mesh = LocalMesh(scene.device) if mesh is None else mesh
 
+    @profiling.spanned("train_step")
     def step(params, target, key):
         t, s, y0, rows, spp_local = _split(scene, cam, mesh, spp)
         leaves = _leaves(params)
         xs = [x.detach().requires_grad_(True) for _, _, x in leaves]
-        band = _local_render(scene, cam, depth, spp_local, _rebuild(params, leaves, xs),
-                             key, y0, rows, t, s, remat=remat, compact=compact,
-                             manual_vjp=manual_vjp)
+        with profiling.span("forward"):
+            band = _local_render(scene, cam, depth, spp_local,
+                                 _rebuild(params, leaves, xs), key, y0, rows, t, s,
+                                 remat=remat, compact=compact, manual_vjp=manual_vjp)
         # the loss sees the sample group's mean band; its cotangent goes to
         # this rank's band as it is (JAX transposes the pmean so), and the
         # sample-group mean of the gradients below divides it back
         img = _mean(band.detach().clone(), mesh, SAMPLE_AXIS).requires_grad_(True)
         loss = torch.mean((img - target[y0:y0 + rows]) ** 2)
         (ct,) = torch.autograd.grad(loss, img)
-        grads = torch.autograd.grad(band, xs, ct, allow_unused=True)
-        flat = torch.cat([(torch.zeros_like(x) if g is None else g).reshape(-1)
-                          for x, g in zip(xs, grads)])
-        flat = _mean(_mean(flat, mesh, TILE_AXIS), mesh, SAMPLE_AXIS)
-        loss = _mean(_mean(loss.detach().clone(), mesh, TILE_AXIS), mesh, SAMPLE_AXIS)
-        with torch.no_grad():
-            gs = flat.split([x.numel() for x in xs])
-            new = [x.detach() - learning_rate * g.view_as(x) for x, g in zip(xs, gs)]
-        return _rebuild(params, leaves, new), loss
+        with profiling.span("backward"):
+            grads = torch.autograd.grad(band, xs, ct, allow_unused=True)
+        with profiling.span("update"):
+            flat = torch.cat([(torch.zeros_like(x) if g is None else g).reshape(-1)
+                              for x, g in zip(xs, grads)])
+            flat = _mean(_mean(flat, mesh, TILE_AXIS), mesh, SAMPLE_AXIS)
+            loss = _mean(_mean(loss.detach().clone(), mesh, TILE_AXIS), mesh, SAMPLE_AXIS)
+            with torch.no_grad():
+                gs = flat.split([x.numel() for x in xs])
+                new = [x.detach() - learning_rate * g.view_as(x) for x, g in zip(xs, gs)]
+            return _rebuild(params, leaves, new), loss
 
     return step

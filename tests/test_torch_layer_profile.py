@@ -50,9 +50,9 @@ def test_summarize_backward_ranges_and_kernels():
     """The --grad mode's ranges (opened in autograd hooks) attribute the
     backward's launches (the packing's VJP among them), and K2 / K3 are
     counted by name: a K2 call is its two launches."""
-    from ptx_torch.layer_profile import GRAD_LAYERS, SKY_HIST
+    from ptx_torch.utils.profiling import BACKWARD_SPANS
 
-    names = tuple(g for *_, g in GRAD_LAYERS) + (SKY_HIST,)
+    names = BACKWARD_SPANS
     assert names == ("replay_pack_bwd", "bounce_bwd", "compaction_bwd", "emission_bwd",
                      "sky_hist")
     events = [
@@ -87,15 +87,15 @@ def test_summarize_backward_ranges_and_kernels():
 
 
 def test_backward_ranges_tag_the_layers_nodes():
-    """On the CPU: a forward + backward under the --grad hooks opens each
-    backward range, and removes its wrappers afterwards."""
+    """On the CPU: a forward + backward under the profiler opens each of
+    the port's backward spans, and the port's functions stay as they
+    are (nothing is patched)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from ptx_torch.core import rng
     from ptx_torch.integrate import trace
     from ptx_torch.integrate.camera import Camera, sample_rays
-    from ptx_torch.layer_profile import _backward_ranges
     from ptx_torch.scenes.builders import make_world
 
     torch.set_num_threads(1)
@@ -105,7 +105,7 @@ def test_backward_ranges_tag_the_layers_nodes():
     params = {k: ([x.clone().requires_grad_(True) for x in v] if isinstance(v, list)
                   else v.clone().requires_grad_(True)) for k, v in scene.params.items()}
     before = trace._bounce
-    with _backward_ranges(), profile(activities=[ProfilerActivity.CPU]) as prof:
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
         trace.trace_rays(scene, params, o, d, rng.PRNGKey(0), 3, compact=False).mean().backward()
     assert trace._bounce is before
     names = {e.name for e in prof.events()}
