@@ -318,6 +318,19 @@ I3. K10 at R 16 (the wrapper, twice, and its plain version: 768 launches an
     ``-fmad=false``; the published 67e12 counts an FFMA as two), K11's
     bytes at 3.35 TB/s.
 
+Path J, the rng kernel (``rng.uniform_many`` on the card, ``csrc/rng_kernel.cu``;
+it replaces no TPU kernel), run after phase 10:
+J1. the draws of a demo train step's phase 0, 2 keys × 4,194,304
+    ``u_coin`` and 2 × 12,582,912 ``u3``: equal to the plain int64 route
+    (``rng.uniform_many_reference``) on the card bit for bit, one launch
+    each; the wrapper, the plain route and the wrapper again between CUDA
+    events, the wrapper also queued behind a device sleep, beside the bound
+    (integer operations, 128 dispatched a clock an SM);
+J2. two demo train steps under a CPU-only profiler capture: 9 launches a
+    step (6 phase draws, the camera's jitter, 2 compaction offsets) by
+    ``LAUNCHES`` and by the recorder's ``rng_kernel_launches``; no plain
+    draw on the device (``threefry2x32`` never given a tensor).
+
 Then:
 9. a forward + backward chunk at the bench's shape (128 rows × 512, spp 1,
    depth 16, ``loss = radiance.mean()``): rays/s over the median of 10
@@ -348,10 +361,11 @@ Then:
     least time the card could take (``bound_ms``) from this run's inputs;
 11. the summary line (with path F's rays/s and K1 launches, the largest
     K3 / K8 ratio, path G's seconds and all-reduce times, path H's step
-    seconds and peak memory and path I's ceilings), then the JSON lines: the
-    eleven kernels (launches from the paths' train steps: the demo's for
-    K1-K3, config 4's for K4, S1's for K5 and K6, C2's for K7, the probe's
-    for K8, E3's S1 for K9; I2's for K10 and K11; K1's ``max_abs_err``
+    seconds and peak memory, path I's ceilings and path J's times), then the
+    JSON lines: the eleven kernels and the rng kernel (launches from the
+    paths' train steps: the demo's for K1-K3, config 4's for K4, S1's for K5
+    and K6, C2's for K7, the probe's for K8, E3's S1 for K9; I2's for K10
+    and K11; J2's a step for the rng kernel; K1's ``max_abs_err``
     includes path F's; K7's entry carries its backward's figures under
     ``backward``; K10's its bound's rate under ``bound_note``), then the
     device.
@@ -4396,6 +4410,125 @@ def run_path_i(dev):
     return errs, i2, timing
 
 
+# ---------------------------------------------------------------------------
+# path J: the rng kernel (rng.uniform_many on the card)
+# ---------------------------------------------------------------------------
+
+J_KEY = 18                      # path J's base key: PRNGKey(18)
+# the rng kernel's ceiling: 76 int32 operations a uniform (20 rounds of add,
+# rotate and xor, 10 key adds, the counter, the mantissa), at most 128
+# dispatched a clock an SM (four schedulers, a 32-lane instruction each)
+RNG_OPS_PER_UNIFORM = 76
+INT32_OPS_PER_S = 128 * 132 * 1.98e9
+
+
+def bound_rng(uniforms):
+    """The rng kernel on ``uniforms`` draws: their integer operations or
+    their 4-byte outputs written at the HBM rate, the larger."""
+    t_o = uniforms * RNG_OPS_PER_UNIFORM / INT32_OPS_PER_S * 1e3
+    t_b = 4 * uniforms / HBM_BPS * 1e3
+    return (t_o, "operations") if t_o >= t_b else (t_b, "bytes")
+
+
+def phase_j1_rng_kernel(dev):
+    """The rng kernel at a demo train step's phase-0 draws (2 keys ×
+    4,194,304 ``u_coin``, 2 × 12,582,912 ``u3``): equal to the plain int64
+    route on the card bit for bit, one launch each; the kernel, the plain
+    route (the median of 5) and the kernel again, each the median of 20
+    single calls between CUDA events, the kernel also queued behind a device
+    sleep (the card's time), beside its bound."""
+    import math
+
+    import torch
+    from ptx_torch.core import rng
+    from ptx_torch.ops import rng_kernel as rk
+
+    kbs = [rng.fold(rng.PRNGKey(J_KEY), b) for b in range(2)]
+    B = W * H * SPP
+    out = {}
+    for name, d, shape in (("u_coin", 1, (B,)), ("u3", 2, (B, 3))):
+        keys = [rng.fold(k, d) for k in kbs]
+        launches = rk.LAUNCHES
+        got = rng.uniform_many(keys, shape, dev)
+        torch.cuda.synchronize()
+        if rk.LAUNCHES != launches + 1:
+            raise AssertionError(f"J1 {name}: {rk.LAUNCHES - launches} launches, expected 1")
+        want = rng.uniform_many_reference(keys, shape, dev)
+        diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        if diff:
+            raise AssertionError(f"J1 {name}: the kernel differs from the int64 route on "
+                                 f"{diff} of {got.numel()} draws")
+        del got, want
+        kern = lambda: rng.uniform_many(keys, shape, dev)
+        k1 = _time_ms(kern)
+        p = _time_ms(lambda: rng.uniform_many_reference(keys, shape, dev), reps=5, warmup=1)
+        k2 = _time_ms(kern)
+        q = _time_queued_ms(kern)
+        n = len(keys) * math.prod(shape)
+        bound = bound_rng(n)
+        out[name] = {"uniforms": n, "ms": min(k1, k2), "plain_ms": p, "queued_ms": q,
+                     "bound": bound}
+        log(f"[J1 rng kernel] {name}: {len(keys)} keys x {shape} ({n:,} uniforms) equal to "
+            f"the int64 route bit for bit, one launch; the wrapper {k1:.4f} / {k2:.4f} ms, "
+            f"queued {q:.4f} ms, plain {p:.4f} ms; bound {bound[0]:.4g} ms ({bound[1]}), the "
+            f"queued kernel at {bound[0] / q:.4f} of it")
+    return out
+
+
+def phase_j2_rng_step(scene):
+    """Two demo train steps (512², spp 16, depth 16) under a CPU-only
+    profiler capture (the recorder on; no device trace, which later
+    phases' one-call traces must not follow): the rng kernel 9 launches a
+    step (6 phase draws, the camera's jitter, 2 compaction offsets) by
+    ``LAUNCHES`` and by the recorder's ``rng_kernel_launches``; no plain
+    draw on the device (``threefry2x32`` never given a tensor)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from ptx_torch.core import rng
+    from ptx_torch.integrate.camera import Camera
+    from ptx_torch.ops import rng_kernel as rk
+    from ptx_torch.parallel.render import make_train_step
+    from ptx_torch.utils import profiling
+
+    step = make_train_step(scene, Camera.reference_demo(W, H), spp=SPP, depth=DEPTH,
+                           learning_rate=LR)
+    target = torch.zeros((H, W, 3), device=scene.device)
+    step(scene.params, target, rng.PRNGKey(J_KEY))
+    torch.cuda.synchronize()
+    tensor_calls = []
+    threefry = rng.threefry2x32
+
+    def spy(*args):
+        if any(isinstance(a, torch.Tensor) for a in args):
+            tensor_calls.append(args)
+        return threefry(*args)
+
+    steps = 2
+    profiling.reset()
+    launches = rk.LAUNCHES
+    with _swapped(rng, "threefry2x32", spy), profile(activities=[ProfilerActivity.CPU]):
+        for i in range(steps):
+            step(scene.params, target, rng.fold(rng.PRNGKey(J_KEY), i + 1))
+        torch.cuda.synchronize()
+    counted = profiling.snapshot()["counters"].get("rng_kernel_launches", 0)
+    profiling.reset()
+    got = {"LAUNCHES": rk.LAUNCHES - launches, "rng_kernel_launches": counted}
+    if got != dict.fromkeys(got, 9 * steps) or tensor_calls:
+        raise AssertionError(f"J2: rng kernel launches over {steps} steps {got}, expected "
+                             f"{9 * steps} each; plain device draws {len(tensor_calls)}")
+    log(f"[J2 rng step] {steps} demo train steps: rng kernel launches {got} (9 a step), no "
+        f"plain device draw")
+    return {"launches_per_step": 9}
+
+
+def run_path_j(scene, dev):
+    """Path J: the rng kernel against the int64 route at a step's widest
+    draws, timed; its launches over demo train steps."""
+    j1 = _timed("J1 rng kernel", phase_j1_rng_kernel, dev)
+    j2 = _timed("J2 rng step", phase_j2_rng_step, scene)
+    return j1, j2
+
+
 def _timed(label, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -4529,6 +4662,11 @@ def main():
                     "mirror-ball train": (pm, *k7_mirror_in)})
     del k7_fwd_in, k7_bwd_in, k7_train_in, k7_mirror_in, pm
     prof7 = _timed("10 K7 step profile", phase_k7_step_profile)
+
+    # path J: the rng kernel (rng.uniform_many on the card), after every
+    # phase that counts kernels in a device trace: those one-call traces
+    # lost their kernel three times in three when path J ran before phase 9
+    j1, j2 = run_path_j(scene, dev)
     k7_t = time7["chunk"]
     k1_bound = bound_k1(inputs[0].shape[0], scene.bounce_fn.layout[0])
     log(f"summary: build {build_s:.2f} s; flips {flips3} (primary bounces) + "
@@ -4587,7 +4725,11 @@ def main():
         + f"; H3 K4 gradient |diff| / max|g| {max(h3.values()):.3g}; path I: K10 "
         f"{i2['lines'][0]['fp32_tops_per_s']:.4f} T op/s, K11 "
         f"{i2['lines'][2]['hbm_gb_per_s']:.1f} GB/s, K4 at "
-        f"{i2['lines'][4]['share_of_fp32_chain']:.4f} of K10's rate; total "
+        f"{i2['lines'][4]['share_of_fp32_chain']:.4f} of K10's rate; path J: rng kernel "
+        f"{j1['u3']['ms']:.4f} ms (queued {j1['u3']['queued_ms']:.4f}) vs plain "
+        f"{j1['u3']['plain_ms']:.4f} ms at {j1['u3']['uniforms']:,} uniforms (bound "
+        f"{j1['u3']['bound'][0]:.4g} ms), {j2['launches_per_step']} launches a demo step; "
+        f"total "
         f"{time.perf_counter() - t_start:.1f} s; {smi}")
     entry = lambda name_, source, replaces, launches, err, ms, plain, bound, lib: {
         "name": name_, "route": "cuda", "source": source, "replaces": replaces,
@@ -4639,6 +4781,10 @@ def main():
         entry("copy_plus_one (K11: o = x + 1 over 128 MiB, the HBM ceiling)",
               "ptx_torch/csrc/roofline_kernel.cu", "tools/roofline.py:109",
               i2["counts"]["K11"], err_i["K11"], *time_i["K11"]),
+        entry("uniform_many (the rng kernel: threefry2x32 uniforms of up to 64 keys, at "
+              "2 x 12,582,912; launches a demo step)", "ptx_torch/csrc/rng_kernel.cu", None,
+              j2["launches_per_step"], 0.0, j1["u3"]["ms"], j1["u3"]["plain_ms"],
+              j1["u3"]["bound"], None),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -21,7 +21,10 @@ jax 0.9.0 with ``jax_threefry_partitionable=True`` (``jax/_src/prng.py``):
 Keys are tiny host values (Python ints), so folding costs no device
 launches; draws run on the device the caller names.  uint32 arithmetic
 is written on int64 tensors (or Python ints) masked with ``0xFFFFFFFF``:
-the same code serves both.
+the same code serves both.  On a CUDA device :func:`uniform_many`, and so
+every draw of a shape, is the rng kernel (:mod:`ptx_torch.ops.rng_kernel`:
+one launch, the keys in its arguments); the int64 route is its plain
+version and runs on the CPU.
 
 :class:`ReferenceLCG` and :func:`lcg_stream` are the reference's own
 generator (path-trace.h:21-54), for single-threaded parity tests of
@@ -36,6 +39,8 @@ import math
 
 import numpy as np
 import torch
+
+from ptx_torch.ops import rng_kernel
 
 _M = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -133,7 +138,17 @@ def sample_square(key, shape, device) -> torch.Tensor:
 
 def uniform_many(keys, shape, device) -> torch.Tensor:
     """``stack([uniform(k, shape) for k in keys])`` in one batched hash —
-    the port of ``trace_rays``'s vmapped per-phase draws."""
+    the port of ``trace_rays``'s vmapped per-phase draws.  On a CUDA
+    device the rng kernel; on the CPU the int64 hash, its plain version."""
+    device = torch.device(device)
+    if device.type != "cpu":
+        return rng_kernel.uniform_many(keys, shape, device)
+    return uniform_many_reference(keys, shape, device)
+
+
+def uniform_many_reference(keys, shape, device) -> torch.Tensor:
+    """The rng kernel's plain version: :func:`uniform_many`'s hash on int64
+    tensors on ``device`` (some 180 launches on a card)."""
     shape = tuple(shape)
     n = math.prod(shape)
     k = torch.tensor(keys, dtype=torch.int64, device=device).reshape(-1, 2)

@@ -88,6 +88,7 @@ def _entry_points():
          + [vp] * 5 + [vp], i),           # t_star entering m_start m_end found, stream
         ("ptx_fma_chain", [vp, vp, i, i, ctypes.c_float, i, vp], i),   # x o n reps c block stream
         ("ptx_copy_plus_one", [vp, vp, ctypes.c_int64, i, vp], i),    # x o n block stream
+        ("ptx_uniform_many", [vp, i, ctypes.c_int64, vp, i, vp], i),  # keys nkeys n out block stream
         ("ptx_cuda_error_name", [i], ctypes.c_char_p),
     ]
 

@@ -4,8 +4,8 @@ and train step, bit for bit): K1
 (bounce), K2 (replay backward), K3 and K8 (image-gather transposes), K4
 (first hit), K5 (megasweep: hit and bounce modes, 16- and 32-column
 tables), K6 (row-fed replay backward), K7 (emission), K9 (sweep
-select, with and without its in-kernel sort), and the roofline's K10 (the
-float32 chain) and K11 (the copy).
+select, with and without its in-kernel sort), the roofline's K10 (the
+float32 chain) and K11 (the copy), and the rng kernel (``rng.uniform_many``).
 
 This file imports no jax, so it runs on a machine with a card and no jax:
 
@@ -39,7 +39,9 @@ mode's route (the sort inside K9) as through the ``torch.sort`` route.
 K4 writes the dense hit's dict itself: ``mat_id``, ``hit``, ``entering``
 and ``_evt`` must equal the plain dict's, in its dtypes.  K10 and K11 run
 their plain versions' float32 operations in the same order, each rounded
-on its own: they must equal them bit for bit.
+on its own: they must equal them bit for bit.  The rng kernel hashes
+integers as the int64 route does: its draws must equal the route's bit for
+bit, with no synchronise and one launch per 64 keys.
 """
 
 import sys
@@ -1023,3 +1025,88 @@ def test_roofline_wrappers_raise(roofline_card, monkeypatch):
     assert (rk.FMA_LAUNCHES, rk.COPY_LAUNCHES) == launches
     torch.cuda.synchronize()
     assert torch.equal(rk.copy_plus_one(x), x + 1)
+
+
+@pytest.fixture
+def rng_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the rng kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+# keys with words at and past 2**31 beside folded ones
+_HIGH_KEYS = [(0xFFFFFFFF, 0x80000000), (0x80000000, 0), (0, 0xFFFFFFFF),
+              (0x9E3779B9, 0xDEADBEEF)]
+
+
+def _rng_keys(n, high=False):
+    if high:
+        return [_HIGH_KEYS[q % len(_HIGH_KEYS)] for q in range(n)]
+    return [rng.fold(rng.PRNGKey(18), q) for q in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nkeys,shape,high", [
+    (2, (4194304,), False), (4, (1398101, 3), False), (11, (262144, 3), False),  # a demo step's phases
+    (1, (), False), (3, (1,), False), (2, (3,), False), (5, (65537,), False),
+    (4, (1000, 3), True), (130, (7, 3), False)])
+def test_rng_kernel_matches_its_plain_version(rng_card, nkeys, shape, high):
+    """``uniform_many`` on the card (the kernel: one launch per 64 keys)
+    equals the int64 route bit for bit."""
+    from ptx_torch.ops import rng_kernel
+
+    keys = _rng_keys(nkeys, high)
+    launches = rng_kernel.LAUNCHES
+    got = rng.uniform_many(keys, shape, rng_card)
+    torch.cuda.synchronize()
+    assert rng_kernel.LAUNCHES == launches + -(-nkeys // rng_kernel.CAPACITY)
+    want = rng.uniform_many_reference(keys, shape, rng_card)
+    assert got.shape == want.shape == (nkeys,) + shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_rng_kernel_under_uniform_and_sample_square(rng_card):
+    """``uniform(minval=, maxval=)`` and ``sample_square`` through the kernel
+    equal their CPU draws bit for bit."""
+    key = rng.fold(rng.PRNGKey(18), 99)
+    for got, want in ((rng.uniform(key, (333, 2), rng_card, minval=-2.5, maxval=0.75),
+                       rng.uniform(key, (333, 2), "cpu", minval=-2.5, maxval=0.75)),
+                      (rng.sample_square(key, (2, 17, 19), rng_card),
+                       rng.sample_square(key, (2, 17, 19), "cpu"))):
+        assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_rng_kernel_makes_no_synchronise_and_one_launch_a_call(rng_card):
+    """Under CUDA's sync debug mode "error" a draw raises nothing (no key
+    tensor is copied), and each call of up to 64 keys is one launch."""
+    from ptx_torch.ops import rng_kernel
+
+    keys = _rng_keys(11)
+    rng.uniform_many(keys, (4096, 3), rng_card)          # built and loaded
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(3):
+            launches = rng_kernel.LAUNCHES
+            rng.uniform_many(keys, (4096, 3), rng_card)
+            rng.uniform(keys[i], (), rng_card)
+            assert rng_kernel.LAUNCHES == launches + 2
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_rng_kernel_raises_on_a_refused_launch(rng_card, monkeypatch):
+    """A launch the card refuses (blocks of 2,048 threads) raises and counts
+    nothing."""
+    from ptx_torch.ops import rng_kernel
+
+    launches = rng_kernel.LAUNCHES
+    monkeypatch.setattr(rng_kernel, "BLOCK", 2048)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        rng.uniform_many(_rng_keys(2), (100,), rng_card)
+    assert rng_kernel.LAUNCHES == launches
