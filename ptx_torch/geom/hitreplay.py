@@ -159,11 +159,14 @@ def build_hit_replay(leaves):
     sph_list = [lf.kind == "sphere" for lf, _ in leaves]
     par_list = [p for _, p in leaves]
     rows = LeafRows(leaves)
+    dev: dict = {}      # (device, dtype) -> (sph, par), copied there once
 
     def replay(params, origin, direction, evt, entering, hit):
-        device = origin.device
-        sph = torch.tensor(sph_list, device=device)
-        par = torch.tensor(par_list, dtype=origin.dtype, device=device)
+        key = (origin.device, origin.dtype)
+        if key not in dev:
+            dev[key] = (torch.tensor(sph_list, device=origin.device),
+                        torch.tensor(par_list, dtype=origin.dtype, device=origin.device))
+        sph, par = dev[key]
         t, nx, ny, nz, p = recompute_flat(
             rows(params), sph, par, *origin.unbind(-1),
             *direction.unbind(-1), evt)

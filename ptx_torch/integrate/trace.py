@@ -43,7 +43,9 @@ decision-frozen replay.  ``compile_scene`` routes as the JAX package's
 - a textured non-emissive slot (BASELINE config 4): the unfused bounce,
   :class:`UnfusedBounce` — plain-PyTorch :func:`_bounce_live` on the
   hit (K4 up to 24 leaves) — and :func:`replay_vjp`, autograd of
-  :func:`_bounce_replay` over every param the replay reads;
+  :func:`_bounce_replay` over every param the replay reads (spans
+  ``unfused_bounce``, ``replay_vjp`` ⊃ ``tex_hist``; counter
+  ``unfused_bounces``);
 - emission: the fused emission kernel K7
   (:mod:`ptx_torch.ops.emission_kernel`) when a dynamic emissive chain is
   not terminal or ``PTX_EMK=1``, else mat-sum + sky-select in plain
@@ -510,8 +512,10 @@ class UnfusedBounce:
         pack = getattr(self.scene.hit_fn, "pack", None)
         return pack(params) if pack is not None else None
 
+    @profiling.spanned("unfused_bounce")
     def __call__(self, params, o, d, thr, strength, alive, u_coin, u3, in_depth,
                  packed=None):
+        profiling.count("unfused_bounces", 1)
         scene = self.scene
         hit_fn = (scene.hit_fn if packed is None
                   else functools.partial(scene.hit_fn, packed=packed))
@@ -545,19 +549,24 @@ def _with_diff(scene, params, flat):
     return out
 
 
+@profiling.spanned("replay_vjp")
 def replay_vjp(scene, params, o, d, thr, dec, ct_o2, ct_d2, ct_thr2):
     """The unfused bounce's backward: autograd of :func:`_bounce_replay`
     over ``(o, d, thr)`` and every param of ``scene.diff_keys`` (the JAX
     package's ``jax.vjp`` of ``_bounce_replay`` over the whole params,
     ``ptx/integrate/trace.py:723-732``).  Texture gathers' transposes
-    reach K3 / K8.  Returns ``(d_o, d_d, d_thr, d_params)``, ``d_params``
-    a dict over ``scene.diff_keys`` (``images`` a list)."""
+    reach K3 / K8, in the span ``tex_hist``.  Returns ``(d_o, d_d, d_thr,
+    d_params)``, ``d_params`` a dict over ``scene.diff_keys`` (``images``
+    a list)."""
+    from ptx_torch.ops import imagegrad
+
     with torch.enable_grad():
         flat = [x.detach().requires_grad_(True) for x in _diff_inputs(scene, params)]
         xs = [x.detach().requires_grad_(True) for x in (o, d, thr)]
         outs = _bounce_replay(scene, _with_diff(scene, params, flat), *xs, dec)
-        grads = torch.autograd.grad(outs, xs + flat, (ct_o2, ct_d2, ct_thr2),
-                                    allow_unused=True)
+        with imagegrad.transposes_in("tex_hist"):
+            grads = torch.autograd.grad(outs, xs + flat, (ct_o2, ct_d2, ct_thr2),
+                                        allow_unused=True)
     d_flat = [torch.zeros_like(x) if g is None else g for x, g in zip(flat, grads[3:])]
     d_params = _with_diff(scene, params, d_flat)
     return (*grads[:3], {k: d_params[k] for k in scene.diff_keys})
@@ -883,8 +892,7 @@ def _emission(scene, params, saved, skysel):
     out = []
     for pi, (pos, thr, mid, live, _) in enumerate(saved):
         if mat_sum:
-            em_rows = params["const"][torch.as_tensor(
-                table.const_idx["emissive"], device=thr.device)]
+            em_rows = params["const"][table.const_rows("emissive", thr.device)]
             contrib = torch.zeros(thr.shape[1:], dtype=torch.float32,
                                   device=thr.device)
             for m in range(table.n_materials):

@@ -137,7 +137,7 @@ def _innermost(events, layers):
     return ranges, at
 
 
-def summarize(events, layers=profiling.SPANS):
+def summarize(events, layers=profiling.SPANS + profiling.UNFUSED_SPANS):
     """Derive the span figures from a Chrome trace's ``traceEvents``.
 
     Returns a dict: ``kernels`` (launches), ``busy_ms`` (device),
@@ -193,7 +193,7 @@ def summarize(events, layers=profiling.SPANS):
     return out
 
 
-def idle_gaps(events, layers=profiling.SPANS, top=TOP):
+def idle_gaps(events, layers=profiling.SPANS + profiling.UNFUSED_SPANS, top=TOP):
     """The ``top`` longest gaps between device work (kernel, memcpy and
     memset intervals), longest first, as ``[span, ms]``: the innermost of
     ``layers`` open on the host at the gap's midpoint, or

@@ -53,8 +53,7 @@ def material_rows(table, params):
     mean(transmit_reflect), ior``: the scalars the fused bounce kernels
     (K1, K5) shade with (``csrc/shade_lane.cuh``)."""
     const = params["const"]
-    idx = {s: torch.as_tensor(v, device=const.device)
-           for s, v in table.const_idx.items()}
+    idx = {s: table.const_rows(s, const.device) for s in table.const_idx}
     return torch.cat([const[idx["reflect"]], mean3(const[idx["scatter"]])[:, None],
                       const[idx["transmit"]],
                       mean3(const[idx["transmit_reflect"]])[:, None],
@@ -220,8 +219,7 @@ def bwd_material_rows(table, params):
     """(M, 8) per material ``reflect₃, mean(scatter), transmit₃, ior``: the
     material scalars the replay backward differentiates."""
     const = params["const"]
-    idx = {s: torch.as_tensor(table.const_idx[s], device=const.device)
-           for s in ("reflect", "scatter", "transmit")}
+    idx = {s: table.const_rows(s, const.device) for s in ("reflect", "scatter", "transmit")}
     return torch.cat([const[idx["reflect"]], mean3(const[idx["scatter"]])[:, None],
                       const[idx["transmit"]], params["ior"][:, None]], dim=1)
 

@@ -32,6 +32,7 @@ the per-bin totals stay exact where k divides neither H nor W.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 
@@ -192,6 +193,21 @@ def hist(yi, xi, inb, ct, shape):
     return k8(yi, xi, inb, ct, shape)
 
 
+_transpose_span = None          # the span the transposes run in (transposes_in)
+
+
+@contextlib.contextmanager
+def transposes_in(name):
+    """Run every gather transpose of the block in the port's span ``name``
+    (the unfused replay's surface textures: ``tex_hist``)."""
+    global _transpose_span
+    saved, _transpose_span = _transpose_span, name
+    try:
+        yield
+    finally:
+        _transpose_span = saved
+
+
 class _ImageGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, img, xi, yi, inb):
@@ -205,8 +221,10 @@ class _ImageGather(torch.autograd.Function):
     def backward(ctx, ct):
         xi, yi, inb = ctx.saved_tensors
         C = ctx.shape[-1]
-        d_img = hist(yi.reshape(-1), xi.reshape(-1), inb.reshape(-1),
-                     ct.reshape(-1, C).contiguous(), ctx.shape)
+        with (profiling.span(_transpose_span) if _transpose_span is not None
+              else contextlib.nullcontext()):
+            d_img = hist(yi.reshape(-1), xi.reshape(-1), inb.reshape(-1),
+                         ct.reshape(-1, C).contiguous(), ctx.shape)
         return d_img, None, None, None
 
 

@@ -80,7 +80,8 @@ class MaterialTable:
     Attributes the integrator and the bounce kernel read:
 
     - ``const_idx[slot]``: (M,) row of ``params["const"]`` per material
-      (the zero placeholder row for a dynamic slot);
+      (the zero placeholder row for a dynamic slot); :meth:`const_rows`
+      is the same on a device, copied there once;
     - ``dynamic_slots[slot]``: material ids whose slot is per-position;
     - ``terminal_dynamic_emissive``: ``(mi, fn)`` for dynamic emissive
       chains of *terminal* materials (reflect ≡ transmit ≡ 0), which
@@ -116,13 +117,21 @@ class MaterialTable:
             (mi, fn) for mi, fn in self._dynamic["emissive"] if mi in terminal]
         self.emissive_dynamic_specs = [(mi, fn.spec)
                                        for mi, fn in self._dynamic["emissive"]]
+        self._dev: dict = {}
+
+    def const_rows(self, slot, device) -> torch.Tensor:
+        """``const_idx[slot]`` as an int64 tensor on ``device``, built once
+        per device: a copy from the host at every call would synchronise
+        the device with it."""
+        key = (slot, torch.device(device))
+        if key not in self._dev:
+            self._dev[key] = torch.as_tensor(self.const_idx[slot], device=device)
+        return self._dev[key]
 
     def packed(self, params) -> torch.Tensor:
         """(M, 16) per-material row: the 5 constant slots then ior."""
         const = params["const"]
-        idx = {s: torch.as_tensor(v, device=const.device)
-               for s, v in self.const_idx.items()}
-        return torch.cat([const[idx[s]] for s in SLOTS]
+        return torch.cat([const[self.const_rows(s, const.device)] for s in SLOTS]
                          + [params["ior"][:, None]], dim=1)
 
     def __call__(self, params, pos, mat_id):
@@ -142,7 +151,7 @@ class MaterialTable:
 
     def _emissive(self, params, pos, mat_id, skip=()):
         const = params["const"]
-        idx = torch.as_tensor(self.const_idx["emissive"], device=const.device)
+        idx = self.const_rows("emissive", const.device)
         # index_select, not [mat_id]: its transpose is index_add_, where that
         # of [mat_id] sorts every record to sum a few rows (2.9 s of a large
         # scene's train step on the card, all-constant emission)

@@ -59,13 +59,18 @@ import warnings
 import torch
 import torch.autograd.profiler as _tprof
 
-# the roots a unit of work is counted by, and every span the port opens
+# the roots a unit of work is counted by, and every span the port opens on
+# every route
 UNIT_SPANS = ("train_step", "render_rows")
 BACKWARD_SPANS = ("replay_pack_bwd", "bounce_bwd", "compaction_bwd", "emission_bwd",
                   "sky_hist")
 SPANS = (UNIT_SPANS + ("forward", "backward", "update", "camera", "trace_rays",
                        "scene_pack", "replay_pack", "rng_draws", "bounce", "compaction",
                        "emission") + BACKWARD_SPANS)
+# the spans only the unfused bounce's route opens (a textured surface slot,
+# or a knob that drops the fused bounce): its forward, its replay VJP, and
+# the surface textures' gather transposes inside that VJP
+UNFUSED_SPANS = ("unfused_bounce", "replay_vjp", "tex_hist")
 SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
