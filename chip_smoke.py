@@ -59,10 +59,11 @@ Phases on the demo (K1, K2, K3; each raises on failure, none is caught):
    just before; loss and grad norm finite; exact launch counts (K1 17 and
    K2 16 per step: the last bounce's carry feeds nothing, so autograd runs
    no backward for it; K2's scene vector packed once and its VJP run once
-   per step; K3 3 per step, one per phase's sky-select evaluation) and no
-   plain call; peak memory and seconds per step;
+   per step; the sky bank 1 forward and 2 backward launches per step, K3
+   0) and no plain call; peak memory and seconds per step;
 8. kernels at the training step's widths: one more step from the true
-   params with every K1, K2 and K3 call's inputs recorded (4,194,304,
+   params (the sky bank off, as in phase 5, so that the sky's gradient
+   goes through K3) with every K1, K2 and K3 call's inputs recorded (4,194,304,
    1,398,101 and 262,144 lanes; the K2 grid's tile loop runs only here),
    each held against its plain version as in phases 3 and 5; K2's bare
    launch timed at 4,194,304 lanes beside its bound.
@@ -78,15 +79,18 @@ A1. K4 vs the dense hit on every bounce input of the first 65,536-ray
     lanes) within ``rtol 1e-5, atol 5e-6`` and ``max_abs_err`` 0; the
     distinct times the fold (the walk in time order) visits per lane;
 A2. ``python -m ptx_torch render --demo config4`` at 512², spp 16, d16:
-    K4 1,088 (4 bands × 16 samples × 17 bounces), nothing else;
-A3. 3 train steps at 512², spp 16, d16: K4 17 and K3 19 per step (16
-    backward bounces each transpose the checker gather, 3 phases each
-    the sky-select's), K1 = K2 = 0, no plain call;
+    K4 1,088 (4 bands × 16 samples × 17 bounces) and the sky bank 64,
+    nothing else;
+A3. 3 train steps at 512², spp 16, d16: K4 17 and K3 16 per step (16
+    backward bounces each transpose the checker gather), the sky bank 1
+    forward and 2 backward, K1 = K2 = 0, no plain call;
 A4. gradients, kernel path vs plain path as in phase 6, the checker image
     and the sky included.
 
 Path B, the 1536×3072 probe (``make_world`` under
-``procedural_sky_image(1536, 3072)``, as ``bench.py --sky 1536x3072``):
+``procedural_sky_image(1536, 3072)``, as ``bench.py --sky 1536x3072``),
+the sky bank off (the sky's gradient as the plain route takes it, K8's
+widest input; the bank serves the sky on the main path, path K):
 B1. 3 train steps: K1 17, K2 16 (one pack and one VJP), K8 3 per step
     (one per phase's sky-select gradient: the 75.5 MB image is past K3's
     shared memory), K3 = 0;
@@ -365,10 +369,27 @@ Then:
     JSON lines: the eleven kernels and the rng kernel (launches from the
     paths' train steps: the demo's for K1-K3, config 4's for K4, S1's for K5
     and K6, C2's for K7, the probe's for K8, E3's S1 for K9; I2's for K10
-    and K11; J2's a step for the rng kernel; K1's ``max_abs_err``
+    and K11; J2's a step for the rng kernel, K3's a step for the sky bank;
+    K1's ``max_abs_err``
     includes path F's; K7's entry carries its backward's figures under
     ``backward``; K10's its bound's rate under ``bound_note``), then the
     device.
+
+Path K, the sky bank (``ops/sky_bank.py``: the demo's emission; K1 and
+K2 run after phase 10's K7 timings, K3 last):
+K1. the kernel pair at a render wavefront's 65,536 lanes and a train step's
+    4,194,304 (the schedule's three phases, 263,508 and 16,864,596 records)
+    against ``sky_bank_reference64``, the plain route written out in
+    float64: the picks and texels equal, each contribution and the
+    gradients of the const table, the factor and the image within ``min(2·n·2⁻²⁴, 1e-4)·Σ|term|``, each record's ``d_thr`` equal
+    to the plain route's autograd bit for bit, a second run the same bits
+    but the image's gradient;
+K2. at both widths, in turns with the plain route: the forward's wrapper
+    (one kernel), its bare launch queued, the backward's wrapper (two
+    kernels), queued, the plain forward and forward + backward, the bound;
+    the profiler counts 1 and 2 kernels;
+K3. a demo train step 1 forward and 2 backward launches, a render
+    wavefront 1, by the counts and the recorder's ``sky_bank_launches``.
 
 Outputs (the rendered image, the nvcc report) go to ``build/chip_smoke/``.
 """
@@ -644,9 +665,9 @@ def phase_slice(scene):
         raise AssertionError("render is not a finite (H, W, 3) image")
     if not frame.mean() > 0:
         raise AssertionError("render is black")
-    if c != _expect(K1=expected):
-        raise AssertionError(f"render launches {c}: expected K1 {expected}, no "
-                             "other kernel, no plain call")
+    if c != _expect_demo(bands * SPP):
+        raise AssertionError(f"render launches {c}: expected K1 {expected} and the sky "
+                             f"bank {bands * SPP}, no other kernel, no plain call")
     return launches, wall, rays / wall
 
 
@@ -841,13 +862,20 @@ def phase_timing(scene, inputs):
     return min(w1, w2), min(p1, p2), min(d1, d2), q
 
 
+PROFILE_PAD_S = 0.02            # host time either side of a one-call trace's call
+
+
 def _kernels_launched(fn, tries=3):
     """The CUDA kernels one call of ``fn`` launches, counted by
-    ``torch.profiler`` (after a warm-up call).  A trace whose host side
-    shows kernel launches but which holds no kernel at all lost its device
-    records (seen on the card in some traces, for wrappers whose kernels
-    ran): it is taken again, up to ``tries`` times, and its count returned
-    if the records stay lost."""
+    ``torch.profiler`` (after a warm-up call).  The call sits
+    ``PROFILE_PAD_S`` of host time inside either end of the trace: the
+    profiler keeps only the device records that fall inside its window,
+    and the card's timestamps stray from the host's by up to milliseconds.
+    A trace whose host side shows kernel launches but which holds no
+    kernel at all lost its device records all the same (seen on the card
+    for torch's own kernels too, in runs of such traces): it is taken
+    again, up to ``tries`` times; if the records stay lost, the count is
+    that of the host's launch calls in the last trace."""
     import torch
     from ptx_torch.utils.profiling import trace
 
@@ -856,17 +884,20 @@ def _kernels_launched(fn, tries=3):
     path = os.path.join(OUT, "one_call_trace.json")
     for _ in range(tries):
         with trace(path):
+            time.sleep(PROFILE_PAD_S)
             fn()
             torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
         kernels = sum(1 for e in events if e.get("cat") == "kernel")
         launches = sum(1 for e in events if e.get("cat") == "cuda_runtime"
                        and "Launch" in e.get("name", ""))
         if kernels or not launches:
-            break
+            return kernels
         log(f"[profiler] {launches} launch calls and no kernel in the trace: taken again")
-    return kernels
+    log(f"[profiler] device records lost {tries} times: the host's {launches} launch calls")
+    return launches
 
 
 def _step_bound(bound, *args):
@@ -1130,7 +1161,9 @@ def phase_backward_kernels(scene):
     from ptx_torch.ops import imagegrad
 
     recorded, hists = [], []
-    sk = _recording_bwd(scene, recorded)
+    # the sky bank off: the sky's gradient through the plain route's
+    # gather, K3's input at a chunk's widths (path K holds the bank)
+    sk = dataclasses.replace(_recording_bwd(scene, recorded), sky_bank=None)
     key = rng.fold(rng.PRNGKey(0), 0, 256)
     o, d = sample_rays(Camera.reference_demo(W, H), key, range(256, 256 + BAND_ROWS),
                        range(W), 1, scene.device)
@@ -1167,7 +1200,8 @@ def _plain_scene(scene):
         scene, hit_fn=scene.plain_hit_fn,
         bounce_fn=functools.partial(bounce_reference, scene),
         bounce_bwd_fn=functools.partial(bounce_bwd_reference, scene),
-        emission_fn=scene.material_fn.eval_emissive if scene.emission_fn else None)
+        emission_fn=scene.material_fn.eval_emissive if scene.emission_fn else None,
+        sky_bank=None)
 
 
 def phase_gradients(scene, tag="6 gradients", plain_cm=None):
@@ -1218,10 +1252,11 @@ def phase_gradients(scene, tag="6 gradients", plain_cm=None):
 def _reset_counters():
     from ptx_torch.ops import bounce_kernel as bk, emission_kernel as ek
     from ptx_torch.ops import fasthit_kernel as fk, imagegrad, megasweep, roofline_kernel
-    from ptx_torch.ops import sweep_kernel
+    from ptx_torch.ops import sky_bank, sweep_kernel
     from ptx_torch.ops.replay_bwd import RowFedReplayBwd
 
     bk.LAUNCHES = bk.REFERENCE_CALLS = bk.BWD_REFERENCE_CALLS = 0
+    sky_bank.LAUNCHES = sky_bank.BWD_LAUNCHES = 0
     bk.BounceBwdKernel.LAUNCHES = bk.BounceBwdKernel.PACKS = 0
     bk.BounceBwdKernel.PACK_VJPS = 0
     imagegrad.LAUNCHES = imagegrad.REFERENCE_CALLS = 0
@@ -1238,7 +1273,7 @@ def _reset_counters():
 def _counters():
     from ptx_torch.ops import bounce_kernel as bk, emission_kernel as ek
     from ptx_torch.ops import fasthit_kernel as fk, imagegrad, megasweep, roofline_kernel
-    from ptx_torch.ops import sweep_kernel
+    from ptx_torch.ops import sky_bank, sweep_kernel
     from ptx_torch.ops.replay_bwd import RowFedReplayBwd
 
     return {"K1": bk.LAUNCHES, "K2": bk.BounceBwdKernel.LAUNCHES,
@@ -1251,6 +1286,7 @@ def _counters():
             "K8": imagegrad.BandedHistKernel.LAUNCHES,
             "K9": sweep_kernel.LAUNCHES,
             "K10": roofline_kernel.FMA_LAUNCHES, "K11": roofline_kernel.COPY_LAUNCHES,
+            "SB": sky_bank.LAUNCHES, "SB bwd": sky_bank.BWD_LAUNCHES,
             "plain": (bk.REFERENCE_CALLS + bk.BWD_REFERENCE_CALLS + imagegrad.REFERENCE_CALLS
                       + fk.REFERENCE_CALLS + ek.REFERENCE_CALLS + megasweep.REFERENCE_CALLS
                       + sweep_kernel.REFERENCE_CALLS + roofline_kernel.REFERENCE_CALLS)}
@@ -1262,11 +1298,21 @@ def _expect(steps=0, k6_steps=0, **per_kernel):
     backward passes, each packing the replay backward's scene vector once
     and running its VJP once."""
     out = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K7 bwd", "K8", "K9",
-                         "K10", "K11", "plain"), 0)
+                         "K10", "K11", "SB", "SB bwd", "plain"), 0)
     out.update(per_kernel)
     out["K2 packs"] = out["K2 pack VJPs"] = steps
     out["K6 packs"] = out["K6 pack VJPs"] = k6_steps
     return out
+
+
+def _expect_demo(calls, steps=0, **per_kernel):
+    """:func:`_expect` for ``calls`` ``trace_rays`` calls on a scene of the
+    fused bounce and the sky bank (the demo): K1 ``DEPTH + 1`` and the
+    bank's forward 1 a call; ``steps`` of them differentiated, K2
+    ``DEPTH`` and the bank's backward 2 each."""
+    if steps:
+        per_kernel = dict(per_kernel, K2=steps * DEPTH, **{"SB bwd": 2 * steps})
+    return _expect(steps, K1=calls * (DEPTH + 1), SB=calls, **per_kernel)
 
 
 def phase_train(scene, tag, expect, recorder=None, spp=SPP):
@@ -1337,7 +1383,8 @@ def phase_train_kernels(scene, target):
 
     fwd, bwd, hists = [], [], []
     sk = _recording_bwd(scene, bwd)
-    sk = dataclasses.replace(sk, bounce_fn=_recording(scene.bounce_fn, fwd))
+    # the sky bank off, as in phase 5: K3 at a step's widths
+    sk = dataclasses.replace(sk, bounce_fn=_recording(scene.bounce_fn, fwd), sky_bank=None)
     step = make_train_step(sk, Camera.reference_demo(W, H), spp=SPP, depth=DEPTH,
                            learning_rate=LR)
     with _recording_hists(hists):
@@ -1972,9 +2019,10 @@ def phase_train_config4(c4):
     step's figures."""
     hists, outs = [], []
     c, secs, peak, _ = phase_train(
-        c4, "A3 config4 train", _expect(K4=3 * (DEPTH + 1), K3=3 * (DEPTH + 3)),
+        c4, "A3 config4 train", _expect(K4=3 * (DEPTH + 1), K3=3 * DEPTH, SB=3,
+                                        **{"SB bwd": 6}),
         _recording_hists(hists, outs))
-    err3 = _check_hists(hists, "A3 train-width K3 vs plain", "K3", 3 * (DEPTH + 3), outs)
+    err3 = _check_hists(hists, "A3 train-width K3 vs plain", "K3", 3 * DEPTH, outs)
     checker = max((h for h in hists if h[4][0] * h[4][1] <= 64),
                   key=lambda h: (h[0].numel(), int((h[2] & (h[3] != 0).any(1)).sum())))
     return c, secs, peak, err3, checker
@@ -1986,6 +2034,7 @@ def phase_probe(pb):
     75.5 MB image past K3's shared memory), K3 0; every K8 call's output
     held against the float64 ``hist_reference`` (``_hist_bound_ok``)."""
     hists, outs = [], []
+    pb = dataclasses.replace(pb, sky_bank=None)
     c, secs, peak, _ = phase_train(
         pb, "B1 probe train", _expect(3, K1=3 * (DEPTH + 1), K2=3 * DEPTH, K8=9),
         _recording_hists(hists, outs))
@@ -2439,7 +2488,8 @@ def phase_render_scene(tag, kernel="K5"):
     c = _counters()
     tiled = trace.TILE_ORDERED - tiled
     spp, depth = 16, 8
-    expect = _expect(**{kernel: (H // BAND_ROWS) * spp * (depth + 1)})
+    expect = _expect(**{kernel: (H // BAND_ROWS) * spp * (depth + 1)},
+                     SB=(H // BAND_ROWS) * spp)
     rays = W * H * spp * (depth + 1)
     log(f"[{tag}] render --scene scenes/composed.json {W}x{H} spp {spp} depth {depth}: wall "
         f"{wall:.3f} s incl. scene compile and image writes, {rays / wall:.4g} rays/s; "
@@ -3047,22 +3097,22 @@ def phase_f1_checkpoint():
             os.remove(p)
     out = ["--out", os.path.join(OUT, "smoke_f1")]
     first, _ = _cli_render("F1 checkpoint", _f_args("--spp", str(F_SPP), "--checkpoint", x,
-                                                    *out), _expect(K1=(DEPTH + 1) * bands * F_SPP))
+                                                    *out), _expect_demo(bands * F_SPP))
     done = [RenderAccumulator(H, W, x).samples_done]
     resumed, _ = _cli_render("F1 resume", _f_args("--spp", str(2 * F_SPP), "--checkpoint", x,
-                                                  *out), _expect(K1=(DEPTH + 1) * bands * F_SPP))
+                                                  *out), _expect_demo(bands * F_SPP))
     done.append(RenderAccumulator(H, W, x).samples_done)
     if done != [F_SPP, 2 * F_SPP]:
         raise AssertionError(f"F1: samples_done {done}, expected {[F_SPP, 2 * F_SPP]}")
     whole, wall = _cli_render("F1 uninterrupted", _f_args(
-        "--spp", str(2 * F_SPP), "--checkpoint", y, *out), _expect(K1=(DEPTH + 1) * bands * 2 * F_SPP))
+        "--spp", str(2 * F_SPP), "--checkpoint", y, *out), _expect_demo(bands * 2 * F_SPP))
     fast, _ = _cli_render("F1 fast path", _f_args("--spp", str(2 * F_SPP), *out),
-                          _expect(K1=(DEPTH + 1) * bands * 2 * F_SPP))
+                          _expect_demo(bands * 2 * F_SPP))
     _same_image("F1", resumed, whole, "resumed vs uninterrupted")
     _same_image("F1", fast, whole, "fast path vs uninterrupted")
     buf = _io.StringIO()
     preview, _ = _cli_render("F1 preview", _f_args("--spp", str(F_SPP), "--preview", *out),
-                             _expect(K1=(DEPTH + 1) * bands * F_SPP), stdout=buf)
+                             _expect_demo(bands * F_SPP), stdout=buf)
     text = buf.getvalue()
     frames, per_frame = text.count("\x1b[H\x1b[2J"), min(80, W) * (min(44, H - H % 2) // 2)
     if frames != bands * F_SPP or text.count("▀") != frames * per_frame:
@@ -3100,7 +3150,7 @@ def phase_f2_adaptive(scene):
     out = ["--out", os.path.join(OUT, "smoke_f2")]
     whole, wall = _cli_render("F2 adaptive", _f_args("--adaptive", "--spp", str(SPP),
                                                      "--checkpoint", a, *out),
-                              _expect(K1=(DEPTH + 1) * 5))
+                              _expect_demo(5))
     ck = AdaptiveCheckpoint(H, W, a)
     k, spp_half = W * H // 8, SPP // 2
     total = W * H * spp_half + 4 * k * spp_half
@@ -3148,7 +3198,7 @@ def phase_f2_adaptive(scene):
     del recorded
     resumed, _ = _cli_render("F2 resume", _f_args("--adaptive", "--spp", str(SPP),
                                                   "--checkpoint", b, *out),
-                             _expect(K1=(DEPTH + 1) * 3))
+                             _expect_demo(3))
     _same_image("F2", resumed, whole, "resumed after round 1 vs uninterrupted")
     rays = total * (DEPTH + 1)
     log(f"[F2] adaptive spp {SPP}: counts {ck.count.min():.0f}-{ck.count.max():.0f} (sum "
@@ -3281,9 +3331,9 @@ def phase_f3_farm(scene):
 
     cam = Camera.reference_demo(W, H)
     img, wall, k1 = _farm_in_process(scene, cam, False, n_bands,
-                                     _expect(K1=(DEPTH + 1) * n_bands))
+                                     _expect_demo(n_bands))
     img_a, wall_a, k1_a = _farm_in_process(scene, cam, True, n_bands,
-                                           _expect(K1=(DEPTH + 1) * 3 * n_bands))
+                                           _expect_demo(3 * n_bands))
     _same_image("F3", img, img_cli, "in-process server vs serve")
     _same_image("F3", img_a, img_cli_a, "in-process server vs serve --adaptive")
 
@@ -3475,7 +3525,7 @@ def phase_g1_mesh_demo(scene):
 
     key = rng.PRNGKey(G_RENDER_KEY)
     prender.render_sharded(scene, cam, mesh, key, SPP, DEPTH, params)   # NCCL's first use
-    img, out["render_s"] = counted("G1 render_sharded", _expect(K1=DEPTH + 1),
+    img, out["render_s"] = counted("G1 render_sharded", _expect_demo(1),
                                    lambda: prender.render_sharded(scene, cam, mesh, key, SPP,
                                                                   DEPTH, params))
     t0 = time.perf_counter()
@@ -3483,7 +3533,7 @@ def phase_g1_mesh_demo(scene):
     torch.cuda.synchronize()
     out["render_u_s"] = time.perf_counter() - t0
     _equal("G1", "render_sharded", img, rad.mean(dim=0))
-    (s1, s2), _ = counted("G1 render_sharded_moments", _expect(K1=DEPTH + 1),
+    (s1, s2), _ = counted("G1 render_sharded_moments", _expect_demo(1),
                           lambda: prender.render_sharded_moments(scene, cam, mesh, key, SPP,
                                                                  DEPTH, params))
     _equal("G1", "s1", s1, rad.sum(dim=0))
@@ -3494,7 +3544,7 @@ def phase_g1_mesh_demo(scene):
     step_m = prender.make_train_step(scene, cam, mesh, spp=SPP, depth=DEPTH,
                                      learning_rate=LR)
     (new_m, loss_m), out["step_s"] = counted(
-        "G1 make_train_step(mesh)", _expect(1, K1=DEPTH + 1, K2=DEPTH, K3=3),
+        "G1 make_train_step(mesh)", _expect_demo(1, 1),
         lambda: step_m(start, img, step_key))
     step_u = prender.make_train_step(scene, cam, spp=SPP, depth=DEPTH, learning_rate=LR)
     t0 = time.perf_counter()
@@ -3514,7 +3564,7 @@ def phase_g1_mesh_demo(scene):
     kw = dict(spp_base=SPP, rounds=1, frac=0.125, spp_refine=SPP, depth=DEPTH, params=params)
     akey = rng.PRNGKey(G_ADAPT_KEY)
     (a_img, a_count, _), out["adaptive_s"] = counted(
-        "G1 render_adaptive(mesh)", _expect(K1=2 * (DEPTH + 1)),
+        "G1 render_adaptive(mesh)", _expect_demo(2),
         lambda: adaptive.render_adaptive(scene, cam, akey, mesh=mesh, **kw))
     rad = _unsharded(scene, akey)
     base = (rad.sum(dim=0), (rad ** 2).sum(dim=0),
@@ -3777,13 +3827,14 @@ def phase_g3_two_ranks(scene):
                                   again.cpu())["params"]
             log(f"[G3 gloo {name}] rank {r}: params (entries off the per-band combination, "
                 f"entries where two combinations differ, largest ulps) {rep_p}")
-            if rep[name]["render"] != _expect(K1=DEPTH + 1):
+            if rep[name]["render"] != _expect_demo(1):
                 raise AssertionError(f"G3 {name} rank {r} render launches {rep[name]['render']}")
-            if rep[name]["step"] != _expect(1, K1=DEPTH + 1, K2=DEPTH, K3=3):
+            if rep[name]["step"] != _expect_demo(1, 1):
                 raise AssertionError(f"G3 {name} rank {r} step launches {rep[name]['step']}")
         log(f"[G3 gloo {name}] both ranks ({reports[0][name]['backend']}): frame and loss "
             f"{float(loss):.6g} equal the per-band combination bit for bit; "
-            f"launches K1 {DEPTH + 1} a render, K1 {DEPTH + 1} K2 {DEPTH} K3 3 a step; step "
+            f"launches K1 {DEPTH + 1} a render, K1 {DEPTH + 1} K2 {DEPTH} a step, the sky "
+            f"bank 1 a render, 3 a step; step "
             f"seconds {[round(rep[name]['step_s'], 3) for rep in reports]}")
         out[name] = [rep[name]["step_s"] for rep in reports]
     log(f"[G3] seconds per rank process {[round(s, 2) for s in out['rank_s']]}; gloo's "
@@ -3844,8 +3895,9 @@ def phase_g4_knobs(scene):
     img_u = render_tile(su, unfused.params, cam, key, 0, y0, W, rows, 1, DEPTH, compact=False)
     torch.cuda.synchronize()
     c = _counters()
-    if c != _expect(K4=DEPTH + 1):
-        raise AssertionError(f"G4 PTX_FUSED=0 chunk launches {c}, expected K4 {DEPTH + 1}")
+    if c != _expect(K4=DEPTH + 1, SB=1):
+        raise AssertionError(f"G4 PTX_FUSED=0 chunk launches {c}, expected K4 {DEPTH + 1}, "
+                             f"the sky bank 1")
     flipped, flips, _ = _flipped_pixels(scene, log_k, log_u, rows * W, 1)
     keep = ~flipped.reshape(rows, W)
     torch.testing.assert_close(img_u[keep], img_k[keep], rtol=1e-4, atol=1e-5)
@@ -4075,13 +4127,14 @@ def _h_grads_close(tag, g, g_m, scale):
     return n_term, worst
 
 
-def _h_remat_check(tag, on, off, loss_on, loss_off, hists):
+def _h_remat_check(tag, on, off, loss_on, loss_off, hists, bank=False):
     """Remat on against off, one step each under deterministic algorithms:
     the loss and every new param bit for bit, but the sky image's, whose
-    gradient is the sum of the K3 histograms: their inputs must be equal
-    bit for bit and each output within the float64 bound
-    (``_check_hists``); K3's float atomics add in an order that varies
-    with the launches around them.  Returns the image entries that differ."""
+    gradient is the sum of the K3 histograms (their inputs must be equal
+    bit for bit and each output within the float64 bound,
+    ``_check_hists``) or, with ``bank``, the sky bank's: both add with
+    float atomics in an order that varies with the launches around them.
+    Returns the image entries that differ."""
     import torch
 
     _equal(tag, "loss with remat", loss_on, loss_off)
@@ -4095,7 +4148,7 @@ def _h_remat_check(tag, on, off, loss_on, loss_off, hists):
     img_off = 0
     for k in on:
         for a, b in zip(*(x if isinstance(x, list) else [x] for x in (on[k], off[k]))):
-            if k == "images" and h_off:
+            if k == "images" and (h_off or bank):
                 img_off += int((a != b).sum())
             else:
                 _equal(tag, f"param {k} with remat", a, b)
@@ -4137,7 +4190,7 @@ def phase_h_route(scene, tag, kernel, manual_expect, extra=None):
         with _recording_hists(*hists["on"]):
             on, loss_on = steps["remat on"](start, target, key)
         torch.cuda.synchronize()
-    det = _h_remat_check(tag, on, off, loss_on, loss_off, hists)
+    det = _h_remat_check(tag, on, off, loss_on, loss_off, hists, scene.sky_bank is not None)
     scale = _geo_term_scale(scene, start, terms)
     del on, off, hists, terms
     runs = {name: _h_step(st, start, target, key, f"{tag} {name} step")
@@ -4240,7 +4293,7 @@ def run_path_h(scene, dev):
     from ptx_torch.scenes import builders
 
     h1 = _timed("H1 autograd route, demo", phase_h_route, scene, "H1 demo", "K4",
-                _expect(1, K1=DEPTH + 1, K2=DEPTH, K3=3), {"K3": 3})
+                _expect_demo(1, 1), {"SB": 1, "SB bwd": 2})
     s1 = compile_scene(builders.stress_spheres(249), dev)
     h2 = _timed("H2 autograd route, S1", phase_h_route, s1, "H2 S1", "K5",
                 _expect(k6_steps=1, K5=DEPTH + 1, K6=DEPTH))
@@ -4341,7 +4394,7 @@ def phase_i2_roofline(dev):
         raise AssertionError(f"I2: exit {rc}, measures {[ln['measure'] for ln in lines]}")
     w = 1 + roofline.REPS
     expect = _expect(K10=2 * w, K11=(16 + 48) * w, K4=(64 + 192) * w + 64 * roofline.REPS,
-                     K1=2 * (40 + 1) * (DEPTH + 1))
+                     K1=2 * (40 + 1) * (DEPTH + 1), SB=2 * (40 + 1))
     if c != expect:
         raise AssertionError(f"I2: launch counts {c}, expected {expect}")
     for ln in lines:
@@ -4529,6 +4582,332 @@ def run_path_j(scene, dev):
     return j1, j2
 
 
+# ---------------------------------------------------------------------------
+# Path K: the sky bank (ptx_torch/ops/sky_bank.py), the emission of a scene
+# whose one dynamic emitter is a terminal sky chain (the demo, config 4)
+# ---------------------------------------------------------------------------
+
+K_WIDTHS = (65_536, 4_194_304)      # a render wavefront's lanes, a train step's
+K_KEY = 23                          # path K's base key: PRNGKey(23)
+K_PHASES = ((2, 1), (4, 3), (11, 16))   # trace_rays's schedule at depth 16: (bounces, divisor)
+
+
+def sky_bank_records(scene, B, seed):
+    """One ``trace_rays`` call's records at ``B`` lanes in the schedule's
+    three phases, made on the card from ``seed``: random materials, 80 %
+    live, throughput with zeros; a fifth of the lanes all sky (several sky
+    records: the first with nonzero throughput counts); sky positions at
+    texel centres mapped back through the chain, so that every route picks
+    the same texel; a tenth of each phase compaction's dead fillers."""
+    import math
+
+    import torch
+
+    bank, P, dev = scene.sky_bank, scene.params, scene.device
+    assert not bank.mirror
+    H, W = P["images"][bank.img_id].shape[:2]
+    M = scene.material_fn.n_materials
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = lambda *s: torch.rand(s, device=dev, generator=g)
+    saved = []
+    for nb, div in K_PHASES:
+        Bp = B // div
+        mid = torch.randint(0, M, (nb, Bp), device=dev, generator=g)
+        mid[:, u(Bp) < 0.2] = bank.sky
+        live = u(nb, Bp) < 0.8
+        thr = u(nb, Bp, 3) * 2.0 * (u(nb, Bp, 1) < 0.9)
+        filler = torch.arange(Bp, device=dev) >= Bp - Bp // 10
+        live &= ~filler
+        thr = thr * (~filler)[None, :, None]
+        xi = torch.randint(0, W, (nb, Bp), device=dev, generator=g).double()
+        yi = torch.randint(0, H, (nb, Bp), device=dev, generator=g).double()
+        theta = ((xi + 0.5) / W - 0.5) * 2.0 * math.pi
+        phi = (0.5 - (yi + 0.5) / H) * math.pi
+        d = torch.stack([torch.cos(phi) * torch.cos(theta), torch.cos(phi) * torch.sin(theta),
+                         torch.sin(phi)], -1) * (2.0 + 298.0 * u(nb, Bp, 1).double())
+        if bank.xform_idx is not None:
+            A = P["tex_xform"][bank.xform_idx].double()
+            d = (d - A[:, 3]) @ torch.linalg.inv(A[:, :3]).T
+        other = torch.randn((nb, Bp, 3), device=dev, generator=g) * 50.0
+        pos = torch.where((mid == bank.sky)[..., None], d.float(), other)
+        saved.append((pos.contiguous(), thr.contiguous(), mid, live, None))
+    return saved
+
+
+def sky_bank_reference64(scene, saved, cts, absolute=False):
+    """The sky bank's outputs in float64, written out directly (no autograd,
+    no kernel): each phase's contribution and ``d_thr``, then ``d_const``,
+    ``d_factor`` and ``d_img``; with ``absolute``, the same on the inputs'
+    absolute values (each entry's Σ|term|).  The picks are the plain
+    route's (the first live sky record with nonzero float32 throughput),
+    the texels its chain's (``emission_kernel.lanes_reference``)."""
+    import torch
+    from ptx_torch.ops import emission_kernel as ek
+
+    bank, table, P, dev = scene.sky_bank, scene.material_fn, scene.params, scene.device
+    f = torch.abs if absolute else (lambda x: x)
+    img = P["images"][bank.img_id]
+    H, W, C = img.shape
+    img64 = f(img.double()).reshape(-1, C)[:, :3]
+    fac = (f(P["factor"][bank.factor_idx].double()) if bank.factor_idx is not None
+           else torch.ones(3, dtype=torch.float64, device=dev))
+    rows = table.const_rows("emissive", dev)
+    em = f(P["const"].double())[rows]
+    kern = ek.EmissionKernel(table, dev)
+    M = table.n_materials
+    d_em = torch.zeros((M, 3), dtype=torch.float64, device=dev)
+    d_fac = torch.zeros(3, dtype=torch.float64, device=dev)
+    d_img3 = torch.zeros((H * W, 3), dtype=torch.float64, device=dev)
+    outs, d_thrs, picks = [], [], []
+    for (pos, thr, mid, live, _), ct in zip(saved, cts):
+        t64, c64 = f(thr.double()), f(ct.double())
+        mat = live & (mid != bank.sky)
+        e_rec = torch.where(mat[..., None], em[mid], 0.0)
+        is_sel = live & (mid == bank.sky) & (thr.abs().sum(-1) > 0)
+        any_ = is_sel.any(0)
+        first = torch.argmax(is_sel.to(torch.uint8), 0)
+        pick = lambda a: a.gather(0, first[None, :, None].expand(1, -1, 3))[0]
+        texel = ek.lanes_reference(kern, P["tex_xform"], P["const"], P["factor"], img,
+                                   pick(pos), torch.full_like(first, bank.sky))[1].long()
+        ok = any_ & (texel >= 0)
+        tex = torch.where(ok[:, None], img64[texel.clamp(min=0)], 0.0)
+        tp = pick(t64)
+        e_sky = tex * fac
+        outs.append((t64 * e_rec).sum(0) + torch.where(any_[:, None], tp * e_sky, 0.0))
+        onehot = (torch.arange(thr.shape[0], device=dev)[:, None] == first[None]) & any_[None]
+        d_thrs.append(c64[None] * e_rec + onehot[..., None] * (c64 * e_sky)[None])
+        d_em.index_add_(0, mid[mat], (c64[None] * t64)[mat])
+        dem = c64 * tp
+        d_fac += (dem * tex)[ok].sum(0)
+        d_img3.index_add_(0, texel[ok], (dem * fac)[ok])
+        picks.append((torch.where(any_, first, -1), torch.where(any_, texel, -1)))
+    keep = torch.arange(M, device=dev) != bank.sky
+    d_const = torch.zeros(P["const"].shape, dtype=torch.float64, device=dev).index_add_(
+        0, rows[keep], d_em[keep])
+    d_factor = torch.zeros(P["factor"].shape, dtype=torch.float64, device=dev)
+    if bank.factor_idx is not None:
+        d_factor[bank.factor_idx] = d_fac
+    d_img = torch.zeros((H, W, C), dtype=torch.float64, device=dev)
+    d_img[..., :3] = d_img3.reshape(H, W, 3)
+    return outs, d_thrs, d_const, d_factor, d_img, picks
+
+
+def _sky_bank_cts(saved, seed):
+    """Random cotangents, 70 % of the lanes nonzero."""
+    import torch
+
+    g = torch.Generator(device=saved[0][1].device).manual_seed(seed)
+    return [torch.randn((thr.shape[1], 3), device=thr.device, generator=g)
+            * (torch.rand(thr.shape[1], device=thr.device, generator=g) < 0.7)[:, None]
+            for _, thr, *_ in saved]
+
+
+def _flat_records(saved):
+    return [x for pos, thr, mid, live, _ in saved for x in (pos, thr, mid, live)]
+
+
+def sky_bank_check(scene, B, seed, tag):
+    """The sky bank at ``B`` lanes against its plain route, raising on a
+    failure: the picked records and texels equal to the plain route's;
+    each contribution and the gradients of the const table, the factor and
+    the image within ``min(2·n·2⁻²⁴,
+    1e-4)·Σ|term|`` of :func:`sky_bank_reference64` (n the entry's terms);
+    ``d_thr`` equal to the plain route's autograd in float32, bit for bit
+    (one product a record in both); a second run the same bits in every
+    output but the image's gradient (float atomics).  Returns the largest
+    |kernel − float64| / Σ|term|."""
+    import torch
+    from ptx_torch.ops import sky_bank
+
+    bank, P, table = scene.sky_bank, scene.params, scene.material_fn
+    img = P["images"][bank.img_id]
+    saved = sky_bank_records(scene, B, seed)
+    flat = _flat_records(saved)
+    cts = _sky_bank_cts(saved, seed + 1)
+    args = (P["tex_xform"], P["const"], P["factor"], img)
+    outs, sel = bank.launch(*args, flat)
+    got = bank.launch_bwd(cts, P["const"], P["factor"], img, sel, flat)
+    ref = sky_bank_reference64(scene, saved, cts)
+    mag = sky_bank_reference64(scene, saved, cts, absolute=True)
+    torch.cuda.synchronize()
+    worst = 0.0
+
+    def within(name, a, b, m, n):
+        nonlocal worst
+        lim = min(2 * n * 2.0 ** -24, 1e-4) * m
+        off = (a.double() - b).abs()
+        if not bool(torch.isfinite(a).all()) or bool((off > lim).any()):
+            raise AssertionError(f"{tag} B={B}: {name} off the float64 route in "
+                                 f"{int((off > lim).sum())} entries")
+        worst = max(worst, float((off / m.clamp(min=1e-30)).max()))
+
+    n_rec = sum(t.shape[0] * t.shape[1] for _, t, *_ in saved)
+    for k, ((nb, _), (first, texel)) in enumerate(zip(K_PHASES, ref[5])):
+        lanes = slice(sum(t.shape[1] for _, t, *_ in saved[:k]),
+                      sum(t.shape[1] for _, t, *_ in saved[:k + 1]))
+        if not (torch.equal(sel[lanes, 0].long(), first)
+                and torch.equal(sel[lanes, 1].long(), texel)):
+            raise AssertionError(f"{tag} B={B}: phase {k}'s picks or texels differ")
+        within(f"phase {k}'s contribution", outs[k], ref[0][k], mag[0][k],
+               2 * nb + table.n_materials)
+    for name, a, b, m in zip(("d_const", "d_factor", "d_img"), got[1:], ref[2:5], mag[2:5]):
+        within(name, a, b, m, n_rec)
+
+    # d_thr: the plain route's autograd in float32
+    thrs = [t.detach().clone().requires_grad_(True) for _, t, *_ in saved]
+    plain = sky_bank.reference(table, P, [(p, t, m, lv, o) for (p, _, m, lv, o), t
+                                          in zip(saved, thrs)])
+    want = torch.autograd.grad(plain, thrs, cts)
+    for k, (a, b) in enumerate(zip(got[0], want)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag} B={B}: phase {k}'s d_thr differs from the plain "
+                                 f"route's in {int((a != b).sum())} entries")
+
+    # run to run: the same bits but the image's atomics
+    outs2, sel2 = bank.launch(*args, flat)
+    got2 = bank.launch_bwd(cts, P["const"], P["factor"], img, sel2, flat)
+    same = (all(torch.equal(a, b) for a, b in zip(outs, outs2)) and torch.equal(sel, sel2)
+            and all(torch.equal(a, b) for a, b in zip(got[0], got2[0]))
+            and torch.equal(got[1], got2[1]) and torch.equal(got[2], got2[2]))
+    if not same:
+        raise AssertionError(f"{tag} B={B}: two runs differ outside the image's gradient")
+    picked = int((sel[:, 0] >= 0).sum())
+    log(f"[{tag}] B={B} ({n_rec:,} records, {picked:,} lanes pick the sky): picks and "
+        f"texels equal, d_thr equal to the plain route's, two runs the same bits but "
+        f"d_img; largest |kernel - float64| / Σ|term| {worst:.3g}")
+    return worst
+
+
+def phase_k1_sky_bank(scene, tag="K1 sky bank"):
+    """K1: :func:`sky_bank_check` at a render wavefront's and a train
+    step's widths."""
+    return max(sky_bank_check(scene, B, 31 + i, tag) for i, B in enumerate(K_WIDTHS))
+
+
+def bound_sky_bank(saved, img):
+    """The sky bank's bytes, forward and backward: per record thr (12 B),
+    mid (8 B), live (1 B); per lane the picked position (12 B), the
+    contribution (12 B), the pick and texel (8 B); the backward also writes
+    d_thr (12 B a record), reads each lane's cotangent (12 B) and its pick
+    and texel (8 B), and writes the image's gradient once (the picked
+    record's throughput is among the records' reads).  Operations are a few
+    a record: bytes bound it."""
+    recs = sum(t.shape[0] * t.shape[1] for _, t, *_ in saved)
+    lanes = sum(t.shape[1] for _, t, *_ in saved)
+    fwd = 21 * recs + 32 * lanes + 12 * img.numel() // img.shape[2]
+    bwd = 33 * recs + 20 * lanes + 4 * img.numel()
+    return _bound(fwd, 0), _bound(bwd, 0)
+
+
+def phase_k2_sky_bank_timing(scene):
+    """K2: the sky bank at a wavefront's and a train step's widths, in turns
+    with its plain route (plain, kernel, kernel, plain): the forward's
+    wrapper as ``trace._emission`` calls it (one kernel), its bare launch
+    queued behind a device sleep, the plain forward; the backward's
+    wrapper (two kernels), queued, beside the plain route's forward +
+    backward (autograd); the bound.  Fails unless the profiler counts 1
+    kernel in the forward's wrapper and 2 in the backward's."""
+    import torch
+    from ptx_torch.ops import sky_bank
+
+    bank, P, table = scene.sky_bank, scene.params, scene.material_fn
+    img = P["images"][bank.img_id]
+    out = {}
+    for i, B in enumerate(K_WIDTHS):
+        saved = sky_bank_records(scene, B, 41 + i)
+        flat = _flat_records(saved)
+        cts = _sky_bank_cts(saved, 51 + i)
+        args = (P["tex_xform"], P["const"], P["factor"], img)
+        with torch.no_grad():
+            wrap = lambda: bank(P, saved)
+            plain = lambda: sky_bank.reference(table, P, saved)
+            n_fwd = _kernels_launched(wrap)
+            p1, w1, w2, p2 = _time_ms(plain), _time_ms(wrap), _time_ms(wrap), _time_ms(plain)
+            q = _time_queued_ms(lambda: bank.launch(*args, flat))
+            sel = bank.launch(*args, flat)[1]
+        bwd = lambda: bank.launch_bwd(cts, P["const"], P["factor"], img, sel, flat)
+        n_bwd = _kernels_launched(bwd)
+        thrs = [t.detach().clone().requires_grad_(True) for _, t, *_ in saved]
+        leaves = [P["const"].detach().clone().requires_grad_(True),
+                  P["factor"].detach().clone().requires_grad_(True)]
+        pp = dict(P, const=leaves[0], factor=leaves[1])
+
+        def plain_fb():
+            o = sky_bank.reference(table, pp, [(p, t, m, lv, None) for (p, _, m, lv, _), t
+                                               in zip(saved, thrs)])
+            return torch.autograd.grad(o, thrs + leaves, cts)
+
+        r1, b1, b2, r2 = _time_ms(plain_fb), _time_ms(bwd), _time_ms(bwd), _time_ms(plain_fb)
+        bq = _time_queued_ms(bwd)
+        fb, bb = bound_sky_bank(saved, img)
+        if (n_fwd, n_bwd) != (1, 2):
+            raise AssertionError(f"K2 sky bank at B={B}: the forward's wrapper launched "
+                                 f"{n_fwd} kernels, the backward's {n_bwd}, not 1 and 2")
+        log(f"[K2 sky bank] B={B}: kernels in the profiler {n_fwd} forward, {n_bwd} backward; "
+            f"forward wrapper {w1:.4f} / {w2:.4f} ms, queued "
+            f"{q:.4f} ms, plain route {p1:.4f} / {p2:.4f} ms, bound {fb[0]:.4g} ms "
+            f"({fb[1]}), {fb[0] / q:.3f} of it queued; backward wrapper "
+            f"{b1:.4f} / {b2:.4f} ms, queued {bq:.4f} ms, plain forward + backward "
+            f"{r1:.4f} / {r2:.4f} ms, bound {bb[0]:.4g} ms, {bb[0] / bq:.3f} of it queued")
+        out[B] = {"ms": min(w1, w2), "queued_ms": q, "plain_ms": min(p1, p2), "bound": fb,
+                  "bwd_ms": min(b1, b2), "bwd_queued_ms": bq, "plain_fb_ms": min(r1, r2),
+                  "bwd_bound": bb}
+    return out
+
+
+def phase_k3_sky_bank_launches(scene):
+    """K3: the sky bank's launches a demo train step (1 forward, 2
+    backward) and a render wavefront (1), by ``LAUNCHES`` / ``BWD_LAUNCHES``
+    and the recorder's ``sky_bank_launches`` under a CPU-only capture; no
+    K3 and no K7 launch (the sky's gradient is the bank's)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from ptx_torch.core import rng
+    from ptx_torch.integrate.camera import Camera
+    from ptx_torch.integrate.render import render_rows
+    from ptx_torch.parallel.render import make_train_step
+    from ptx_torch.utils import profiling
+
+    cam = Camera.reference_demo(W, H)
+    step = make_train_step(scene, cam, spp=SPP, depth=DEPTH, learning_rate=LR)
+    target = torch.zeros((H, W, 3), device=scene.device)
+    step(scene.params, target, rng.PRNGKey(K_KEY))
+    torch.cuda.synchronize()
+    got = {}
+    for name, run in (("step", lambda: step(scene.params, target, rng.PRNGKey(K_KEY + 1))),
+                      ("wavefront", lambda: render_rows(scene, scene.params, cam,
+                                                        rng.PRNGKey(K_KEY + 2), 0, BAND_ROWS,
+                                                        1, 1, DEPTH))):
+        profiling.reset()
+        _reset_counters()
+        with profile(activities=[ProfilerActivity.CPU]), torch.no_grad() if name != "step" \
+                else contextlib.nullcontext():
+            run()
+            torch.cuda.synchronize()
+        c = _counters()
+        got[name] = {"LAUNCHES": c["SB"], "BWD_LAUNCHES": c["SB bwd"],
+                     "sky_bank_launches": profiling.snapshot()["counters"].get(
+                         "sky_bank_launches", 0), "K3": c["K3"], "K7": c["K7"]}
+        profiling.reset()
+    want = {"step": {"LAUNCHES": 1, "BWD_LAUNCHES": 2, "sky_bank_launches": 3, "K3": 0,
+                     "K7": 0},
+            "wavefront": {"LAUNCHES": 1, "BWD_LAUNCHES": 0, "sky_bank_launches": 1, "K3": 0,
+                          "K7": 0}}
+    if got != want:
+        raise AssertionError(f"K3 sky bank launches {got}, expected {want}")
+    log(f"[K3 sky bank launches] {got}")
+    return got
+
+
+def run_path_k(scene):
+    """Path K: the sky bank against its plain route at a wavefront's and a
+    train step's widths, timed; its launches a step and a wavefront."""
+    k1 = _timed("K1 sky bank", phase_k1_sky_bank, scene)
+    k2 = _timed("K2 sky bank timing", phase_k2_sky_bank_timing, scene)
+    k3 = _timed("K3 sky bank launches", phase_k3_sky_bank_launches, scene)
+    return k1, k2, k3
+
+
 def _timed(label, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -4566,7 +4945,7 @@ def main():
     _timed("6 gradients", phase_gradients, scene)
     train, secs, peak, target = _timed(
         "7 train", phase_train, scene, "7 train",
-        _expect(3, K1=3 * (DEPTH + 1), K2=3 * DEPTH, K3=3 * 3))
+        _expect_demo(3, 3))
     flips8, err8_1, err8_2, err8_3, k3_train_in = _timed(
         "8 train-width kernels", phase_train_kernels, scene, target)
     del target
@@ -4575,7 +4954,8 @@ def main():
     c4 = compile_scene(builders.baseline_config4(), dev)
     flipsA, err4, k4_in = _timed("A1 K4 chunk", phase_k4_chunk, c4)
     c4_rays_s = _timed("A2 render config4", phase_render_cli, "config4", "A2 render",
-                       _expect(K4=(H // BAND_ROWS) * SPP * (DEPTH + 1)))
+                       _expect(K4=(H // BAND_ROWS) * SPP * (DEPTH + 1),
+                               SB=(H // BAND_ROWS) * SPP))
     train4, secs4, peak4, err3a, k3_checker_in = _timed("A3 config4 train",
                                                         phase_train_config4, c4)
     _timed("A4 config4 gradients", phase_gradients, c4, "A4 config4 gradients")
@@ -4616,7 +4996,7 @@ def main():
             err6 = max(err6, e)
             _timed(f"D4 {nm} gradients", phase_gradients, sc, f"D4 {nm} gradients")
             large[nm] = sc
-        extra = {"K8": 3 * 3} if nm == "S4" else {}
+        extra = {"SB": 3, "SB bwd": 6} if nm == "S4" else {}
         trainD[nm] = _timed(f"D5 {nm} train", phase_train_large, sc, f"D5 {nm} train",
                             _expect(k6_steps=3, K5=3 * (DEPTH + 1), K6=3 * DEPTH, **extra),
                             nm == "S1")
@@ -4661,12 +5041,18 @@ def main():
                    {"chunk": (pe, k7_fwd_in, k7_bwd_in), "train": (pe, *k7_train_in),
                     "mirror-ball train": (pm, *k7_mirror_in)})
     del k7_fwd_in, k7_bwd_in, k7_train_in, k7_mirror_in, pm
+    # path K, the sky bank: K1 and K2 here, where one-call device traces
+    # count kernels (they counted none after the step profile's capture
+    # and after path J's), K3's CPU-only capture after path J
+    err_sb = _timed("K1 sky bank", phase_k1_sky_bank, scene)
+    time_sb = _timed("K2 sky bank timing", phase_k2_sky_bank_timing, scene)
     prof7 = _timed("10 K7 step profile", phase_k7_step_profile)
 
     # path J: the rng kernel (rng.uniform_many on the card), after every
     # phase that counts kernels in a device trace: those one-call traces
     # lost their kernel three times in three when path J ran before phase 9
     j1, j2 = run_path_j(scene, dev)
+    launch_sb = _timed("K3 sky bank launches", phase_k3_sky_bank_launches, scene)
     k7_t = time7["chunk"]
     k1_bound = bound_k1(inputs[0].shape[0], scene.bounce_fn.layout[0])
     log(f"summary: build {build_s:.2f} s; flips {flips3} (primary bounces) + "
@@ -4729,7 +5115,13 @@ def main():
         f"{j1['u3']['ms']:.4f} ms (queued {j1['u3']['queued_ms']:.4f}) vs plain "
         f"{j1['u3']['plain_ms']:.4f} ms at {j1['u3']['uniforms']:,} uniforms (bound "
         f"{j1['u3']['bound'][0]:.4g} ms), {j2['launches_per_step']} launches a demo step; "
-        f"total "
+        f"path K: sky bank at 65,536 lanes {time_sb[K_WIDTHS[0]]['ms']:.4f} ms (queued "
+        f"{time_sb[K_WIDTHS[0]]['queued_ms']:.4f}) vs plain "
+        f"{time_sb[K_WIDTHS[0]]['plain_ms']:.4f} ms, at 4,194,304 queued "
+        f"{time_sb[K_WIDTHS[1]]['queued_ms']:.4f} ms forward and "
+        f"{time_sb[K_WIDTHS[1]]['bwd_queued_ms']:.4f} ms backward (bounds "
+        f"{time_sb[K_WIDTHS[1]]['bound'][0]:.4g} / {time_sb[K_WIDTHS[1]]['bwd_bound'][0]:.4g} "
+        f"ms); total "
         f"{time.perf_counter() - t_start:.1f} s; {smi}")
     entry = lambda name_, source, replaces, launches, err, ms, plain, bound, lib: {
         "name": name_, "route": "cuda", "source": source, "replaces": replaces,
@@ -4785,6 +5177,17 @@ def main():
               "2 x 12,582,912; launches a demo step)", "ptx_torch/csrc/rng_kernel.cu", None,
               j2["launches_per_step"], 0.0, j1["u3"]["ms"], j1["u3"]["plain_ms"],
               j1["u3"]["bound"], None),
+        dict(entry("sky_bank_forward (the sky bank: mat-sum + sky-select of a trace_rays "
+                   "call at 65,536 lanes; its backward under 'backward')",
+                   "ptx_torch/csrc/emission_kernel.cu", None, launch_sb["step"]["LAUNCHES"],
+                   err_sb, time_sb[K_WIDTHS[0]]["ms"], time_sb[K_WIDTHS[0]]["plain_ms"],
+                   time_sb[K_WIDTHS[0]]["bound"], None),
+             backward=entry("sky_bank_backward + sky_bank_reduce (the sky bank's VJP)",
+                            "ptx_torch/csrc/emission_kernel.cu", None,
+                            launch_sb["step"]["BWD_LAUNCHES"], err_sb,
+                            time_sb[K_WIDTHS[0]]["bwd_ms"],
+                            time_sb[K_WIDTHS[0]]["plain_fb_ms"],
+                            time_sb[K_WIDTHS[0]]["bwd_bound"], None)),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

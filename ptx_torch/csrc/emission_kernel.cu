@@ -62,6 +62,34 @@
 // - Float atomics add in a varying order: each sum is within the
 //   reordered-sum bound 2*n*2^-24*sum|term| of the exact sum, and
 //   chip_smoke.py holds it within 1e-4 of sum|term| of the float64 sum.
+//
+// The sky bank (sky_bank_*_kernel, below K7): a trace_rays call's emission
+// where every dynamic emitter is the one terminal sky chain (the demo's and
+// config 4's skies), which K7 does not serve.  Its plain version is
+// ptx_torch/ops/sky_bank.py reference, trace.py's mat-sum + sky-select:
+// ~270 PyTorch launches a call forward (a where, sum, mul and add per
+// material and phase; an argmax, two gathers and the chain's texture
+// arithmetic a phase) and ~140 backward.
+// - Forward (sky_bank_forward_kernel), one launch a call: one thread a lane
+//   of every phase (the phases' tensors travel by pointer in the launch's
+//   arguments), which walks its records in bounce order
+//   (sky_bank_lane.cuh lane_forward) and writes the lane's contribution
+//   and two int32 (the picked record, its texel) for the backward.
+// - Backward (sky_bank_backward_kernel), one cooperative launch: d_thr of
+//   every record, the image's gradient by K7's direct regime (hist_warp.cuh:
+//   warp-merged device-memory atomics, the image zero-filled by the grid
+//   before a grid-wide barrier), and each block's sums of the emissive rows' and the factor's
+//   gradients; sky_bank_reduce_kernel, one block, sums the blocks' partials
+//   in a fixed order and writes d_const (rows that share a const entry add
+//   up, in ascending material order) and d_factor.  Only the image's
+//   atomics vary from run to run.
+// - Bound: bytes (chip_smoke.py bound_sky_bank).  Per record thr (12 B),
+//   mid (8 B), live (1 B); per lane the picked position, the contribution,
+//   the pick and its texel (32 B).  The backward reads the records too,
+//   writes d_thr (12 B a record), reads per lane the cotangent, the pick and
+//   its texel (20 B), and writes the image's gradient once.  A demo train
+//   step's 16.86 M records over 5.85 M lanes: 0.54 GB forward, 0.67 GB
+//   backward, 0.162 / 0.201 ms at 3.35 TB/s.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -69,6 +97,7 @@
 
 #include "emission_lane.cuh"
 #include "hist_warp.cuh"
+#include "sky_bank_lane.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -273,6 +302,221 @@ int launch_backward(const float* ct, const int* bin, int N, const float* img, in
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The sky bank
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxPhases = 8;           // phases a trace_rays call
+constexpr int kBankThreads = 256;       // forward
+constexpr int kBankBwdThreads = 512;    // backward
+constexpr int kBankBwdWarps = kBankBwdThreads / 32;
+constexpr int kReduceThreads = 256;
+using ptx_skybank::kMaxMats;
+using ptx_skybank::kSums;
+
+// One phase of a call: its records (nb, Bp), its first lane in the call's
+// flat lane index, the lanes' cotangent (backward), and where the kernel
+// writes: the contribution (Bp, 3) forward, d_thr (nb, Bp, 3) backward.
+struct Phase {
+  const float* pos;
+  const float* thr;
+  const int64_t* mid;
+  const bool* live;
+  const float* ct;
+  float* out;
+  int64_t first, Bp;
+  int nb;
+};
+
+struct Phases {
+  Phase p[kMaxPhases];
+  int n;
+};
+
+// The phase of flat lane g (the phases in order of `first`).
+__device__ __forceinline__ const Phase& phase_of(const Phases& ph, int64_t g) {
+  int k = 0;
+  while (k + 1 < ph.n && g >= ph.p[k + 1].first) ++k;
+  return ph.p[k];
+}
+
+__global__ void __launch_bounds__(kBankThreads)
+sky_bank_forward_kernel(const __grid_constant__ Phases ph, int64_t lanes,
+                        const ptx_skybank::Scene s, int* __restrict__ sel) {
+  const int64_t g = (int64_t)blockIdx.x * kBankThreads + threadIdx.x;
+  if (g >= lanes) return;
+  const Phase& P = phase_of(ph, g);
+  const int64_t lane = g - P.first;
+  const ptx_skybank::Records r = {P.pos, P.thr, P.mid, P.live, P.nb, P.Bp};
+  float c[3];
+  int texel;
+  const int pick = ptx_skybank::lane_forward(s, r, lane, c, &texel);
+  P.out[3 * lane] = c[0];
+  P.out[3 * lane + 1] = c[1];
+  P.out[3 * lane + 2] = c[2];
+  sel[2 * g] = pick;
+  sel[2 * g + 1] = texel;
+}
+
+// The image's gradient by warp-merged device-memory atomics (K7's direct
+// regime).  kVec: the image's gradient has C = 4 on a 16-byte boundary (an
+// add is one 16-byte atomic).
+template <bool kVec>
+__global__ void __launch_bounds__(kBankBwdThreads, 2)
+sky_bank_backward_kernel(const __grid_constant__ Phases ph, int64_t lanes,
+                         const ptx_skybank::Scene s, const int* __restrict__ sel,
+                         float* __restrict__ d_img, float* __restrict__ partial) {
+  __shared__ float s_red[kBankBwdWarps][kSums];
+  const int tid = threadIdx.x, lid = tid & 31, wid = tid >> 5;
+  const int HW = s.H * s.W;
+  const int64_t gstride = (int64_t)gridDim.x * kBankBwdThreads;
+  for (int64_t i = (int64_t)blockIdx.x * kBankBwdThreads + tid; i < (int64_t)HW * s.C;
+       i += gstride)
+    d_img[i] = 0.f;
+  cg::this_grid().sync();                   // the zeros are in
+
+  float q[kMaxMats][3], pf[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int k = 0; k < kMaxMats; ++k) q[k][0] = q[k][1] = q[k][2] = 0.f;
+  for (int64_t w0 = (int64_t)blockIdx.x * kBankBwdThreads + 32 * wid; w0 < lanes;
+       w0 += gstride) {                     // warp-uniform: the merge needs every lane
+    const int64_t g = w0 + lid;
+    int t = -1;
+    float v[3] = {0.f, 0.f, 0.f};
+    if (g < lanes) {
+      const Phase& P = phase_of(ph, g);
+      const int64_t lane = g - P.first;
+      const ptx_skybank::Records r = {P.pos, P.thr, P.mid, P.live, P.nb, P.Bp};
+      const float ct[3] = {P.ct[3 * lane], P.ct[3 * lane + 1], P.ct[3 * lane + 2]};
+      t = ptx_skybank::lane_backward(s, r, P.out, lane, ct, sel[2 * g], sel[2 * g + 1], q,
+                                     pf, v);
+    }
+    const float4 v4 = make_float4(v[0], v[1], v[2], 0.f);
+    if (!ptx_hist::nonzero(v4)) t = -1;     // adds nothing
+    warp_merged_add(t, v4, [&](int b, float4 x) { add4<kVec>(d_img + (size_t)b * s.C, x, 3); });
+  }
+
+  // the block's sums: a shuffle tree a warp, the warps in order
+#pragma unroll
+  for (int j = 0; j < kSums; ++j) {
+    float x = j < 3 * kMaxMats ? q[j / 3][j % 3] : pf[j - 3 * kMaxMats];
+    for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(ptx_hist::kFull, x, o);
+    if (lid == 0) s_red[wid][j] = x;
+  }
+  __syncthreads();
+  if (tid < kSums) {
+    float x = 0.f;
+    for (int k = 0; k < kBankBwdWarps; ++k) x += s_red[k][tid];
+    partial[(size_t)blockIdx.x * kSums + tid] = x;
+  }
+}
+
+// One block: the backward's n_blocks partials summed in a fixed order (a
+// warp an entry: a stride per lane, a shuffle tree), then d_const (R, 3),
+// each row the sum of its materials' entries in ascending material order,
+// and d_factor (factor_words floats, zero but the chain's row), both
+// written whole.
+__global__ void __launch_bounds__(kReduceThreads)
+sky_bank_reduce_kernel(const float* __restrict__ partial, int n_blocks,
+                       const int64_t* __restrict__ const_row, int M, int sky, int R,
+                       float* __restrict__ d_const, float* __restrict__ d_factor,
+                       int factor_words, int factor_off) {
+  __shared__ float tot[kSums];
+  const int lid = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  for (int j = wid; j < kSums; j += kReduceThreads / 32) {
+    float x = 0.f;
+    for (int b = lid; b < n_blocks; b += 32) x += partial[(size_t)b * kSums + j];
+    for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(ptx_hist::kFull, x, o);
+    if (lid == 0) tot[j] = x;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 3 * R; i += kReduceThreads) {
+    const int row = i / 3, c = i - 3 * row;
+    float x = 0.f;
+    for (int m = 0; m < M; ++m)
+      if (m != sky && const_row[m] == row) x += tot[3 * m + c];
+    d_const[i] = x;
+  }
+  if (d_factor)
+    for (int i = threadIdx.x; i < factor_words; i += kReduceThreads)
+      d_factor[i] = i >= factor_off && i < factor_off + 3
+                        ? tot[3 * kMaxMats + i - factor_off] : 0.f;
+}
+
+// Per device and variant, read once per process: the blocks an SM holds.
+int g_bank_occ[kMaxDevices][2];
+
+template <bool kVec>
+int launch_bank_backward(const Phases& ph, int64_t lanes, const ptx_skybank::Scene& s,
+                         const int* sel, float* d_img, float* partial, int max_blocks,
+                         int* n_blocks, cudaStream_t stream) {
+  auto kernel = sky_bank_backward_kernel<kVec>;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (g_sms[dev] == 0) {
+    err = cudaDeviceGetAttribute(&g_sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (g_bank_occ[dev][kVec] == 0) {
+    int occ = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kBankBwdThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    if (occ < 1) return (int)cudaErrorInvalidValue;
+    g_bank_occ[dev][kVec] = occ;
+  }
+  const int64_t want = (lanes + kBankBwdThreads - 1) / kBankBwdThreads;
+  int64_t blocks = (int64_t)g_bank_occ[dev][kVec] * g_sms[dev];
+  if (want < blocks) blocks = want;
+  if (blocks > max_blocks) blocks = max_blocks;
+  *n_blocks = (int)blocks;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(kBankBwdThreads);
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, ph, lanes, s, sel, d_img, partial);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The call's phases from the C arrays: per phase 6 pointers (pos, thr, mid,
+// live, ct, out) and 2 sizes (nb, Bp); false where they do not fit.
+bool read_phases(int n_phases, void* const* ptrs, const int64_t* dims, Phases* ph,
+                 int64_t* lanes) {
+  if (n_phases < 1 || n_phases > kMaxPhases) return false;
+  *ph = Phases{};
+  ph->n = n_phases;
+  int64_t first = 0;
+  for (int k = 0; k < n_phases; ++k) {
+    Phase& P = ph->p[k];
+    P.pos = (const float*)ptrs[6 * k];
+    P.thr = (const float*)ptrs[6 * k + 1];
+    P.mid = (const int64_t*)ptrs[6 * k + 2];
+    P.live = (const bool*)ptrs[6 * k + 3];
+    P.ct = (const float*)ptrs[6 * k + 4];
+    P.out = (float*)ptrs[6 * k + 5];
+    P.nb = (int)dims[2 * k];
+    P.Bp = dims[2 * k + 1];
+    if (dims[2 * k] < 1 || dims[2 * k] >= (1 << 20) || P.Bp < 1 || P.Bp >= (1LL << 31))
+      return false;
+    P.first = first;
+    first += P.Bp;
+  }
+  *lanes = first;
+  return first < (1LL << 31);
+}
+
+bool scene_ok(int M, int sky, int H, int W, int C) {
+  return M >= 1 && M <= kMaxMats && sky >= 0 && sky < M && H >= 1 && W >= 1 && C >= 3 &&
+         (long long)H * W * C < (1LL << 31);
+}
+
 }  // namespace
 
 // C entry point of the forward (ctypes): launches on `stream`, does not
@@ -343,4 +587,61 @@ extern "C" int ptx_emission_backward(const float* ct, const int* bin, int N, con
   if (private_copy)
     return vec ? run(launch_backward<true, true>) : run(launch_backward<true, false>);
   return vec ? run(launch_backward<false, true>) : run(launch_backward<false, false>);
+}
+
+// C entry point of the sky bank's forward (ctypes): one launch on `stream`
+// over the lanes of every phase (ptrs: 6 a phase, pos thr mid live ct out,
+// ct unused; dims: nb and Bp a phase), which writes each phase's
+// contribution (Bp, 3) to its `out` and two int32 a lane (the picked record,
+// its texel; -1 for none) to sel.  xform and factor point at the chain's
+// rows (null where it has none), cst at the const table, const_row at each
+// material's emissive row (int64, on the device).  No synchronisation; returns
+// cudaGetLastError(), or cudaErrorInvalidValue for arguments it does not
+// take.
+extern "C" int ptx_sky_bank_forward(int n_phases, void* const* ptrs, const int64_t* dims,
+                                    const float* xform, const float* factor, const float* cst,
+                                    const int64_t* const_row, int M, int sky, const float* img,
+                                    int H, int W, int C, int mirror, int* sel, void* stream) {
+  Phases ph;
+  int64_t lanes = 0;
+  if (!read_phases(n_phases, ptrs, dims, &ph, &lanes) || !scene_ok(M, sky, H, W, C))
+    return (int)cudaErrorInvalidValue;
+  const ptx_skybank::Scene s = {cst, const_row, xform, factor, img, M, sky, H, W, C, mirror};
+  const int64_t blocks = (lanes + kBankThreads - 1) / kBankThreads;
+  sky_bank_forward_kernel<<<(unsigned)blocks, kBankThreads, 0, (cudaStream_t)stream>>>(
+      ph, lanes, s, sel);
+  return (int)cudaGetLastError();
+}
+
+// C entry point of the sky bank's backward (ctypes): two launches on
+// `stream`.  The first (cooperative) reads each phase's cotangent `ct` and
+// writes its d_thr to `out` (nb, Bp, 3), fills d_img (H, W, C), and leaves
+// a block's sums in `partial` (at most max_blocks blocks of kSums floats);
+// the second writes d_const (R, 3) and, where not null, d_factor
+// (factor_words floats, the chain's row at factor_off).  No output needs
+// zeros beforehand; no synchronisation.  Returns a CUDA error code.
+extern "C" int ptx_sky_bank_backward(int n_phases, void* const* ptrs, const int64_t* dims,
+                                     const float* factor, const float* cst,
+                                     const int64_t* const_row, int M, int sky, int R,
+                                     const float* img, int H, int W, int C, const int* sel,
+                                     float* d_img, float* d_const, float* d_factor,
+                                     int factor_words, int factor_off, float* partial,
+                                     int max_blocks, void* stream) {
+  Phases ph;
+  int64_t lanes = 0;
+  if (!read_phases(n_phases, ptrs, dims, &ph, &lanes) || !scene_ok(M, sky, H, W, C) ||
+      R < 1 || max_blocks < 1 ||
+      (d_factor && (factor_off < 0 || factor_off + 3 > factor_words)))
+    return (int)cudaErrorInvalidValue;
+  const ptx_skybank::Scene s = {cst, const_row, nullptr, factor, img, M, sky, H, W, C, 0};
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool vec = C == 4 && ((uintptr_t)d_img & 15) == 0;
+  int n_blocks = 0;
+  const int err = (vec ? launch_bank_backward<true> : launch_bank_backward<false>)(
+      ph, lanes, s, sel, d_img, partial, max_blocks, &n_blocks, st);
+  if (err) return err;
+  sky_bank_reduce_kernel<<<1, kReduceThreads, 0, st>>>(partial, n_blocks, const_row, M, sky, R,
+                                                       d_const, d_factor, factor_words,
+                                                       factor_off);
+  return (int)cudaGetLastError();
 }

@@ -48,9 +48,12 @@ decision-frozen replay.  ``compile_scene`` routes as the JAX package's
   ``unfused_bounces``);
 - emission: the fused emission kernel K7
   (:mod:`ptx_torch.ops.emission_kernel`) when a dynamic emissive chain is
-  not terminal or ``PTX_EMK=1``, else mat-sum + sky-select in plain
-  PyTorch.  Image gradients go through the histogram kernels K3 / K8
-  (:mod:`ptx_torch.ops.imagegrad`).
+  not terminal or ``PTX_EMK=1``, else mat-sum + sky-select: the sky bank
+  (:mod:`ptx_torch.ops.sky_bank`, one kernel pair) where the scene's one
+  dynamic emitter is a terminal chain K7's map takes (the demo's and
+  config 4's skies), else plain PyTorch.  Image gradients go through the
+  histogram kernels K3 / K8 (:mod:`ptx_torch.ops.imagegrad`) or the sky
+  bank's backward.
 
 Each kernel wrapper runs its plain version on CPU tensors, so the same
 routing serves the CPU and the card; no branch of it reads the device.
@@ -130,7 +133,8 @@ class CompiledScene:
     ``bounce_bwd_fn`` its replay backward (module docstring).  ``hit_fn``
     is K4's wrapper for scenes of at most 24 leaves, ``plain_hit_fn`` the
     dense first hit (K4's and K1's plain versions read it).
-    ``emission_fn`` is K7's wrapper or None; ``diff_keys`` the params
+    ``emission_fn`` is K7's wrapper or None, ``sky_bank`` the sky bank's
+    (:class:`~ptx_torch.ops.sky_bank.SkyBank`) or None; ``diff_keys`` the params
     ``ManualBounce`` passes to autograd; ``tile_hint`` (large scenes)
     turns on :func:`trace_rays`'s tile ordering.  Above 24 leaves
     ``plain_hit_fn`` is :func:`~ptx_torch.geom.fasthit.compile_fast_hit`'s
@@ -150,6 +154,7 @@ class CompiledScene:
     bounce_fn: Callable = None
     bounce_bwd_fn: Callable = None
     emission_fn: Callable = None
+    sky_bank: Callable = None
     diff_keys: tuple = DIFF_KEYS
     tile_hint: bool = False
 
@@ -185,7 +190,7 @@ def compile_scene(root, device, fast: bool = True, pallas: bool | None = None) -
     CUDA device every kernel wrapper launches its kernel or raises; there
     is no quiet fallback to a plain path."""
     from ptx_torch.geom.fasthit import MegaHit, SweepHit, compile_mega_bounce
-    from ptx_torch.ops import emission_kernel
+    from ptx_torch.ops import emission_kernel, sky_bank
     from ptx_torch.ops.bounce_kernel import BounceBwdKernel, BounceKernel
     from ptx_torch.ops.fasthit_kernel import HitKernel
     from ptx_torch.ops.replay_bwd import RowFedReplayBwd
@@ -238,6 +243,8 @@ def compile_scene(root, device, fast: bool = True, pallas: bool | None = None) -
         scene.bounce_bwd_fn = RowFedReplayBwd(scene)
     if fused and _want_emission_kernel(ordered, table) and emission_kernel.supported(table):
         scene.emission_fn = emission_kernel.EmissionKernel(table, device)
+    elif kernels and sky_bank.supported(table):
+        scene.sky_bank = sky_bank.SkyBank(table)
     return scene
 
 
@@ -865,53 +872,50 @@ def _emission(scene, params, saved, skysel):
     """Radiance each phase banks per lane, from its (nb, Bp) bounce records
     ``saved[pi] = (pos, thr, mid, live, orig)`` (``trace.py:1098-1227``):
 
-    - mat-sum (every dynamic emitter is terminal and handled by
-      sky-select): emission is a constant per material, so sum the live
-      throughput per material and multiply by that material's emissive row
-      once;
+    - mat-sum + sky-select (every dynamic emitter is terminal, sky-select
+      on): the sky bank where the scene has it (one launch a call forward,
+      two backward), else its plain version
+      :func:`~ptx_torch.ops.sky_bank.reference`;
     - otherwise evaluate the emissive slot once, on all phases' records
       concatenated in phase order: K7 when the scene has it (one launch per
-      ``trace_rays`` call), else the material table;
-    - sky-select (off with K7): a terminal material zeroes throughput, so at
-      most one record per lane has (terminal material ∧ throughput ≠ 0); its
-      chain is evaluated on that record only (first such bounce), phase by
-      phase.
+      ``trace_rays`` call), else the material table; then sky-select (off
+      with K7: :func:`select_add`) adds the
+      terminal chains on the one record per lane that reaches them.
     """
+    from ptx_torch.ops import sky_bank
+
     table = scene.material_fn
     term_chains = (table.terminal_dynamic_emissive
                    if skysel and scene.emission_fn is None else [])
     term_mis = {mi for mi, _ in term_chains}
-    mat_sum = bool(term_chains) and set(table.dynamic_slots["emissive"]) <= term_mis
-    ems = None
-    if not mat_sum:
-        em_eval = scene.emission_fn or (table.eval_emissive_base if term_chains
-                                        else table.eval_emissive)
-        em = em_eval(params, torch.cat([p.reshape(-1, 3) for p, *_ in saved]),
-                     torch.cat([m.reshape(-1) for _, _, m, *_ in saved]))
-        ems = em.split([m.numel() for _, _, m, *_ in saved])
+    if term_chains and set(table.dynamic_slots["emissive"]) <= term_mis:
+        if scene.sky_bank is not None:
+            return scene.sky_bank(params, saved)
+        return sky_bank.reference(table, params, saved)
+    em_eval = scene.emission_fn or (table.eval_emissive_base if term_chains
+                                    else table.eval_emissive)
+    ems = em_eval(params, torch.cat([p.reshape(-1, 3) for p, *_ in saved]),
+                  torch.cat([m.reshape(-1) for _, _, m, *_ in saved])).split(
+                      [m.numel() for _, _, m, *_ in saved])
     out = []
-    for pi, (pos, thr, mid, live, _) in enumerate(saved):
-        if mat_sum:
-            em_rows = params["const"][table.const_rows("emissive", thr.device)]
-            contrib = torch.zeros(thr.shape[1:], dtype=torch.float32,
-                                  device=thr.device)
-            for m in range(table.n_materials):
-                if m in term_mis:
-                    continue
-                wsum = torch.where((live & (mid == m))[..., None], thr, 0.0).sum(dim=0)
-                contrib = contrib + wsum * em_rows[m]
-        else:
-            em = ems[pi].reshape(thr.shape)
-            contrib = torch.where(live[..., None], thr * em, 0.0).sum(dim=0)
-
-        if term_chains:         # sky-select only (not with K7, nor with skysel off)
-            thr_nz = thr.abs().sum(dim=-1) > 0.0
-        for mi, fn in term_chains:
-            is_sel = live & (mid == mi) & thr_nz                    # (nb, Bp)
-            first = torch.argmax(is_sel.to(torch.uint8), dim=0)    # first True
-            pick = lambda a: a.gather(0, first[None, :, None].expand(1, -1, 3))[0]
-            em = fn(params, pick(pos))
-            contrib = contrib + torch.where(is_sel.any(dim=0)[:, None],
-                                            pick(thr) * em, 0.0)
-        out.append(contrib)
+    for (pos, thr, mid, live, _), em in zip(saved, ems):
+        contrib = torch.where(live[..., None], thr * em.reshape(thr.shape), 0.0).sum(dim=0)
+        out.append(select_add(contrib, params, pos, thr, mid, live, term_chains))
     return out
+
+
+def select_add(contrib, params, pos, thr, mid, live, term_chains):
+    """Sky-select: ``contrib`` plus, for each terminal chain, its emission
+    times the throughput on the first record of a lane with (its material ∧
+    live ∧ throughput ≠ 0) — at most one counts, as a terminal material
+    zeroes throughput — evaluated on that record only."""
+    if term_chains:
+        thr_nz = thr.abs().sum(dim=-1) > 0.0
+    for mi, fn in term_chains:
+        is_sel = live & (mid == mi) & thr_nz                    # (nb, Bp)
+        first = torch.argmax(is_sel.to(torch.uint8), dim=0)    # first True
+        pick = lambda a: a.gather(0, first[None, :, None].expand(1, -1, 3))[0]
+        em = fn(params, pick(pos))
+        contrib = contrib + torch.where(is_sel.any(dim=0)[:, None],
+                                        pick(thr) * em, 0.0)
+    return contrib

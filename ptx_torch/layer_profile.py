@@ -36,7 +36,9 @@ the recorder's :func:`~ptx_torch.utils.profiling.snapshot` beside it as
   and, apart from it (``k7_bwd``), K7's backward ``emission_backward_kernel``;
   ``hist_atomic_kernel``; ``sweep_select_kernel`` or
   ``sweep_sort_select_kernel`` (the union sweep's ``kernel`` mode:
-  ``PTX_SWEEP_MODE=kernel PTX_MEGAB=0`` with ``--large``);
+  ``PTX_SWEEP_MODE=kernel PTX_MEGAB=0`` with ``--large``); the sky bank
+  (``sb``: ``sky_bank_forward_kernel``; ``sb_bwd``:
+  ``sky_bank_backward_kernel`` and the ``sky_bank_reduce_kernel`` after it);
 - the ``TOP`` kernels by total device time, with their calls, and the
   ``TOP`` longest device idle gaps, each named by the innermost span open
   on the host at its midpoint (:func:`idle_gaps`);
@@ -85,7 +87,9 @@ KERNELS = {"k1": (("bounce_forward_kernel",), None),
            "k7": (("emission_forward_kernel",), None),
            "k7_bwd": (("emission_backward_kernel",), None),
            "k8": (("hist_atomic_kernel",), None),
-           "k9": (("sweep_select_kernel", "sweep_sort_select_kernel"), None)}
+           "k9": (("sweep_select_kernel", "sweep_sort_select_kernel"), None),
+           "sb": (("sky_bank_forward_kernel",), None),
+           "sb_bwd": (("sky_bank_backward_kernel",), "sky_bank_reduce_kernel")}
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 TOP = 8                         # kernels listed by total device time, and idle gaps
 
@@ -142,9 +146,10 @@ def summarize(events, layers=profiling.SPANS + profiling.UNFUSED_SPANS):
 
     Returns a dict: ``kernels`` (launches), ``busy_ms`` (device),
     ``host_ms`` (profiled host wall, first to last host event),
-    ``k1_calls``, ``k1_mean_us`` (device time per call; also for k2-k9
-    and ``k7_bwd``;
-    ``k2_second_us``, ``k6_second_us``: the second launch's share)
+    ``k1_calls``, ``k1_mean_us`` (device time per call; also for k2-k9,
+    ``k7_bwd``, ``sb`` and ``sb_bwd``;
+    ``k2_second_us``, ``k6_second_us``, ``sb_bwd_second_us``: the second
+    launch's share)
     and ``layers``: per span name ``kernels`` and ``device_ms`` (of the
     launches it is the innermost of ``layers`` open at) and
     ``host_share``."""

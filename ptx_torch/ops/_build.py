@@ -72,6 +72,16 @@ def _entry_points():
          [vp, vp, i, vp, i, i, i, i, vp]  # ct, bin, N, image, H W C, R, factor
          + [vp, vp, vp, i, i, i, vp], i),  # d_img d_const d_factor, words, offset, private, stream
         ("ptx_emission_backward_private_fits", [i, i, i, vp], i),   # H W R, fits
+        ("ptx_sky_bank_forward",
+         [i, vp, vp]                      # phases, their pointers, their sizes
+         + [vp] * 4 + [i, i]              # xform, factor, const, const rows, M, sky
+         + [vp, i, i, i, i, vp, vp], i),  # image, H W C, mirror, sel, stream
+        ("ptx_sky_bank_backward",
+         [i, vp, vp]                      # phases, their pointers, their sizes
+         + [vp] * 3 + [i, i, i]           # factor, const, const rows, M, sky, R
+         + [vp, i, i, i, vp]              # image, H W C, sel
+         + [vp] * 3 + [i, i]              # d_img d_const d_factor, words, offset
+         + [vp, i, vp], i),               # partial, its blocks, stream
         ("ptx_megasweep_smem", [i] * 9, i),
         ("ptx_megasweep",
          [vp, i, vp, i]                   # scene floats, words, int table, words

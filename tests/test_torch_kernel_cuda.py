@@ -37,7 +37,12 @@ its five outputs must equal its plain version's bit for bit, with both
 flags, at every tile width and segment count, and through the kernel
 mode's route (the sort inside K9) as through the ``torch.sort`` route.
 K4 writes the dense hit's dict itself: ``mat_id``, ``hit``, ``entering``
-and ``_evt`` must equal the plain dict's, in its dtypes.  K10 and K11 run
+and ``_evt`` must equal the plain dict's, in its dtypes.  The sky bank
+(``ops/sky_bank.py``) is held by ``chip_smoke.sky_bank_check``: its picks
+and texels equal to the plain route's, its floats within the float64 rule,
+each record's throughput gradient bit for bit, the same bits run to run but
+the image's gradient; 1 forward and 2 backward launches a ``trace_rays``
+call.  K10 and K11 run
 their plain versions' float32 operations in the same order, each rounded
 on its own: they must equal them bit for bit.  The rng kernel hashes
 integers as the int64 route does: its draws must equal the route's bit for
@@ -917,11 +922,15 @@ def test_autograd_route_on_k4_with_and_without_remat(cuda_scene):
     for bit and each output within ``chip_smoke._hist_bound_ok`` (K3's
     float atomics add in an order that varies with the launches around
     them); the manual route's gradients (K1, K2) within 1e-4 of each
-    tensor's largest entry."""
+    tensor's largest entry.  The scene's sky bank is off, so that the sky's
+    gradient goes through K3 (the bank's own run-to-run check is
+    ``test_sky_bank_matches_its_plain_route``)."""
+    import dataclasses
+
     from chip_smoke import _recording_hists
     from ptx_torch.ops import fasthit_kernel
 
-    scene, dev = cuda_scene, cuda_scene.device
+    scene, dev = dataclasses.replace(cuda_scene, sky_bank=None), cuda_scene.device
     key = rng.PRNGKey(8)
     o, d = sample_rays(Camera.reference_demo(64, 64), key, range(64), range(64), 2, dev)
 
@@ -1110,3 +1119,86 @@ def test_rng_kernel_raises_on_a_refused_launch(rng_card, monkeypatch):
     with pytest.raises(RuntimeError, match="launch failed"):
         rng.uniform_many(_rng_keys(2), (100,), rng_card)
     assert rng_kernel.LAUNCHES == launches
+
+
+@pytest.fixture(scope="module")
+def bank_scenes():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the sky bank has no CPU mode")
+    from ptx_torch.scenes.builders import baseline_config4
+
+    dev = torch.device("cuda")
+    return {"demo": trace.compile_scene(make_world(), dev),
+            "config4": trace.compile_scene(baseline_config4(), dev)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world,B", [("demo", 65_536), ("config4", 65_536),
+                                     ("demo", 4_194_304)])
+def test_sky_bank_matches_its_plain_route(bank_scenes, world, B):
+    """The kernel pair against the plain route in float64, every output,
+    both image regimes, and run to run (``chip_smoke.sky_bank_check``)."""
+    from chip_smoke import sky_bank_check
+
+    sky_bank_check(bank_scenes[world], B, 7, f"sky bank {world}")
+
+
+@pytest.mark.cuda
+def test_sky_bank_launches_and_gradients_through_trace_rays(bank_scenes):
+    """A compacted 16,384-ray demo wavefront at depth 16 (three phases)
+    forward and backward: 1 forward and 2 backward launches by the counts
+    and the recorder's ``sky_bank_launches``, no K3 (the sky's gradient is
+    the bank's); a render call 1 launch; the radiance and every gradient as
+    the plain route's on the card (the scene without its bank, K3 for the
+    sky) within ``rtol 1e-4``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ptx_torch.ops import imagegrad, sky_bank
+    from ptx_torch.utils import profiling
+
+    scene = bank_scenes["demo"]
+    o, d = sample_rays(Camera.reference_demo(128, 128), rng.PRNGKey(2), range(128),
+                       range(128), 1, scene.device)
+    leaf = lambda: {k: ([x.detach().clone().requires_grad_(True) for x in v]
+                        if isinstance(v, list) else v.detach().clone().requires_grad_(True))
+                    for k, v in scene.params.items()}
+    wgt = torch.rand(o.shape, device=scene.device, generator=torch.Generator(
+        device=scene.device).manual_seed(3))
+
+    def run(params):
+        rad = trace.trace_rays(scene, params, o, d, rng.PRNGKey(2), 16)
+        (rad * wgt).sum().backward()
+        return rad.detach()
+
+    pk = leaf()
+    run(pk)                                      # built and loaded
+    torch.cuda.synchronize()
+    pk = leaf()
+    f0, b0, h0 = sky_bank.LAUNCHES, sky_bank.BWD_LAUNCHES, imagegrad.LAUNCHES
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        rad = run(pk)
+        torch.cuda.synchronize()
+    counted = profiling.snapshot()["counters"].get("sky_bank_launches", 0)
+    profiling.reset()
+    assert (sky_bank.LAUNCHES - f0, sky_bank.BWD_LAUNCHES - b0, counted) == (1, 2, 3)
+    assert imagegrad.LAUNCHES == h0
+    with torch.no_grad():
+        trace.trace_rays(scene, scene.params, o, d, rng.PRNGKey(2), 16)
+    assert (sky_bank.LAUNCHES - f0, sky_bank.BWD_LAUNCHES - b0) == (2, 2)
+
+    bank, scene.sky_bank = scene.sky_bank, None
+    try:
+        pp = leaf()
+        rad_p = run(pp)
+    finally:
+        scene.sky_bank = bank
+    torch.testing.assert_close(rad, rad_p, rtol=1e-4, atol=1e-5)
+    for k in pk:
+        for a, b in zip(*(x if isinstance(x, list) else [x] for x in (pk[k], pp[k]))):
+            assert (a.grad is None) == (b.grad is None), k
+            if a.grad is not None:
+                scale = float(b.grad.abs().max())
+                torch.testing.assert_close(a.grad, b.grad, rtol=1e-4,
+                                           atol=1e-4 * scale + 1e-7, msg=k)
+    assert float(pk["images"][bank.img_id].grad.abs().sum()) > 0
