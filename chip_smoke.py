@@ -234,7 +234,7 @@ G1. a world-1 NCCL group made with a ``HashStore`` (NCCL's all-reduces
     without a mesh, run twice: the loss bit for bit, the params bit for
     bit wherever the two runs agree, and where float atomics make them
     differ, within twice their distance (at least one ulp; the counts are
-    logged); ``render_adaptive(mesh=)`` (K1 34: a base pass at spp 16 and
+    logged); ``render_adaptive_sharded`` (K1 34: a base pass at spp 16 and
     a round of 32,768 pixels × 16) equal to the adaptive render from the
     unsharded moments; seconds beside the unsharded calls; the all-reduce
     of the frame (3 MiB) and of the gradient buffer timed;
@@ -730,11 +730,20 @@ def _flipped_pixels(scene, log_a, log_b, lanes, n_chunks, spans=False):
 
 
 def _recording(fn, log_list):
+    """A bounce that logs each call's inputs and output around ``fn``; it
+    packs nothing, so ``fn`` (a kernel's wrapper) packs its scene buffer
+    at each call itself."""
     def call(params, *inputs, packed=None):
         out = fn(params, *inputs, packed=packed)
         log_list.append((inputs, out))
         return out
+    call.pack = _packs_nothing
     return call
+
+
+def _packs_nothing(params):
+    """The ``pack`` of a double that leaves packing to what it wraps."""
+    return None
 
 
 def phase_band_vs_plain(scene):
@@ -1003,8 +1012,8 @@ def _recording_hists(log_list, outputs=None):
 
 class _RecordingBwd:
     """A replay backward wrapper (K2's or K6's) that logs each call's
-    inputs; its other attributes are the wrapper's (``takes_packed``,
-    ``pack``), so ``trace_rays`` routes as it would without it."""
+    inputs; its other attributes are the wrapper's (``pack``), so
+    ``trace_rays`` routes as it would without it."""
 
     def __init__(self, kern, log_list):
         self.kern, self.log = kern, log_list
@@ -1023,39 +1032,6 @@ def _recording_bwd(scene, log_list):
                                                                   log_list))
 
 
-# Ten times the largest reading of the float64 rule (4.45e-5: K3's direct
-# regime forced onto config 4's 8×8 checker at a step's 4,194,304 lanes,
-# ~65,536 device-memory atomics a texel; the routed regimes read ≤ 1e-6)
-HIST_REL = 5e-4
-HIST_WORST = {"ratio": 0.0, "where": "none"}   # the run's largest K3 / K8 reading
-
-
-def _hist_bound_ok(name, got, yi, xi, inb, ct, shape):
-    """K3 / K8 against ``hist_reference`` run in float64: every texel within
-    ``min(2·n·2⁻²⁴, HIST_REL)·Σ|ct|`` of it, n the texel's lanes with a
-    nonzero ct (the reordered-sum bound where it is the tighter; else a
-    limit that does not grow with n, so a step's millions of lanes on one
-    texel still check the sum to ``HIST_REL`` of its magnitude; K7's rule,
-    ``_k7_bwd_within_bound``).  Returns (max|k − p|, the largest
-    |k − p| / Σ|ct|), and keeps the run's largest ratio in ``HIST_WORST``."""
-    import torch
-    from ptx_torch.ops import imagegrad
-
-    ct64 = ct.double()
-    want = imagegrad.hist_reference(yi, xi, inb, ct64, shape)
-    mag = imagegrad.hist_reference(yi, xi, inb, ct64.abs(), shape)
-    n = imagegrad.hist_reference(yi, xi, inb, (ct != 0).double(), shape)
-    err = (got.double() - want).abs()
-    bad = err > torch.clamp(2 * n * U32, max=HIST_REL) * mag
-    if not bool(torch.isfinite(got).all()) or bool(bad.any()):
-        raise AssertionError(f"{name}: {int(bad.sum())} texels more than min(2·n·2⁻²⁴, "
-                             f"{HIST_REL:g})·Σ|ct| off the float64 sum (or not finite)")
-    ratio = float((err / mag)[mag > 0].max()) if bool((mag > 0).any()) else 0.0
-    if ratio > HIST_WORST["ratio"]:
-        HIST_WORST.update(ratio=ratio, where=name)
-    return float(err.max()), ratio
-
-
 def _check_k2(scene, recorded, tag, name="K2"):
     """K2 (or K6, ``name``) against its plain versions on each recorded
     backward bounce (the same saved carry, decisions and cotangents): per
@@ -1065,7 +1041,7 @@ def _check_k2(scene, recorded, tag, name="K2"):
     at the scale of the folded sums of |term|; ``d_params`` (``d_packed``
     through the packing's VJP) by
     :func:`_close_f64` against ``bounce_bwd_reference`` (autograd through
-    ``trace._bounce_replay``), the float64 sums mapped to the params as
+    ``shade.bounce._bounce_replay``), the float64 sums mapped to the params as
     truth, at each tensor's largest entry; two launches the same bits.
     Returns max|k − p|."""
     import torch
@@ -1136,11 +1112,12 @@ def _check_hists(hists, tag, kernel="K3", n=3, outputs=None):
         if kernel != ("K3" if imagegrad.fits_k3(shape) else "K8"):
             raise AssertionError(f"{tag}: a {tuple(shape)} image does not route to {kernel}")
         got = outputs[i] if outputs is not None else imagegrad.hist(yi, xi, inb, ct, shape)
-        e, ratio = _hist_bound_ok(f"{kernel} N={yi.numel()}", got, yi, xi, inb, ct, shape)
+        e, ratio = imagegrad._hist_bound_ok(f"{kernel} N={yi.numel()}", got, yi, xi, inb, ct,
+                                            shape)
         err = max(err, e)
         log(f"[{tag}] {tuple(shape)} N={yi.numel()} in bounds {int(inb.sum())} "
             f"max_abs_err {e:.3g}, largest |k − p| / Σ|ct| {ratio:.3g} (limit "
-            f"min(2·n·2⁻²⁴, {HIST_REL:g}))")
+            f"min(2·n·2⁻²⁴, {imagegrad.HIST_REL:g}))")
     return err
 
 
@@ -1196,10 +1173,12 @@ def _plain_scene(scene):
     unfused composition on the dense hit) and ``eval_emissive``."""
     from ptx_torch.ops.bounce_kernel import bounce_bwd_reference, bounce_reference
 
+    fwd = functools.partial(bounce_reference, scene)
+    fwd.pack = _packs_nothing
+    bwd = functools.partial(bounce_bwd_reference, scene)
+    bwd.pack = _packs_nothing
     return dataclasses.replace(
-        scene, hit_fn=scene.plain_hit_fn,
-        bounce_fn=functools.partial(bounce_reference, scene),
-        bounce_bwd_fn=functools.partial(bounce_bwd_reference, scene),
+        scene, hit_fn=scene.plain_hit_fn, bounce_fn=fwd, bounce_bwd_fn=bwd,
         emission_fn=scene.material_fn.eval_emissive if scene.emission_fn else None,
         sky_bank=None)
 
@@ -1625,7 +1604,8 @@ def phase_timing_k3(k3_ins):
         regimes = []
         for rname, plan in plans.items():
             run = lambda: imagegrad.k3.launch(yi, xi, inb, ct, shape, plan=plan)
-            ratio = _hist_bound_ok(f"K3 {rname} N={N}", run(), yi, xi, inb, ct, shape)[1]
+            ratio = imagegrad._hist_bound_ok(f"K3 {rname} N={N}", run(), yi, xi, inb, ct,
+                                             shape)[1]
             regimes.append(f"{rname} {plan} {_time_back_to_back_ms(run):.4f} ms "
                            f"(|k − p| / Σ|ct| at most {ratio:.3g})"
                            + (" (routed)" if plan == routed else ""))
@@ -2686,7 +2666,7 @@ def phase_k9_chunk(scene, tag, k5_check):
     from ptx_torch.core import rng
     from ptx_torch.core.constants import EPS
     from ptx_torch.geom import fasthit
-    from ptx_torch.integrate.trace import trace_rays
+    from ptx_torch.integrate.trace import compile_fast_hit, trace_rays
     from ptx_torch.ops import sweep_kernel
 
     key = rng.fold(rng.PRNGKey(0), 0, 4)
@@ -2700,7 +2680,7 @@ def phase_k9_chunk(scene, tag, k5_check):
         raise AssertionError(f"{tag}: hit widths {widths}")
     hit = scene.hit_fn
     other = {m: fasthit.UnionSweepHit(scene.plan, hit.leaves, m) for m in ("fixpoint", "sort")}
-    mega = (fasthit.compile_fast_hit(scene.plan, scene.params, sweep_mode="mega")
+    mega = (compile_fast_hit(scene.plan, scene.params, sweep_mode="mega")
             if k5_check else None)
     lanes, k9_err, flips, err, passes = 0, 0.0, 0, 0.0, []
     for b, (ob, db, out_k) in enumerate(rec):
@@ -3167,6 +3147,7 @@ def phase_f2_adaptive(scene):
         if on[0]:
             recorded.append((inputs, out_))
         return out_
+    bounce.pack = _packs_nothing
 
     part = AdaptiveCheckpoint(H, W, b)
 
@@ -3565,7 +3546,7 @@ def phase_g1_mesh_demo(scene):
     akey = rng.PRNGKey(G_ADAPT_KEY)
     (a_img, a_count, _), out["adaptive_s"] = counted(
         "G1 render_adaptive(mesh)", _expect_demo(2),
-        lambda: adaptive.render_adaptive(scene, cam, akey, mesh=mesh, **kw))
+        lambda: prender.render_adaptive_sharded(scene, cam, mesh, akey, **kw))
     rad = _unsharded(scene, akey)
     base = (rad.sum(dim=0), (rad ** 2).sum(dim=0),
             torch.full((H, W), float(SPP), device=dev), 0)
@@ -3845,18 +3826,18 @@ def phase_g3_two_ranks(scene):
 def _band(scene, bounce_log, y0=248, rows=16, spp=2):
     """Phase 4's band (``rows`` rows from ``y0``, ``spp`` one-sample
     chunks, no compaction), each bounce recorded: through ``bounce_fn``, or
-    (a scene without one) through ``trace._bounce_live``."""
+    (a scene without one) through ``shade.bounce._bounce_live``."""
     import torch
     from ptx_torch.core import rng
-    from ptx_torch.integrate import trace
     from ptx_torch.integrate.camera import Camera
     from ptx_torch.integrate.render import render_rows
+    from ptx_torch.shade import bounce
 
     cam = Camera.reference_demo(W, H)
     if scene.bounce_fn is not None:
         sk = dataclasses.replace(scene, bounce_fn=_recording(scene.bounce_fn, bounce_log))
         return render_rows(sk, scene.params, cam, rng.PRNGKey(0), y0, rows, 1, spp, DEPTH)
-    live = trace._bounce_live
+    live = bounce._bounce_live
 
     def recorded(hit_fn, material_fn, params, o, d, thr, strength, alive, in_depth, uc, u3):
         carry, dec = live(hit_fn, material_fn, params, o, d, thr, strength, alive, in_depth,
@@ -3866,7 +3847,7 @@ def _band(scene, bounce_log, y0=248, rows=16, spp=2):
                            dict(dec, o2=carry[0], d2=carry[1], thr2=carry[2],
                                 strength2=carry[3], alive2=carry[4])))
         return carry, dec
-    with _swapped(trace, "_bounce_live", recorded), torch.no_grad():
+    with _swapped(bounce, "_bounce_live", recorded), torch.no_grad():
         return render_rows(scene, scene.params, cam, rng.PRNGKey(0), y0, rows, 1, spp, DEPTH)
 
 
@@ -3880,11 +3861,12 @@ def phase_g4_knobs(scene):
     from ptx_torch.integrate.camera import Camera
     from ptx_torch.integrate.render import render_tile
     from ptx_torch.scenes import builders
+    from ptx_torch.shade.bounce import UnfusedBounce
 
     dev, cam = scene.device, Camera.reference_demo(W, H)
     with _env(PTX_FUSED="0"):
         unfused = trace.compile_scene(builders.make_world(), dev)
-    if not isinstance(unfused.bounce_fn, trace.UnfusedBounce):
+    if not isinstance(unfused.bounce_fn, UnfusedBounce):
         raise AssertionError("G4: PTX_FUSED=0 kept the fused bounce")
     y0, rows, key = 192, BAND_ROWS, rng.PRNGKey(3)
     log_k, log_u = [], []
@@ -4925,6 +4907,7 @@ def main():
         return 1
     sys.path.insert(0, ROOT)
     from ptx_torch.integrate.trace import compile_scene
+    from ptx_torch.ops import imagegrad
     from ptx_torch.scenes import builders
 
     dev = torch.device("cuda", 0)
@@ -5097,7 +5080,8 @@ def main():
         f"adaptive farm {f3a_rays:.4g} rays/s (K1 {f3a_k1}), from the serve subprocesses "
         f"{f3c_rays:.4g} / {f3ca_rays:.4g} rays/s, band flips {f3_flips}; K3 / K8 largest "
         f"|k − p| / "
-        f"Σ|ct| {HIST_WORST['ratio']:.3g} ({HIST_WORST['where']}, limit {HIST_REL:g}); path G: "
+        f"Σ|ct| {imagegrad.HIST_WORST['ratio']:.3g} ({imagegrad.HIST_WORST['where']}, limit "
+        f"{imagegrad.HIST_REL:g}); path G: "
         f"1x1 NCCL mesh render {g1['render_s']:.3f} s (phase 4: {rays_s:.4g} rays/s), step "
         f"{g1['step_s']:.3f} s (phase 7: {min(secs):.3f} s), adaptive {g1['adaptive_s']:.3f} s, "
         f"S1 step {g2['s1_step_s']:.3f} s; all-reduce of the frame {g1['frame_ms']:.4f} ms, of "

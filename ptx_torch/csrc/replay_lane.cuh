@@ -3,7 +3,7 @@
 //
 // The forward is ptx_torch/ops/bounce_kernel.py replay_lane_math (the
 // selected-boundary recompute of geom/hitreplay.py, then the differentiable
-// half of integrate/trace.py _bounce_replay); the adjoint below is its
+// half of shade/bounce.py _bounce_replay); the adjoint below is its
 // reverse sweep, written line by line.  The Pallas kernel this replaces
 // (ptx/ops/bounce_kernel.py:578) ran jax.vjp on the same math while it was
 // traced; CUDA has no such thing.
@@ -146,7 +146,7 @@ PTX_HD bool replay_lane_vjp(const float* row, const float* ms, bool sph, float p
   const V3 n = hit ? V3{wv.x * minv * sign, wv.y * minv * sign, wv.z * minv * sign}
                    : V3{0.f, 0.f, 1.f};      // constant unit placeholder on a miss
 
-  // ---- forward + reverse of the shading (trace._bounce_replay) -------------
+  // ---- forward + reverse of the shading (bounce._bounce_replay) ------------
   const V3 nu = normalize(n);
   V3 g_nu = {0.f, 0.f, 0.f}, g_n = {0.f, 0.f, 0.f};
   V3 gd = {0.f, 0.f, 0.f};

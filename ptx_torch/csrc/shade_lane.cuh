@@ -2,9 +2,9 @@
 // (bounce_kernel.cu, after its CSG fold) and K5 in bounce mode
 // (megasweep_kernel.cu, after its union sweep): one lane, given its first
 // hit.  It is the port of ptx/ops/bounce_kernel.py shade_lane_math; its plain
-// PyTorch version is ptx_torch/integrate/trace.py _bounce_live after the hit.
+// PyTorch version is ptx_torch/shade/bounce.py _bounce_live after the hit.
 //
-// - The material arrives as 9 scalars (ops/bounce_kernel.py material_rows):
+// - The material arrives as 9 scalars (shade/materials.py BOUNCE_ROW):
 //   reflect (3), mean scatter, transmit (3), mean transmit_reflect, ior.
 // - The uniforms are inputs, drawn by ptx_torch.core.rng exactly as the JAX
 //   package draws them: the kernels and the plain version see the same
@@ -86,7 +86,7 @@ __device__ __forceinline__ Shaded shade_lane(bool hit, bool entering, float t, V
   const float add_factor = 1.f - p_transmit;
   bool scatter_alive = cont && !take_transmit && (add_factor >= kEps);
 
-  // exact ball-cap scatter sampler (trace.sample_scatter_dir)
+  // exact ball-cap scatter sampler (bounce.sample_scatter_dir)
   const float two_dn = 2.f * dot3(d, n_unit);
   const Vec3 reflected = {d.x - two_dn * n_unit.x, d.y - two_dn * n_unit.y,
                           d.z - two_dn * n_unit.z};
@@ -124,7 +124,7 @@ __device__ __forceinline__ Shaded shade_lane(bool hit, bool entering, float t, V
   const Vec3 new_dir = take_transmit ? refr : scat;
   const Vec3 tint = take_transmit ? tr : Vec3{factor * rfl.x, factor * rfl.y, factor * rfl.z};
 
-  // strength bookkeeping with the virtual fan-out (trace._virtual_fanout)
+  // strength bookkeeping with the virtual fan-out (bounce._virtual_fanout)
   const float tr_strength = strength * refract_factor * sqrtf(dot3(tr, tr));
   float vcount = floorf(10000.f * strength * add_factor * sc);
   vcount = (sc <= kEps || vcount < 1.f) ? 1.f : vcount;

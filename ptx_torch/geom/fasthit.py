@@ -7,43 +7,35 @@ candidate where the two differ is a boundary of the root solid, and the
 first hit is the minimum such boundary with ``t >= EPS``.  The JAX
 module's docstring proves this equals the reference's span walk.
 
-:func:`compile_fast_hit` routes as the JAX function does (:399-412):
+The plain hits (:class:`PlainHit`: they read the params and pack
+nothing), which ``ptx_torch.integrate.trace.compile_fast_hit`` picks
+among as the JAX function does (:399-412):
 
-- a union of more than one group (a leaf or a gadget of at most 12
-  leaves) with more than 24 leaves takes the union sweep, in the mode
-  :func:`resolve_sweep_mode` picks: ``mega``, the megasweep's plain
-  version :func:`~ptx_torch.ops.megasweep.megasweep_reference`
-  (:class:`SweepHit`; its kernel is K5, :class:`MegaHit` and
-  :func:`compile_mega_bounce`), on a mega-eligible tape; otherwise
-  :class:`UnionSweepHit` (``fixpoint``, ``sort``, or ``kernel`` with the
+- :class:`DenseHit`, the dense fold up to 64 leaves: it materializes the
+  (2L, L, B) membership tensors and is the plain version of the hit-only
+  kernel K4 and of K1's hit (``ptx_torch/csrc/hit_fold.cuh``);
+- :class:`BlockedHit`, the candidate-blocked scan, above 64 leaves;
+- :class:`UnionSweepHit`, the union sweep of a union of small groups in
+  ``fixpoint``, ``sort`` or ``kernel`` mode (the last with the
   sweep-select kernel K9), whose gadgets' coverage comes from a local
-  membership fold;
-- otherwise the dense fold up to 64 leaves: it materializes the (2L, L, B)
-  membership tensors and is the plain version of the hit-only kernel K4
-  and of K1's hit (``ptx_torch/csrc/hit_fold.cuh``); above 64 leaves the
-  candidate-blocked scan, :class:`BlockedHit`.
+  membership fold.  The sweep's ``mega`` mode is K5's plain version,
+  ``ptx_torch.ops.megasweep.SweepHit``.
 
-The dense, blocked, ``fixpoint`` and ``sort`` hits are plain PyTorch on
-every device, as the JAX package leaves them to XLA.
+:class:`HitReplay` carries the hits' ``t`` and normal to autograd, for
+these and for the kernels' hits alike.
 """
 
 from __future__ import annotations
-
-import os
 
 import numpy as np
 import torch
 
 from ptx_torch.core import linalg
 from ptx_torch.core.constants import EPS, MAX_VALUE
-from ptx_torch.geom import tape
+from ptx_torch.geom import hitreplay, tape
+from ptx_torch.ops import sweep_kernel
 
 PAD_T = 3e20                 # "no boundary" sentinel, above MAX_VALUE
-DENSE_L_MAX = 64             # the JAX package's dense-path limit
-SWEEP_L_MIN = 24             # union tapes above this many leaves take the sweep
-SWEEP_GROUP_MAX = 12         # ... when every group has at most this many leaves
-DEFAULT_CANDIDATE_BLOCK = 32  # events per block of the candidate-blocked scan
-SWEEP_MODES = ("fixpoint", "sort", "kernel", "mega")
 NEG = -3e20                  # end of an invalid sweep interval: extends no chain
 GEO_KEYS = ("sphere_center", "sphere_radius", "plane_normal", "plane_d", "xform")
 
@@ -278,85 +270,47 @@ def _bits_at(node, leaf_pos, bits):
     return out
 
 
-def resolve_sweep_mode(plan, leaves, sweep_kernel=None, sweep_mode=None) -> str:
-    """The union sweep's mode, resolved as the JAX package does
-    (``ptx/geom/fasthit.py:775-807``): an explicit ``sweep_mode``; else
-    ``sweep_kernel`` (True: ``kernel``, False: ``sort``); else
-    ``PTX_SWEEP_KERNEL=1`` (``kernel``); else ``PTX_SWEEP_MODE``; else
-    ``mega`` on a mega-eligible tape and ``fixpoint`` on any other.  The
-    JAX package takes ``mega`` by default on its accelerator only; the port
-    routes alike on every device, so that the CPU runs the plain version of
-    what the card runs.  ``mega`` on a tape that is not mega-eligible falls
-    back to ``fixpoint``."""
-    from ptx_torch.ops.megasweep import mega_eligible
+class PlainHit:
+    """A first hit in plain PyTorch, on every device, as the JAX package
+    leaves its hits to XLA: it reads the params, so it packs nothing for a
+    ``trace_rays`` call (:meth:`pack` is None)."""
 
-    if sweep_kernel not in (None, True, False):
-        raise ValueError(f"sweep_kernel must be True, False or None, not {sweep_kernel!r}: "
-                         "the device of the tensors decides between K9 and its plain version")
-    eligible = mega_eligible(plan, leaves)
-    if sweep_mode is None:
-        if sweep_kernel is not None:
-            sweep_mode = "kernel" if sweep_kernel else "sort"
-        elif os.environ.get("PTX_SWEEP_KERNEL") == "1":
-            sweep_mode = "kernel"
-        else:
-            sweep_mode = os.environ.get("PTX_SWEEP_MODE", "mega" if eligible else "fixpoint")
-    if sweep_mode == "mega" and not eligible:
-        sweep_mode = "fixpoint"
-    if sweep_mode not in SWEEP_MODES:
-        raise ValueError(f"unknown sweep mode {sweep_mode!r}; one of {SWEEP_MODES}")
-    return sweep_mode
+    def pack(self, params):
+        return None
 
 
-def compile_fast_hit(plan, params_ref=None, candidate_block: int | None = None,
-                     sweep: bool | None = None, sweep_kernel: bool | None = None,
-                     sweep_mode: str | None = None):
-    """``hit_fn(params, origin, direction) -> dict`` for flat (B, 3) rays:
-    ``t`` (0 on miss), signed ``normal`` (B, 3), ``mat_id``, ``entering``,
-    ``hit`` and ``_evt``, the winning event index (leaf ``k`` start = k,
-    end = L + k) — the dict ``ptx.geom.fasthit.compile_fast_hit`` returns.
-    Routing: module docstring.  ``sweep`` and ``candidate_block`` force a
-    strategy (``candidate_block=0``: the dense fold), ``sweep_kernel`` and
-    ``sweep_mode`` the sweep's mode (:func:`resolve_sweep_mode`);
-    ``params_ref`` (the params at compile time) orders the megasweep's
-    rows for culling only."""
-    leaves = collect_leaves(plan)
-    L = len(leaves)
-    if sweep is None:
-        groups = union_decompose(plan)
-        gmax = max(1 if isinstance(g, tape._LeafPlan) else len(collect_leaves(g))
-                   for g in groups)
-        sweep = (candidate_block is None and L > SWEEP_L_MIN and len(groups) > 1
-                 and gmax <= SWEEP_GROUP_MAX)
-    if sweep:
-        mode = resolve_sweep_mode(plan, leaves, sweep_kernel, sweep_mode)
-        if mode == "mega":
-            return SweepHit(plan, leaves, params_ref)
-        return UnionSweepHit(plan, leaves, mode)
-    if candidate_block is None and L > DENSE_L_MAX:
-        candidate_block = DEFAULT_CANDIDATE_BLOCK
-    if candidate_block:
-        return BlockedHit(plan, leaves, candidate_block)
-    parity_list = [p for _, p in leaves]
-    mats_list = [lf.mat_id for lf, _ in leaves]
-    leaf_pos = {id(lf): i for i, (lf, _) in enumerate(leaves)}
+class DenseHit(PlainHit):
+    """The dense fold (up to 64 leaves): ``hit(params, origin, direction)``
+    on flat (B, 3) rays returns ``t`` (0 on miss), signed ``normal`` (B,
+    3), ``mat_id``, ``entering``, ``hit`` and ``_evt``, the winning event
+    index (leaf ``k`` start = k, end = L + k) — the dict
+    ``ptx.geom.fasthit.compile_fast_hit`` returns.  It materializes the
+    (2L, L, B) membership tensors; the plain version of K4 and of K1's hit
+    (``ptx_torch/csrc/hit_fold.cuh``)."""
 
-    def hit_fn(params, origin, direction):
+    def __init__(self, plan, leaves):
+        self.plan, self.leaves = plan, leaves
+        self.parity_list = [p for _, p in leaves]
+        self.mats_list = [lf.mat_id for lf, _ in leaves]
+        self.leaf_pos = {id(lf): i for i, (lf, _) in enumerate(leaves)}
+
+    def __call__(self, params, origin, direction):
+        L = len(self.leaves)
         device = origin.device
-        parity = torch.tensor(parity_list, dtype=torch.float32, device=device)
-        mat_ids = torch.tensor(mats_list, dtype=torch.int64, device=device)
+        parity = torch.tensor(self.parity_list, dtype=torch.float32, device=device)
+        mat_ids = torch.tensor(self.mats_list, dtype=torch.int64, device=device)
         ox, oy, oz = origin.unbind(-1)
         dx, dy, dz = direction.unbind(-1)
         t0, t1, (n0x, n0y, n0z), (n1x, n1y, n1z) = _leaf_intervals(
-            leaves, params, ox, oy, oz, dx, dy, dz)
+            self.leaves, params, ox, oy, oz, dx, dy, dz)
 
         t_evt = torch.cat([t0, t1], dim=0)                  # (2L, B)
         ts = t_evt[:, None, :]
         lo, hi = t0[None], t1[None]                          # (1, L, B)
         after = (lo <= ts) & (ts < hi)                       # (2L, L, B)
         before = (lo < ts) & (ts <= hi)
-        root_after = _bits_at(plan, leaf_pos, after)         # (2L, B)
-        root_before = _bits_at(plan, leaf_pos, before)
+        root_after = _bits_at(self.plan, self.leaf_pos, after)    # (2L, B)
+        root_before = _bits_at(self.plan, self.leaf_pos, before)
         candidate = (root_after != root_before) & (t_evt >= EPS)
 
         # first minimum wins ties: the leaf-order tie-break
@@ -380,11 +334,10 @@ def compile_fast_hit(plan, params_ref=None, candidate_block: int | None = None,
             "_evt": torch.where(hit, idx, 0).to(torch.int32),
         }
 
-    return hit_fn
 
 
 # ---------------------------------------------------------------------------
-# the union sweep: K5's plain version, K5's hit and bounce wrappers
+# the hit replay's autograd, the union sweep, the candidate-blocked scan
 # ---------------------------------------------------------------------------
 
 class HitReplay(torch.autograd.Function):
@@ -425,28 +378,6 @@ def hit_dict(replay, params, o, d, t, normal, flags_hit, entering, evt, mat):
             "hit": flags_hit, "_evt": evt}
 
 
-class SweepHit:
-    """The union-sweep first hit in ``mega`` mode, on a mega-eligible tape:
-    K5's plain version :func:`~ptx_torch.ops.megasweep.megasweep_reference`
-    in hit mode (on any device), the port of the JAX sweep's ``hit_fn``;
-    :class:`MegaHit` is its kernel."""
-
-    def __init__(self, plan, leaves, params_ref=None):
-        from ptx_torch.geom import hitreplay
-        from ptx_torch.ops import megasweep
-
-        self.layout = megasweep.MegaLayout(plan, leaves, params_ref)
-        self.replay = hitreplay.build_hit_replay(leaves)
-
-    def __call__(self, params, origin, direction, cull=False):
-        from ptx_torch.ops.megasweep import megasweep_reference
-
-        with torch.no_grad():
-            r = megasweep_reference(self.layout, params, origin, direction, cull=cull)
-        return hit_dict(self.replay, params, origin, direction, r["t"], r["normal"],
-                        r["hit"], r["entering"], r["_evt"], r["mat_id"])
-
-
 def _selected(replay, mats, params, o, d, evt, entering, hit):
     """The hit dict of a selected event (``evt``, ``entering``, ``hit``):
     ``t`` and the normal from the replay, without history here (autograd
@@ -459,7 +390,7 @@ def _selected(replay, mats, params, o, d, evt, entering, hit):
                     torch.where(hit, mats[leaf], 0))
 
 
-class UnionSweepHit:
+class UnionSweepHit(PlainHit):
     """The union sweep in ``fixpoint``, ``sort`` or ``kernel`` mode, on
     any union of small groups (the port of ``_compile_union_sweep``,
     ``ptx/geom/fasthit.py:715-1022``, without ``mega``).
@@ -491,8 +422,6 @@ class UnionSweepHit:
     normal come from the hit replay through :class:`HitReplay`."""
 
     def __init__(self, plan, leaves, mode: str):
-        from ptx_torch.geom import hitreplay
-
         if mode not in ("fixpoint", "sort", "kernel"):
             raise ValueError(f"union sweep: no {mode!r} mode")
         self.plan, self.leaves, self.mode = plan, leaves, mode
@@ -560,8 +489,6 @@ class UnionSweepHit:
     def select(self, t0, t1, s, e):
         """``(t_star, entering, m_start, m_end, found)`` in this sweep's
         mode (class docstring)."""
-        from ptx_torch.ops import sweep_kernel
-
         L = self.L
         with torch.no_grad():
             if self.mode == "sort":
@@ -602,7 +529,7 @@ class UnionSweepHit:
         return _selected(self.replay, mats, params, origin, direction, evt, entering, hit)
 
 
-class BlockedHit:
+class BlockedHit(PlainHit):
     """The candidate-blocked first hit (``_compile_blocked_hit``,
     ``ptx/geom/fasthit.py:480-568``), for tapes of more than 64 leaves that
     are no union of small groups: the 2L boundary events are scanned in
@@ -613,8 +540,6 @@ class BlockedHit:
     Plain PyTorch on every device (XLA in the JAX package)."""
 
     def __init__(self, plan, leaves, block: int):
-        from ptx_torch.geom import hitreplay
-
         self.plan, self.leaves, self.block = plan, leaves, block
         self.replay = hitreplay.build_hit_replay(leaves)
         self.mat_list = [lf.mat_id for lf, _ in leaves]
@@ -653,72 +578,3 @@ class BlockedHit:
             evt = torch.where(hit, best_i, 0).to(torch.int32)
         mats = torch.tensor(self.mat_list, dtype=torch.int64, device=origin.device)
         return _selected(self.replay, mats, params, origin, direction, evt, entering, hit)
-
-
-class MegaHit:
-    """K5 in hit mode for one compiled scene, the port of the JAX
-    ``_compile_mega_sweep`` (``ptx/geom/fasthit.py:600-653``; the kernel
-    builds ``evt`` from its matches as :626-629 does):
-    ``hit(params, o, d, packed=None)`` returns the first-hit dict.  CUDA
-    tensors launch the kernel (reading ``packed``, :meth:`pack` of these
-    params, packed here when not given); CPU tensors, and only those, run
-    the plain version ``sweep``."""
-
-    def __init__(self, sweep: SweepHit):
-        from ptx_torch.ops.megasweep import MegaSweepKernel
-
-        self.sweep = sweep
-        self.kernel = MegaSweepKernel(sweep.layout)
-
-    def pack(self, params):
-        return self.kernel.pack(params)
-
-    def __call__(self, params, o, d, packed=None):
-        if o.device.type == "cpu":
-            return self.sweep(params, o, d)
-        if o.device.type != "cuda":
-            raise ValueError(f"megasweep kernel: no kernel for {o.device}")
-        raw = self.kernel.launch(self.pack(params) if packed is None else packed, o, d)
-        fl = raw["flags"]
-        return hit_dict(self.sweep.replay, params, o, d, raw["t"], raw["normal"],
-                        (fl & 1).to(torch.bool), (fl & 2).to(torch.bool), raw["evt"],
-                        raw["mat"].to(torch.int64))
-
-
-class MegaBounce:
-    """K5 in bounce mode (hit + shade + scatter in one launch) with the
-    fused bounce contract of K1's wrapper
-    (:class:`~ptx_torch.ops.bounce_kernel.BounceKernel`): CUDA tensors
-    launch the kernel, CPU tensors run the plain bounce
-    (``bounce_reference``: the port's plain shading on ``scene.plain_hit_fn``,
-    the sweep)."""
-
-    def __init__(self, scene):
-        from ptx_torch.ops.megasweep import MegaSweepKernel
-
-        self.scene = scene
-        self.kernel = MegaSweepKernel(scene.plain_hit_fn.layout, scene.material_fn)
-
-    def pack(self, params):
-        return self.kernel.pack(params)
-
-    def __call__(self, params, o, d, thr, strength, alive, u_coin, u3, in_depth: bool,
-                 packed=None, cull=True):
-        from ptx_torch.ops.bounce_kernel import bounce_reference
-
-        if o.device.type == "cpu":
-            return bounce_reference(self.scene, params, o, d, thr, strength, alive, u_coin,
-                                    u3, in_depth)
-        if o.device.type != "cuda":
-            raise ValueError(f"megasweep kernel: no kernel for {o.device}")
-        return self.kernel.launch(self.pack(params) if packed is None else packed, o, d,
-                                  carry=(thr, strength, alive, u_coin, u3),
-                                  in_depth=in_depth, cull=cull)
-
-
-def compile_mega_bounce(scene):
-    """K5's fused bounce for a compiled scene whose ``plain_hit_fn`` is the
-    ``mega`` sweep (``ptx/geom/fasthit.py:656-712``); the caller checks that
-    every non-emissive slot is Constant.  None when the scene has no such
-    sweep."""
-    return MegaBounce(scene) if isinstance(scene.plain_hit_fn, SweepHit) else None

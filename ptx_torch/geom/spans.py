@@ -32,6 +32,8 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from ptx_torch.core.constants import EPS, MAX_VALUE
+
 # Sentinel t for masked/invalid slots and events: above every real
 # boundary (|t| <= MAX_VALUE = 1e20).  float32(3e20), the JAX constant.
 PAD_T = 3e20
@@ -174,3 +176,33 @@ def transform_normals(sl: SpanList, nrm_mat) -> SpanList:
         mag = torch.linalg.vector_norm(out, dim=-1, keepdim=True)
         return out / torch.where(mag == 0, 1.0, mag)
     return sl._replace(n0=xf(sl.n0), n1=xf(sl.n1))
+
+
+def first_hit(sl):
+    """Resolve the span walk of path-trace.h:66-99 in one pass
+    (``ptx/integrate/trace.py:260``).  Per span, in list order, the first
+    of: ``t0 >= MAX_VALUE`` (escaped), ``t0 >= EPS`` (entry boundary),
+    ``t1 >= MAX_VALUE`` (escaped), ``t1 >= EPS`` (exit boundary, normal
+    negated); no span triggering is a miss.  Returns ``t`` (0 unless
+    hit), ``normal``, ``mat_id`` (int64, 0 unless hit), ``entering`` and
+    ``hit`` (False on a miss and on an escape)."""
+    c1 = sl.t0 >= MAX_VALUE
+    c2 = sl.t0 >= EPS
+    c3 = sl.t1 >= MAX_VALUE
+    c4 = sl.t1 >= EPS
+    trigger = sl.valid & (c1 | c2 | c3 | c4)
+    idx = torch.argmax(trigger.to(torch.uint8), dim=-1, keepdim=True)   # first trigger
+    take = lambda a: a.gather(-1, idx)[..., 0]
+    take3 = lambda a: a.gather(-2, idx[..., None].expand(idx.shape + (3,)))[..., 0, :]
+    s_c1, s_c2, s_c3 = take(c1), take(c2), take(c3)
+    escaped = s_c1 | (~s_c2 & s_c3)
+    entering = ~s_c1 & s_c2
+    hit = trigger.any(dim=-1) & ~escaped
+    t = torch.where(entering, take(sl.t0), take(sl.t1))
+    return {
+        "t": torch.where(hit, t, 0.0),
+        "normal": torch.where(entering[..., None], take3(sl.n0), -take3(sl.n1)),
+        "mat_id": torch.where(hit, torch.where(entering, take(sl.m0), take(sl.m1)), 0),
+        "entering": entering,
+        "hit": hit,
+    }

@@ -18,10 +18,10 @@ the JAX package, each driving both the jitter and the trace: base band
 priorities the lower pixel index first (a stable descending sort here,
 since ``torch.topk`` promises no order among ties).
 
-``render_adaptive(mesh=)`` renders the dense base pass over a device mesh
-(:func:`ptx_torch.parallel.render.render_sharded_moments`, keyed as that
-function keys a rank's band); every rank then runs the refinement rounds
-alike from the full-frame moments.
+Over a device mesh, :func:`ptx_torch.parallel.render.render_adaptive_sharded`
+renders the dense base pass sharded and hands its full-frame moments to
+:func:`render_adaptive` as ``state``; every rank then runs the refinement
+rounds alike.
 """
 
 from __future__ import annotations
@@ -110,7 +110,7 @@ def render_adaptive(scene: CompiledScene, cam: Camera, key,
                     spp_base: int = 8, rounds: int = 4,
                     frac: float = 0.125, spp_refine: int = 16,
                     depth: int = DEFAULT_RAY_DEPTH, params=None,
-                    state=None, mesh=None, on_round=None):
+                    state=None, on_round=None):
     """Adaptive full-frame render → ``(image (H, W, 3), counts (H, W),
     state)``.
 
@@ -121,8 +121,6 @@ def render_adaptive(scene: CompiledScene, cam: Camera, key,
     - ``state``: ``(s1, s2, count, rounds_done)`` from a checkpoint
       (tensors or arrays); the base pass is skipped and only the remaining
       rounds run, so resume ≡ uninterrupted.
-    - ``mesh``: a (tiles × samples) mesh (:mod:`ptx_torch.parallel.mesh`)
-      the base pass renders over; the rounds run on every rank.
     - ``on_round(s1, s2, count, rounds_done)``: called after the base pass
       and after each round (the checkpoint's hook).
     """
@@ -134,13 +132,7 @@ def render_adaptive(scene: CompiledScene, cam: Camera, key,
                          for x in state[:3])
         rounds_done = int(state[3])
     else:
-        if mesh is not None:
-            from ptx_torch.parallel.render import render_sharded_moments
-            s1, s2 = render_sharded_moments(scene, cam, mesh, key, spp=spp_base, depth=depth,
-                                            params=params)
-            count = torch.full((cam.height, cam.width), float(spp_base), device=scene.device)
-        else:
-            s1, s2, count = _base_pass(scene, params, cam, key, spp_base, depth)
+        s1, s2, count = _base_pass(scene, params, cam, key, spp_base, depth)
         rounds_done = 0
         if on_round is not None:
             on_round(s1, s2, count, rounds_done)

@@ -9,6 +9,11 @@ Nothing here includes PyTorch's headers, so a build takes seconds, not
 minutes.  :func:`library` returns the C entry points of all of them.
 
 Nothing is built or loaded until a CUDA tensor reaches a kernel wrapper.
+
+The launch ABI every wrapper shares sits beside it: :func:`_check_inputs`
+(the inputs' shapes, dtypes, device and layout), :func:`_stream` (PyTorch's
+current stream as a handle), :func:`_ptr` (a tensor's data pointer) and
+:func:`_raise_on` (a launch's CUDA error as an exception).
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ import shutil
 import subprocess
 import threading
 import types
+
+import torch
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -137,3 +144,34 @@ def library():
             fn.argtypes, fn.restype = argtypes, restype
             setattr(_lib, name, fn)
         return _lib
+
+
+def _check_inputs(kernel, device, expect):
+    """Raise where a tensor of ``expect`` (name → (tensor, shape, dtype)) is
+    not contiguous, of that shape and dtype, on ``device``; the message is
+    formatted only then, so a call that passes costs a few comparisons."""
+    for name, (x, shape, dtype) in expect.items():
+        if (x.dtype is not dtype or x.shape != shape or x.device != device
+                or not x.is_contiguous()):
+            raise ValueError(
+                f"{kernel}: {name} must be a contiguous {dtype} tensor of shape "
+                f"{shape} on {device}; got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def _stream(device):
+    """PyTorch's current stream on CUDA ``device`` (a tensor's: it has an
+    index), as a handle for a C entry point: PyTorch's raw getter, a
+    fraction of a microsecond against several for a ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def _raise_on(err, lib, kernel):
+    if err:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err} "
+                           f"({lib.ptx_cuda_error_name(err).decode()})")
+
+
+def _ptr(x):
+    """A tensor's data pointer for a ``c_void_p`` argument (ctypes takes
+    the int as it is)."""
+    return x.data_ptr()

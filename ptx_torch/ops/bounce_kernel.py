@@ -7,9 +7,10 @@ kernels, ``ptx_torch/csrc/bounce_kernel.cu`` and ``bounce_bwd_kernel.cu``.
 
 - :class:`BounceKernel` is K1's wrapper, called once per bounce;
   :func:`bounce_reference` its plain PyTorch version (the port's plain
-  live bounce on the dense first hit).  The kernel reads the scene from
-  one small float32 buffer, :func:`pack_scene`, which ``trace_rays`` packs
-  once per call from the params it is given.
+  live bounce on the dense first hit, ``shade.bounce._bounce_live``).
+  The kernel reads the scene from one small float32 buffer,
+  :func:`pack_scene`, which ``trace_rays`` packs once per call from the
+  params it is given.
 - :class:`BounceBwdKernel` is K2's wrapper, called once per bounce by the
   manual bounce VJP (``trace.ManualBounce``) on the scene vector of
   :func:`pack_bwd`, which ``trace_rays`` packs once per call.  The kernel
@@ -20,7 +21,7 @@ kernels, ``ptx_torch/csrc/bounce_kernel.cu`` and ``bounce_bwd_kernel.cu``.
   (autograd through :func:`replay_lane_math`, the lanes of
   :func:`bounce_bwd_lanes_reference`, and :func:`fold_packed`) and, for the
   whole bounce, :func:`bounce_bwd_reference` (autograd through
-  ``trace._bounce_replay`` to the params).
+  ``shade.bounce._bounce_replay`` to the params).
 - For CUDA tensors a wrapper launches its kernel or raises; for CPU
   tensors, and only for those, it runs the plain version.  ``LAUNCHES`` /
   ``REFERENCE_CALLS`` (K1) and ``BounceBwdKernel.LAUNCHES`` /
@@ -33,75 +34,30 @@ from __future__ import annotations
 import torch
 
 from ptx_torch.core import linalg
+from ptx_torch.core.constants import EPS, MAX_VALUE
 from ptx_torch.geom import hitreplay
 from ptx_torch.geom.fasthit import collect_leaves
-from ptx_torch.integrate import trace
+from ptx_torch.ops import _build
 from ptx_torch.ops.fasthit_kernel import MAX_SCENE_BYTES, pack_geometry, stack_below_top
-from ptx_torch.shade.materials import mean3
+from ptx_torch.shade.bounce import DIFF_KEYS, _bounce_live, replay_vjp
+from ptx_torch.shade.materials import BOUNCE_ROW, REPLAY_ROW
 
 LAUNCHES = 0
 REFERENCE_CALLS = 0
 BWD_REFERENCE_CALLS = 0
 
-# material rows appended to K4's scene buffer — must match
-# ptx_torch/csrc/bounce_kernel.cu
-_MAT_STRIDE = 9      # rfl0 rfl1 rfl2 scatter_f tr0 tr1 tr2 transmit_reflect_f ior
-
-
-def material_rows(table, params):
-    """(M, 9) per material ``reflect₃, mean(scatter), transmit₃,
-    mean(transmit_reflect), ior``: the scalars the fused bounce kernels
-    (K1, K5) shade with (``csrc/shade_lane.cuh``)."""
-    const = params["const"]
-    idx = {s: table.const_rows(s, const.device) for s in table.const_idx}
-    return torch.cat([const[idx["reflect"]], mean3(const[idx["scatter"]])[:, None],
-                      const[idx["transmit"]],
-                      mean3(const[idx["transmit_reflect"]])[:, None],
-                      params["ior"][:, None]], dim=1)
-
-
 def pack_scene(plan, table, params):
     """K1's scene buffer (float32, on the params' device) and its layout
     ``(L, mat_off, tape_off, tape_len)``: K4's buffer
     (:func:`~ptx_torch.ops.fasthit_kernel.pack_geometry`: leaf records,
-    geometry, the CSG tape), then ``M`` material rows of 9."""
+    geometry, the CSG tape), then ``M`` material rows of 9, the material
+    table's ``BOUNCE_ROW`` (``csrc/shade_lane.cuh``)."""
     buf, (L, tape_off, tape_len) = pack_geometry(plan, params)
-    buf = torch.cat([buf, material_rows(table, params).reshape(-1)]).contiguous()
+    buf = torch.cat([buf, table.rows(params, BOUNCE_ROW).reshape(-1)]).contiguous()
     if buf.numel() * 4 > MAX_SCENE_BYTES:
         raise NotImplementedError(f"scene buffer of {buf.numel() * 4} bytes "
                                   "exceeds the kernel's shared memory")
     return buf, (L, tape_off + tape_len, tape_off, tape_len)
-
-
-def _check_inputs(kernel, device, expect):
-    """Raise where a tensor of ``expect`` (name → (tensor, shape, dtype)) is
-    not contiguous, of that shape and dtype, on ``device``; the message is
-    formatted only then, so a call that passes costs a few comparisons."""
-    for name, (x, shape, dtype) in expect.items():
-        if (x.dtype is not dtype or x.shape != shape or x.device != device
-                or not x.is_contiguous()):
-            raise ValueError(
-                f"{kernel}: {name} must be a contiguous {dtype} tensor of shape "
-                f"{shape} on {device}; got {x.dtype} {tuple(x.shape)} on {x.device}")
-
-
-def _stream(device):
-    """PyTorch's current stream on CUDA ``device`` (a tensor's: it has an
-    index), as a handle for a C entry point: PyTorch's raw getter, a
-    fraction of a microsecond against several for a ``torch.cuda.Stream``."""
-    return torch._C._cuda_getCurrentRawStream(device.index)
-
-
-def _raise_on(err, lib, kernel):
-    if err:
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {err} "
-                           f"({lib.ptx_cuda_error_name(err).decode()})")
-
-
-def _ptr(x):
-    """A tensor's data pointer for a ``c_void_p`` argument (ctypes takes
-    the int as it is)."""
-    return x.data_ptr()
 
 
 class BounceKernel:
@@ -147,7 +103,7 @@ class BounceKernel:
         global LAUNCHES
         B = o.shape[0]
         device = buf.device
-        _check_inputs("bounce kernel", device, {
+        _build._check_inputs("bounce kernel", device, {
             "o": (o, (B, 3), torch.float32), "d": (d, (B, 3), torch.float32),
             "thr": (thr, (B, 3), torch.float32),
             "strength": (strength, (B,), torch.float32),
@@ -156,8 +112,6 @@ class BounceKernel:
             "u3": (u3, (B, 3), torch.float32)})
         if B == 0:
             raise ValueError("bounce kernel: empty wavefront")
-
-        from ptx_torch.ops import _build
         lib = _build.library()
         empty = lambda *s, dtype=torch.float32: torch.empty(
             s, dtype=dtype, device=device)
@@ -167,12 +121,12 @@ class BounceKernel:
         out.update(evt=empty(B, dtype=torch.int32), mat_id=empty(B, dtype=torch.int64),
                    u_sel=empty(B, 3))
         L, mat_off, tape_off, tape_len = self.layout
-        p = _ptr
+        p = _build._ptr
         err = lib.ptx_bounce_forward(
             p(buf), buf.numel(), L, mat_off, tape_off, tape_len,
             p(o), p(d), p(thr), p(strength), p(alive), p(u_coin), p(u3),
-            int(bool(in_depth)), B, *(p(x) for x in out.values()), _stream(device))
-        _raise_on(err, lib, "bounce kernel")
+            int(bool(in_depth)), B, *(p(x) for x in out.values()), _build._stream(device))
+        _build._raise_on(err, lib, "bounce kernel")
         LAUNCHES += 1
         return out
 
@@ -184,11 +138,11 @@ _BITS = ("hit", "entering", "take_transmit", "scatter_alive", "alive2")
 def bounce_reference(scene, params, o, d, thr, strength, alive, u_coin, u3,
                      in_depth: bool, packed=None):
     """K1's plain PyTorch version, on any device: the dense first hit +
-    ``trace._bounce_live``, returning the kernel's output dict (``packed``
+    ``shade.bounce._bounce_live``, returning the kernel's output dict (``packed``
     is ignored: the plain version reads ``params``)."""
     global REFERENCE_CALLS
     REFERENCE_CALLS += 1
-    (o2, d2, thr2, st2, alive2), dec = trace._bounce_live(
+    (o2, d2, thr2, st2, alive2), dec = _bounce_live(
         scene.plain_hit_fn, scene.material_fn, params, o, d, thr, strength, alive,
         in_depth, u_coin, u3)
     return dict(dec, o2=o2, d2=d2, thr2=thr2, strength2=st2, alive2=alive2)
@@ -199,7 +153,7 @@ def bounce_reference(scene, params, o, d, thr, strength, alive, u_coin, u3,
 # ---------------------------------------------------------------------------
 
 _ROW = hitreplay.ROW          # 26 leaf-row columns
-_BMAT_STRIDE = 8             # reflect3 scatter_f transmit3 ior
+_BMAT_STRIDE = 8             # REPLAY_ROW: reflect3 scatter_f transmit3 ior
 _COLS = _ROW + _BMAT_STRIDE
 _MAX_BWD_BLOCKS = 1024       # K2's grid: at most this many blocks of 128 lanes
 _MAX_SMEM = 48 * 1024        # dynamic shared memory without opt-in
@@ -207,21 +161,13 @@ _MAX_SMEM = 48 * 1024        # dynamic shared memory without opt-in
 
 def pack_bwd(leaf_rows, table, params):
     """K2's scene vector: the (L, 26) hit-replay rows, then per material
-    ``reflect₃, mean(scatter), transmit₃, ior`` (``ptx/ops/bounce_kernel.py``
-    ``pack_bwd``); ``leaf_rows`` is the scene's
-    :class:`~ptx_torch.geom.hitreplay.LeafRows`.  Differentiable: its VJP
-    maps the kernel's per-leaf sums back to the params."""
+    ``reflect₃, mean(scatter), transmit₃, ior``, the material table's
+    ``REPLAY_ROW`` (``ptx/ops/bounce_kernel.py`` ``pack_bwd``);
+    ``leaf_rows`` is the scene's :class:`~ptx_torch.geom.hitreplay.LeafRows`.
+    Differentiable: its VJP maps the kernel's per-leaf sums back to the
+    params."""
     return torch.cat([leaf_rows(params).reshape(-1),
-                      bwd_material_rows(table, params).reshape(-1)])
-
-
-def bwd_material_rows(table, params):
-    """(M, 8) per material ``reflect₃, mean(scatter), transmit₃, ior``: the
-    material scalars the replay backward differentiates."""
-    const = params["const"]
-    idx = {s: table.const_rows(s, const.device) for s in ("reflect", "scatter", "transmit")}
-    return torch.cat([const[idx["reflect"]], mean3(const[idx["scatter"]])[:, None],
-                      const[idx["transmit"]], params["ior"][:, None]], dim=1)
+                      table.rows(params, REPLAY_ROW).reshape(-1)])
 
 
 def _normalize_cols(x, y, z):
@@ -234,7 +180,7 @@ def replay_lane_math(row, sph, par, ms, o, d, thr, *, is_start, hit,
                      entering, take_transmit, scatter_alive, u_sel):
     """Per-lane decision-frozen replay: the selected-boundary recompute
     (``hitreplay.recompute_flat``) and the differentiable part of
-    ``trace._bounce_replay`` on per-lane columns — the function K2
+    ``shade.bounce._bounce_replay`` on per-lane columns — the function K2
     differentiates by hand (``csrc/replay_lane.cuh``); port of
     ``ptx/ops/bounce_kernel.py:440``.
 
@@ -242,8 +188,6 @@ def replay_lane_math(row, sph, par, ms, o, d, thr, *, is_start, hit,
     scalars, ``sph`` / ``par`` its leaf's kind and parity; ``o``, ``d``,
     ``thr``, ``u_sel`` (B, 3); the flags (B,) bool.  Returns ``(o2, d2,
     thr2)``, each (B, 3)."""
-    from ptx_torch.core.constants import EPS, MAX_VALUE
-
     col = lambda a, i: a[:, i]
     ox, oy, oz = o.unbind(-1)
     dx, dy, dz = d.unbind(-1)
@@ -363,13 +307,13 @@ def bounce_bwd_lanes_reference(packed, aux, o, d, thr, dec, ct_o2, ct_d2, ct_thr
 
 def bounce_bwd_reference(scene, params, o, d, thr, dec, ct_o2, ct_d2, ct_thr2):
     """The whole replay backward of a bounce in plain PyTorch, on any
-    device: autograd through ``trace._bounce_replay`` (``trace.replay_vjp``).
+    device: autograd through ``shade.bounce._bounce_replay`` (``replay_vjp``).
     Returns ``(d_o, d_d, d_thr, d_params)``, ``d_params`` a dict over
     ``scene.diff_keys``.  The reference K2's route is held against, end to
     end, through the params."""
     global BWD_REFERENCE_CALLS
     BWD_REFERENCE_CALLS += 1
-    return trace.replay_vjp(scene, params, o, d, thr, dec, ct_o2, ct_d2, ct_thr2)
+    return replay_vjp(scene, params, o, d, thr, dec, ct_o2, ct_d2, ct_thr2)
 
 
 def fold_packed(acc, leaf_mat, n_materials):
@@ -400,9 +344,9 @@ class BounceBwdKernel:
     ``d_packed`` its cotangent from this bounce.  On CUDA that is the input
     checks and one K2 call (:meth:`launch`); on the CPU its plain version
     (:meth:`reference`).  ``trace_rays`` packs once per call with autograd
-    history (``takes_packed``), so autograd sums the bounces' ``d_packed``
-    and runs the packing's VJP once.  :meth:`params_grad` is that mapping
-    for one ``d_packed``.  ``PACKS`` counts :meth:`pack` calls, ``PACK_VJPS``
+    history (:meth:`pack` is its scene vector on every device), so autograd
+    sums the bounces' ``d_packed`` and runs the packing's VJP once.
+    :meth:`params_grad` is that mapping for one ``d_packed``.  ``PACKS`` counts :meth:`pack` calls, ``PACK_VJPS``
     the backward passes through a packed vector with history, ``LAUNCHES``
     the kernel's calls, each class its own (K6,
     :class:`~ptx_torch.ops.replay_bwd.RowFedReplayBwd`, is this wrapper on
@@ -411,7 +355,6 @@ class BounceBwdKernel:
     LAUNCHES = 0
     PACKS = 0
     PACK_VJPS = 0
-    takes_packed = True
     # the kernel: its C entry points, name, shared-memory limit and grid cap
     entry, smem_entry = "ptx_bounce_backward", "ptx_bounce_backward_smem"
     kernel_name = "bounce backward kernel"
@@ -446,8 +389,8 @@ class BounceBwdKernel:
         """``(packed, leaves)``: :meth:`pack` of fresh leaf copies of the
         ``DIFF_KEYS`` tensors, with autograd history from them."""
         with torch.enable_grad():
-            leaves = [params[k].detach().requires_grad_(True) for k in trace.DIFF_KEYS]
-            return self.pack(dict(params, **dict(zip(trace.DIFF_KEYS, leaves)))), leaves
+            leaves = [params[k].detach().requires_grad_(True) for k in DIFF_KEYS]
+            return self.pack(dict(params, **dict(zip(DIFF_KEYS, leaves)))), leaves
 
     def __call__(self, packed, o, d, thr, dec, ct_o2, ct_d2, ct_thr2):
         if o.device.type == "cpu":
@@ -470,7 +413,7 @@ class BounceBwdKernel:
         autograd of ``packed = pack_bwd(leaves)`` (:meth:`pack_leaves`)."""
         grads = torch.autograd.grad(packed, leaves, d_packed, allow_unused=True)
         return {k: (torch.zeros_like(x) if g is None else g)
-                for k, x, g in zip(trace.DIFF_KEYS, leaves, grads)}
+                for k, x, g in zip(DIFF_KEYS, leaves, grads)}
 
     def launch(self, packed, o, d, thr, dec, ct_o2, ct_d2, ct_thr2):
         """One kernel call on the current stream (its two launches), no
@@ -487,11 +430,9 @@ class BounceBwdKernel:
                              torch.float32)}
         for k in ("hit", "entering", "take_transmit", "scatter_alive"):
             expect[k] = (dec[k], (B,), torch.bool)
-        _check_inputs(name, device, expect)
+        _build._check_inputs(name, device, expect)
         if B == 0:
             raise ValueError(f"{name}: empty wavefront")
-
-        from ptx_torch.ops import _build
         lib = _build.library()
         if getattr(lib, self.smem_entry)(packed.numel(), L) > self.max_smem:
             raise NotImplementedError(f"{name}: a scene of {packed.numel()} words and "
@@ -502,14 +443,14 @@ class BounceBwdKernel:
         # the per-block partial sums, then the per-leaf material sums (scratch)
         partial = empty(n_blocks * L * _COLS + L * _BMAT_STRIDE)
         d_packed = empty(packed.numel())
-        p = _ptr
+        p = _build._ptr
         err = getattr(lib, self.entry)(
             p(packed), packed.numel(), L, p(self.aux), p(o), p(d), p(thr),
             p(dec["evt"]), p(dec["hit"]), p(dec["entering"]),
             p(dec["take_transmit"]), p(dec["scatter_alive"]), p(dec["u_sel"]),
             p(ct_o2), p(ct_d2), p(ct_thr2), B, p(d_o), p(d_d), p(d_thr),
             p(partial), n_blocks, p(self.mat_start), p(self.mat_leaves),
-            self.n_materials, p(d_packed), _stream(device))
-        _raise_on(err, lib, name)
+            self.n_materials, p(d_packed), _build._stream(device))
+        _build._raise_on(err, lib, name)
         type(self).LAUNCHES += 1
         return d_o, d_d, d_thr, d_packed

@@ -32,9 +32,15 @@ hand-written CUDA kernels of ``ptx_torch/csrc/emission_kernel.cu``.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
+
+from ptx_torch.core import linalg
+from ptx_torch.ops import _build, imagegrad
+from ptx_torch.ops._build import _check_inputs, _ptr, _raise_on, _stream
+from ptx_torch.shade.textures import _mirror_ball_uv, _spherical_uv
 
 LAUNCHES = 0
 BWD_LAUNCHES = 0
@@ -75,9 +81,6 @@ def _factor_row(kern, factor):
 def lanes_reference(kern, tex_xform, const, factor, img, pos, mid):
     """K7's forward, :meth:`EmissionKernel.launch`'s outputs, in plain
     PyTorch: ``em`` (N, 3) and the bin (N,) int32 (module docstring)."""
-    from ptx_torch.core import linalg
-    from ptx_torch.shade.textures import _mirror_ball_uv, _spherical_uv
-
     with torch.no_grad():
         q = linalg.apply(tex_xform[kern.xform_idx], pos) if kern.xform_idx is not None else pos
         uv = (_mirror_ball_uv if kern.mirror else _spherical_uv)(q)
@@ -103,8 +106,6 @@ def backward_reference(kern, ct, bin_, img, factor, const_shape, factor_shape):
     channel 3) and ``d_const`` (R, 3); and ``d_factor``, zero but for the
     chain's row, the sum of ``ct·texel`` over the chain's lanes (None when
     the chain has no factor)."""
-    from ptx_torch.ops import imagegrad
-
     with torch.no_grad():
         H, W, C = img.shape
         HW, R = H * W, const_shape[0]
@@ -156,8 +157,6 @@ def bwd_plan(N, H, W):
     each block's shared memory) from ``imagegrad.K3_PRIVATE_LANES`` lanes
     per image entry on, else 0 (image bins in device memory, the const rows
     in shared memory).  :func:`bwd_regime` also asks whether 1 fits."""
-    from ptx_torch.ops import imagegrad
-
     return int(N >= imagegrad.K3_PRIVATE_LANES * H * W * 3)
 
 
@@ -166,11 +165,6 @@ def private_fits(H, W, R, device_index):
     """Whether the backward's private regime (``H·W + R`` bins of 3 floats
     and the kernel's static shared memory) fits one block's shared memory
     on that card: the C entry's answer."""
-    import ctypes
-
-    from ptx_torch.ops import _build
-    from ptx_torch.ops.bounce_kernel import _raise_on
-
     lib, fits = _build.library(), ctypes.c_int(0)
     with torch.cuda.device(device_index):
         err = lib.ptx_emission_backward_private_fits(H, W, R, ctypes.byref(fits))
@@ -224,9 +218,6 @@ class EmissionKernel:
         reads the chain's transform and factor rows, the const table and
         the image in place."""
         global LAUNCHES
-        from ptx_torch.ops import _build
-        from ptx_torch.ops.bounce_kernel import _check_inputs, _ptr, _raise_on, _stream
-
         N = pos.shape[0]
         device = pos.device
         H, W, C = img.shape
@@ -258,9 +249,6 @@ class EmissionKernel:
         by the kernel itself (:func:`backward_reference` is the plain
         version).  ``plan`` forces the regime (:func:`bwd_regime`)."""
         global BWD_LAUNCHES
-        from ptx_torch.ops import _build
-        from ptx_torch.ops.bounce_kernel import _check_inputs, _ptr, _raise_on, _stream
-
         N = ct.shape[0]
         device = ct.device
         H, W, C = img.shape

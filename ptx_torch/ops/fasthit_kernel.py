@@ -9,8 +9,8 @@ dict itself: a call is one launch.
 - :class:`HitKernel` is K4's wrapper: ``hit(params, o, d, packed=None)``
   returns the dict of the dense first hit.  On CUDA tensors it launches
   the kernel (or raises); on CPU tensors, and only for those, it runs the
-  plain version, the dense hit of
-  :func:`ptx_torch.geom.fasthit.compile_fast_hit`.  ``LAUNCHES`` and
+  plain version, the dense hit
+  :class:`~ptx_torch.geom.fasthit.DenseHit`.  ``LAUNCHES`` and
   ``REFERENCE_CALLS`` count the two.
 - :func:`pack_geometry` is the kernel's scene buffer: leaf records,
   geometry and the CSG tape, no material scalars (on a scene with
@@ -33,6 +33,8 @@ import torch
 
 from ptx_torch.geom import hitreplay, tape
 from ptx_torch.geom.fasthit import collect_leaves, hit_dict, leaf_affine, plane_inv_mag
+from ptx_torch.ops import _build
+from ptx_torch.ops._build import _check_inputs, _ptr, _raise_on, _stream
 
 LAUNCHES = 0
 REFERENCE_CALLS = 0
@@ -171,9 +173,6 @@ class HitKernel:
         ``mat_id`` (int64; 0 on a miss), ``entering`` and ``hit`` (bool),
         ``_evt`` (int32; 0 on a miss), all written by the kernel."""
         global LAUNCHES
-        from ptx_torch.ops import _build
-        from ptx_torch.ops.bounce_kernel import _check_inputs, _ptr, _raise_on, _stream
-
         B = o.shape[0]
         device = buf.device
         _check_inputs("hit kernel", device, {

@@ -38,9 +38,13 @@ change.
   lane's valid coverage intervals and listed rows in shared memory up to
   the capacities ``LIST_CAPS`` (a launch argument: a lane past one takes
   the recompute route, with the same bits).  For CUDA tensors it launches
-  the kernel or raises; the plain versions run only on CPU tensors
-  (:mod:`ptx_torch.geom.fasthit` routes).  ``MegaSweepKernel.LAUNCHES`` /
-  ``REFERENCE_CALLS`` count the two.
+  the kernel or raises; the plain versions run only on CPU tensors.
+  ``MegaSweepKernel.LAUNCHES`` / ``REFERENCE_CALLS`` count the two.
+- The sweep's ``mega`` mode as a compiled scene holds it:
+  :class:`SweepHit`, the plain version as a first hit (what
+  ``compile_fast_hit`` in :mod:`ptx_torch.integrate.trace` picks on a
+  mega-eligible tape); :class:`MegaHit`, K5's hit mode on it;
+  :class:`MegaBounce` (:func:`compile_mega_bounce`), K5's fused bounce.
 """
 
 from __future__ import annotations
@@ -50,6 +54,12 @@ import torch
 
 from ptx_torch.core import linalg
 from ptx_torch.core.constants import EPS, MAX_VALUE
+from ptx_torch.geom import hitreplay, tape
+from ptx_torch.geom.fasthit import PlainHit, collect_leaves, hit_dict, union_decompose
+from ptx_torch.ops import _build
+from ptx_torch.ops._build import _check_inputs, _ptr, _raise_on, _stream
+from ptx_torch.ops.bounce_kernel import bounce_reference
+from ptx_torch.shade.materials import BOUNCE_ROW
 
 PAD_T = 3e20                 # a missed row: "no boundary"
 NEG = -3e20
@@ -92,8 +102,6 @@ def _slot_algebra(node, local_pos):
     comp(B)`` with per-slot complements ``{[-MAX, s), [e, MAX)}``.  Exprs:
     ``("t0", j) | ("t1", j) | ("neg",) | ("pos",) | ("max" | "min", a, b)``.
     None when an expansion exceeds ``SLOT_MAX``."""
-    from ptx_torch.geom import tape
-
     def inter(A, B):
         return [(("max", sa, sb), ("min", ea, eb)) for (sa, ea) in A for (sb, eb) in B]
 
@@ -134,8 +142,6 @@ def _bound_expr(node, local_pos):
     """Bounding-sphere expression of a gadget's solid: ``("leaf", j) |
     ("enclose", [children]) | None`` (unbounded).  bound(∩) = any bounded
     child, bound(∪) = enclosure of all, bound(A − B) = bound(A)."""
-    from ptx_torch.geom import tape
-
     if isinstance(node, tape._LeafPlan):
         return ("leaf", local_pos[id(node)]) if node.kind == "sphere" else None
     kids = [_bound_expr(c, local_pos) for c in node.children]
@@ -168,14 +174,12 @@ def _bound_leaf_list(bexpr):
 def mega_eligible(plan, leaves) -> bool:
     """Every leaf a sphere or plane (transformed or not), every gadget of
     the union at most ``MAX_MEMBERS`` leaves and ``SLOT_MAX`` slots."""
-    from ptx_torch.geom import fasthit, tape
-
     if not all(lf.kind in ("sphere", "plane") for lf, _ in leaves):
         return False
-    for g in fasthit.union_decompose(plan):
+    for g in union_decompose(plan):
         if isinstance(g, tape._LeafPlan):
             continue
-        sub = fasthit.collect_leaves(g)
+        sub = collect_leaves(g)
         if len(sub) > MAX_MEMBERS:
             return False
         if _slot_algebra(g, {id(lf): j for j, (lf, _) in enumerate(sub)}) is None:
@@ -250,8 +254,6 @@ class MegaLayout:
     one per cluster of ``CLUSTER`` gadgets (its solids' bound)."""
 
     def __init__(self, plan, leaves, params_ref=None):
-        from ptx_torch.geom import fasthit, tape
-
         self.leaves = leaves
         L = self.L = len(leaves)
         leaf_pos = {id(lf): i for i, (lf, _) in enumerate(leaves)}
@@ -276,11 +278,11 @@ class MegaLayout:
             return (node.op, tuple(sig(c, lp) for c in node.children))
 
         lg_s, lg_p, classes = [], [], {}
-        for g in fasthit.union_decompose(plan):
+        for g in union_decompose(plan):
             if isinstance(g, tape._LeafPlan):
                 (lg_s if g.kind == "sphere" else lg_p).append(leaf_pos[id(g)])
             else:
-                sub = fasthit.collect_leaves(g)
+                sub = collect_leaves(g)
                 lp = {id(lf): j for j, (lf, _) in enumerate(sub)}
                 key = sig(g, lp)
                 if key not in classes:
@@ -294,7 +296,7 @@ class MegaLayout:
         sphere_rows = [(i, 1.0) for i in lg_s]          # (leaf position, cov)
         self.classes = []
         for rep, lp, gads in classes.values():
-            sub = fasthit.collect_leaves(rep)
+            sub = collect_leaves(rep)
             G = len(gads)
             slots = _slot_algebra(rep, lp)
             assert slots is not None, "a mega-ineligible tape reached the layout"
@@ -369,7 +371,6 @@ class MegaLayout:
     def _static(self, device):
         if device not in self._dev:
             t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=device)
-            from ptx_torch.geom import hitreplay
             self._dev[device] = {
                 "meta": t(np.stack([self.lid, self.cov, self.mat, self.par, self.kind], 1)),
                 "row_pos": t(self.row_pos, torch.int64),
@@ -780,12 +781,11 @@ class MegaSweepKernel:
 
     def pack(self, params):
         """``(scene, mat_off, bnd_off)``: one float32 vector ``[table |
-        material rows (M, 9) | bounds (n_flags, 4)]`` (no autograd)."""
-        from ptx_torch.ops.bounce_kernel import material_rows
-
+        material rows (M, 9) | bounds (n_flags, 4)]`` (no autograd); the
+        material rows are the material table's ``BOUNCE_ROW`` layout."""
         with torch.no_grad():
             tbl = self.layout.table(params).reshape(-1)
-            mats = (material_rows(self.material_table, params).reshape(-1)
+            mats = (self.material_table.rows(params, BOUNCE_ROW).reshape(-1)
                     if self.material_table is not None else tbl.new_zeros(0))
             bnd = self.layout.bounds(params).reshape(-1)
             return (torch.cat([tbl, mats, bnd]).contiguous(), tbl.numel(),
@@ -807,9 +807,6 @@ class MegaSweepKernel:
         its coverage intervals and rows listed (counted past a capacity),
         the member rows of its culled gadgets that pass 1 evaluates, and
         the bits hit, coverage list over, row list over."""
-        from ptx_torch.ops import _build
-        from ptx_torch.ops.bounce_kernel import _check_inputs, _ptr, _raise_on, _stream
-
         scene, mat_off, bnd_off = packed
         lay = self.layout
         B = o.shape[0]
@@ -874,3 +871,91 @@ class MegaSweepKernel:
 _BOUNCE_BITS = ("hit", "entering", "take_transmit", "scatter_alive", "alive2")
 _OUT_ORDER = ("t", "normal", "flags", "evt", "mat", "o2", "d2", "thr2", "strength2", "u_sel",
               *_BOUNCE_BITS, "mat_id", "stats")
+
+
+# ---------------------------------------------------------------------------
+# the sweep's mega mode: K5's plain version as a hit, K5's hit and bounce
+# wrappers
+# ---------------------------------------------------------------------------
+
+class SweepHit(PlainHit):
+    """The union-sweep first hit in ``mega`` mode, on a mega-eligible tape:
+    K5's plain version :func:`megasweep_reference` in hit mode (on any
+    device), the port of the JAX sweep's ``hit_fn``; :class:`MegaHit` is
+    its kernel."""
+
+    def __init__(self, plan, leaves, params_ref=None):
+        self.layout = MegaLayout(plan, leaves, params_ref)
+        self.replay = hitreplay.build_hit_replay(leaves)
+
+    def __call__(self, params, origin, direction, cull=False):
+        with torch.no_grad():
+            r = megasweep_reference(self.layout, params, origin, direction, cull=cull)
+        return hit_dict(self.replay, params, origin, direction, r["t"], r["normal"],
+                        r["hit"], r["entering"], r["_evt"], r["mat_id"])
+
+
+class MegaHit:
+    """K5 in hit mode for one compiled scene, the port of the JAX
+    ``_compile_mega_sweep`` (``ptx/geom/fasthit.py:600-653``; the kernel
+    builds ``evt`` from its matches as :626-629 does):
+    ``hit(params, o, d, packed=None)`` returns the first-hit dict.  CUDA
+    tensors launch the kernel (reading ``packed``, :meth:`pack` of these
+    params, packed here when not given); CPU tensors, and only those, run
+    the plain version ``sweep``."""
+
+    def __init__(self, sweep: SweepHit):
+        self.sweep = sweep
+        self.kernel = MegaSweepKernel(sweep.layout)
+
+    def pack(self, params):
+        """K5's hit-mode scene (:meth:`MegaSweepKernel.pack`)."""
+        return self.kernel.pack(params)
+
+    def __call__(self, params, o, d, packed=None):
+        if o.device.type == "cpu":
+            return self.sweep(params, o, d)
+        if o.device.type != "cuda":
+            raise ValueError(f"megasweep kernel: no kernel for {o.device}")
+        raw = self.kernel.launch(self.pack(params) if packed is None else packed, o, d)
+        fl = raw["flags"]
+        return hit_dict(self.sweep.replay, params, o, d, raw["t"], raw["normal"],
+                        (fl & 1).to(torch.bool), (fl & 2).to(torch.bool), raw["evt"],
+                        raw["mat"].to(torch.int64))
+
+
+class MegaBounce:
+    """K5 in bounce mode (hit + shade + scatter in one launch) with the
+    fused bounce contract of K1's wrapper
+    (:class:`~ptx_torch.ops.bounce_kernel.BounceKernel`): CUDA tensors
+    launch the kernel, CPU tensors run the plain bounce
+    (``bounce_reference``: the port's plain shading on ``scene.plain_hit_fn``,
+    the sweep)."""
+
+    def __init__(self, scene):
+        self.scene = scene
+        self.kernel = MegaSweepKernel(scene.plain_hit_fn.layout, scene.material_fn)
+
+    def pack(self, params):
+        """K5's bounce-mode scene (:meth:`MegaSweepKernel.pack`: the table,
+        the material rows and the cull bounds)."""
+        return self.kernel.pack(params)
+
+    def __call__(self, params, o, d, thr, strength, alive, u_coin, u3, in_depth: bool,
+                 packed=None, cull=True):
+        if o.device.type == "cpu":
+            return bounce_reference(self.scene, params, o, d, thr, strength, alive, u_coin,
+                                    u3, in_depth)
+        if o.device.type != "cuda":
+            raise ValueError(f"megasweep kernel: no kernel for {o.device}")
+        return self.kernel.launch(self.pack(params) if packed is None else packed, o, d,
+                                  carry=(thr, strength, alive, u_coin, u3),
+                                  in_depth=in_depth, cull=cull)
+
+
+def compile_mega_bounce(scene):
+    """K5's fused bounce for a compiled scene whose ``plain_hit_fn`` is the
+    ``mega`` sweep (``ptx/geom/fasthit.py:656-712``); the caller checks that
+    every non-emissive slot is Constant.  None when the scene has no such
+    sweep."""
+    return MegaBounce(scene) if isinstance(scene.plain_hit_fn, SweepHit) else None

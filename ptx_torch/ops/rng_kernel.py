@@ -33,6 +33,7 @@ import math
 import torch
 
 from ptx_torch.ops import _build
+from ptx_torch.ops._build import _raise_on, _stream
 from ptx_torch.utils import profiling
 
 CAPACITY = 64           # keys a launch (csrc/rng_kernel.cu kMaxKeys)
@@ -61,8 +62,6 @@ def uniform_many(keys, shape, device) -> torch.Tensor:
     shape = tuple(shape)
     out = torch.empty((len(keys),) + shape, dtype=torch.float32, device=device)
     if out.numel():
-        from ptx_torch.ops.bounce_kernel import _stream
-
         launch(_build.library(), keys, math.prod(shape), out, _stream(out.device))
     return out
 
@@ -72,8 +71,6 @@ def launch(lib, keys, n, out, stream) -> None:
     one call of ``lib.ptx_uniform_many`` a chunk of :func:`key_chunks`, each
     given its chunk's words and its first row's address."""
     global LAUNCHES
-    from ptx_torch.ops.bounce_kernel import _raise_on
-
     for start, words in key_chunks(keys):
         err = lib.ptx_uniform_many((ctypes.c_uint32 * len(words))(*words), len(words) // 2,
                                    n, out.data_ptr() + 4 * start * n, BLOCK, stream)

@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from ptx_torch.ops import _build
-from ptx_torch.ops.bounce_kernel import _check_inputs, _raise_on, _stream
+from ptx_torch.ops._build import _check_inputs, _raise_on, _stream
 
 STEPS = 256            # the TPU kernel's K: chain steps a pass (csrc/roofline_kernel.cu kSteps)
 C_DEFAULT = 1e-9       # the TPU kernel's c

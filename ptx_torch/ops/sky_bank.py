@@ -16,7 +16,8 @@ K7, their lane arithmetic ``csrc/sky_bank_lane.cuh``.
   ``MAX_MATERIALS`` materials.  The demo's and config 4's skies qualify; a
   constant sky (S1) has no chain and keeps ``eval_emissive``.
 - :class:`SkyBank` is the wrapper: ``bank(params, saved)`` returns the
-  per-phase contributions of ``trace._emission``.  On CUDA tensors the
+  per-phase contributions of ``trace._emission``
+  (:mod:`ptx_torch.integrate.trace`).  On CUDA tensors the
   forward is one launch a call (every phase's records by pointer) and the
   backward two (:class:`_SkyBank`): the cotangents of every record's
   throughput, of the const table, the factor and the sky image.  On CPU
@@ -32,7 +33,10 @@ import ctypes
 
 import torch
 
-from ptx_torch.ops import emission_kernel
+from ptx_torch.ops import _build, emission_kernel
+from ptx_torch.ops._build import _check_inputs, _ptr, _raise_on, _stream
+from ptx_torch.ops.imagegrad import _sms
+from ptx_torch.shade.bounce import select_add
 from ptx_torch.utils import profiling
 
 MAX_MATERIALS = 8       # csrc/sky_bank_lane.cuh kMaxMats
@@ -59,9 +63,7 @@ def reference(table, params, saved):
     records ``saved[pi] = (pos, thr, mid, live, orig)``.  Emission is a
     constant per non-terminal material, so sum the live throughput per
     material and multiply by its emissive row once; the terminal chains
-    (:func:`~ptx_torch.integrate.trace.select_add`) add theirs."""
-    from ptx_torch.integrate.trace import select_add
-
+    (:func:`~ptx_torch.shade.bounce.select_add`) add theirs."""
     term_chains = table.terminal_dynamic_emissive
     term_mis = {mi for mi, _ in term_chains}
     out = []
@@ -150,8 +152,6 @@ class SkyBank:
         return (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int64 * len(dims))(*dims)
 
     def _check(self, kernel, device, tensors, flat):
-        from ptx_torch.ops.bounce_kernel import _check_inputs
-
         for k in range(len(flat) // 4):
             pos, thr, mid, live = flat[4 * k:4 * k + 4]
             shape = tuple(thr.shape[:2])
@@ -167,9 +167,6 @@ class SkyBank:
         each phase's contribution (Bp, 3) and the int32 (lanes, 2) of the
         picked records and their texels, which the backward reads."""
         global LAUNCHES
-        from ptx_torch.ops import _build
-        from ptx_torch.ops.bounce_kernel import _ptr, _raise_on, _stream
-
         device = flat[1].device
         H, W, C = img.shape
         self._check("sky bank", device, {
@@ -200,10 +197,6 @@ class SkyBank:
         the chain has no factor) and ``d_img``, each written whole by the
         kernels."""
         global BWD_LAUNCHES
-        from ptx_torch.ops import _build
-        from ptx_torch.ops.bounce_kernel import _check_inputs, _ptr, _raise_on, _stream
-        from ptx_torch.ops.imagegrad import _sms
-
         device = flat[1].device
         H, W, C = img.shape
         lanes = sel.shape[0]

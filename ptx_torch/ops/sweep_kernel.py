@@ -32,6 +32,9 @@ from __future__ import annotations
 
 import torch
 
+from ptx_torch.ops import _build
+from ptx_torch.ops._build import _check_inputs, _ptr, _raise_on, _stream
+
 PAD_T = 3e20                 # start padding and "no candidate"
 NEG = -3e20                  # end padding: never extends a chain
 FOUND = 2e20                 # t_star below this is a boundary
@@ -122,9 +125,6 @@ def launch(s, e, t0, t1, L: int, eps: float, sort: bool = False, out=None, tile=
     optionally gives the five outputs (as returned), ``tile`` the lanes a
     block (default :func:`lane_tile` / :func:`tile_width`)."""
     global LAUNCHES
-    from ptx_torch.ops import _build
-    from ptx_torch.ops.bounce_kernel import _check_inputs, _ptr, _raise_on, _stream
-
     S, B = s.shape
     device = s.device
     _check_inputs("sweep-select kernel", device, {

@@ -14,7 +14,8 @@ all-reduces over the mesh's groups (:mod:`ptx_torch.parallel.mesh`):
   image, what ``np.asarray`` of JAX's row-sharded output gives; the mesh
   needs no collective but the all-reduce;
 - ``render_sharded_moments``: Σ radiance and Σ radiance² summed over the
-  sample group, gathered the same way;
+  sample group, gathered the same way; ``render_adaptive_sharded``, the
+  adaptive sampler with that as its dense base pass;
 - ``make_train_step``: each rank's loss on its band of the full target,
   the gradients flattened into one buffer and averaged over the tile
   group, then over the sample group (JAX's ``pmean(pmean(g, tiles),
@@ -32,6 +33,7 @@ import torch.distributed as dist
 
 from ptx_torch.core import rng
 from ptx_torch.core.constants import DEFAULT_RAY_DEPTH
+from ptx_torch.integrate import adaptive
 from ptx_torch.integrate.camera import Camera, sample_rays
 from ptx_torch.integrate.trace import CompiledScene, trace_rays
 from ptx_torch.parallel.mesh import (SAMPLE_AXIS, TILE_AXIS, LocalMesh, coordinate,
@@ -121,6 +123,26 @@ def render_sharded_moments(scene: CompiledScene, cam: Camera, mesh, key, spp: in
     rad = trace_rays(scene, params, o, d, k, depth)
     return tuple(_frame(_sum(m, mesh, SAMPLE_AXIS), mesh, cam.height, y0)
                  for m in (rad.sum(dim=0), (rad ** 2).sum(dim=0)))
+
+
+def render_adaptive_sharded(scene: CompiledScene, cam: Camera, mesh, key,
+                            spp_base: int = 8, rounds: int = 4, frac: float = 0.125,
+                            spp_refine: int = 16, depth: int = DEFAULT_RAY_DEPTH,
+                            params=None, on_round=None):
+    """:func:`~ptx_torch.integrate.adaptive.render_adaptive` with its dense
+    base pass rendered over ``mesh`` (:func:`render_sharded_moments`, keyed
+    as that function keys a rank's band): ``(image, counts, state)`` on
+    every rank, each running the refinement rounds alike from the
+    full-frame moments.  ``on_round`` is called after the base pass and
+    after each round."""
+    s1, s2 = render_sharded_moments(scene, cam, mesh, key, spp=spp_base, depth=depth,
+                                    params=params)
+    count = torch.full((cam.height, cam.width), float(spp_base), device=scene.device)
+    if on_round is not None:
+        on_round(s1, s2, count, 0)
+    return adaptive.render_adaptive(scene, cam, key, spp_base, rounds, frac, spp_refine,
+                                    depth, params, state=(s1, s2, count, 0),
+                                    on_round=on_round)
 
 
 def _leaves(params):

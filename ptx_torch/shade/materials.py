@@ -9,6 +9,11 @@ Constant slots resolve through one packed per-material row, gathered by
 material id; the JAX package's one-hot MXU lookups
 (``ptx/ops/tableops.py``) become a plain gather here.  Position-dependent
 slots evaluate per lane and override their material's lanes.
+
+:meth:`MaterialTable.rows` builds every per-material row the port packs,
+from one gather of the const table: the plain shading's (``SHADE_ROW``),
+the fused bounce kernels' (K1, K5: ``BOUNCE_ROW``) and the replay
+backward's (K2, K6: ``REPLAY_ROW``).
 """
 
 from __future__ import annotations
@@ -19,9 +24,20 @@ from typing import Any
 import numpy as np
 import torch
 
+from ptx_torch.geom import tape
 from ptx_torch.shade import textures as tx
 
 SLOTS = ("reflect", "scatter", "emissive", "transmit", "transmit_reflect")
+
+# Per-material row layouts (MaterialTable.rows): a slot's name is its 3
+# channels, ``<slot>_f`` its channel mean (mean3), ``ior`` the ior.
+SHADE_ROW = SLOTS + ("ior",)                                     # (M, 16)
+# the scalars the fused bounce kernels K1 and K5 shade with — must match
+# ptx_torch/csrc/shade_lane.cuh
+BOUNCE_ROW = ("reflect", "scatter_f", "transmit", "transmit_reflect_f", "ior")   # (M, 9)
+# the material scalars the replay backward K2 / K6 differentiates — must
+# match ptx_torch/csrc/replay_lane.cuh
+REPLAY_ROW = ("reflect", "scatter_f", "transmit", "ior")                         # (M, 8)
 
 
 def _as_tex(v):
@@ -128,15 +144,31 @@ class MaterialTable:
             self._dev[key] = torch.as_tensor(self.const_idx[slot], device=device)
         return self._dev[key]
 
-    def packed(self, params) -> torch.Tensor:
-        """(M, 16) per-material row: the 5 constant slots then ior."""
+    def rows(self, params, layout=SHADE_ROW) -> torch.Tensor:
+        """The (M, width) per-material rows of ``layout`` (``SHADE_ROW``,
+        ``BOUNCE_ROW``, ``REPLAY_ROW``) from ``params``, with their autograd
+        history: one gather of every slot's const row, then the columns in
+        ``layout``'s order."""
         const = params["const"]
-        return torch.cat([const[self.const_rows(s, const.device)] for s in SLOTS]
-                         + [params["ior"][:, None]], dim=1)
+        key = ("slots", const.device)
+        if key not in self._dev:
+            self._dev[key] = torch.as_tensor(
+                np.stack([self.const_idx[s] for s in SLOTS], axis=1).reshape(-1),
+                device=const.device)
+        slot = const[self._dev[key]].reshape(self.n_materials, len(SLOTS), 3)
+        cols = []
+        for name in layout:
+            if name == "ior":
+                cols.append(params["ior"][:, None])
+            elif name.endswith("_f"):
+                cols.append(mean3(slot[:, SLOTS.index(name[:-2])])[:, None])
+            else:
+                cols.append(slot[:, SLOTS.index(name)])
+        return torch.cat(cols, dim=1)
 
     def __call__(self, params, pos, mat_id):
         # (..., 16); index_select for its index_add_ transpose (hitreplay)
-        row = self.packed(params).index_select(0, mat_id.reshape(-1)).reshape(
+        row = self.rows(params).index_select(0, mat_id.reshape(-1)).reshape(
             *mat_id.shape, 16)
         out = {}
         for i, s in enumerate(SLOTS):
@@ -188,8 +220,6 @@ def compile_material_table(materials_in_id_order,
 def assign_material_ids(root) -> tuple:
     """Distinct materials of a geometry tree in first-seen order.
     Returns ``(ordered materials, {id(mat): index})``."""
-    from ptx_torch.geom import tape
-
     ordered, ids = [], {}
 
     def walk(node):

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ptx_torch.core import linalg
+from ptx_torch.ops import imagegrad
 
 
 # ---------------------------------------------------------------------------
@@ -219,11 +220,9 @@ def _get_pixel(img, xi, yi, alpha: bool):
     (image.cpp:366-396).  Returns (..., 3); alpha broadcast to grey.  The
     gather is :func:`ptx_torch.ops.imagegrad.image_gather`, whose backward
     is the histogram kernel K3 on the card."""
-    from ptx_torch.ops.imagegrad import image_gather
-
     h, w = img.shape[0], img.shape[1]
     inb = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
-    texel = image_gather(img, xi.clamp(0, w - 1), yi.clamp(0, h - 1), inb)
+    texel = imagegrad.image_gather(img, xi.clamp(0, w - 1), yi.clamp(0, h - 1), inb)
     val = texel[..., 3:4] if alpha else texel[..., :3]
     return val.expand(val.shape[:-1] + (3,))
 
@@ -251,8 +250,6 @@ def _skybox_lookup(stack, v, alpha: bool):
     """Cubemap lookup on the (6, H, W, 4) face stack: the face index folds
     into the row index of one (6·H, W, 4) gather, so the six faces share
     one histogram in the backward."""
-    from ptx_torch.ops.imagegrad import image_gather
-
     zero_dir = (v == 0.0).all(dim=-1)
     face, u, w = _skybox_face_uv(v)
     h, wid = stack.shape[1], stack.shape[2]
@@ -260,7 +257,7 @@ def _skybox_lookup(stack, v, alpha: bool):
     yi = torch.floor((0.5 - w * 0.5) * h).to(torch.int64)
     inb = (xi >= 0) & (xi < wid) & (yi >= 0) & (yi < h)
     flat = stack.reshape(6 * h, wid, stack.shape[3])
-    texel = image_gather(flat, xi.clamp(0, wid - 1), face * h + yi.clamp(0, h - 1),
+    texel = imagegrad.image_gather(flat, xi.clamp(0, wid - 1), face * h + yi.clamp(0, h - 1),
                          inb & ~zero_dir)
     val = texel[..., 3:4] if alpha else texel[..., :3]
     return val.expand(val.shape[:-1] + (3,))

@@ -42,9 +42,10 @@ def _port_scene(config, seed, tmp_path):
 
 def test_spec_compiles_to_baseline_config4(tmp_path):
     from ptx_torch.geom.fasthit import collect_leaves
-    from ptx_torch.integrate.trace import TEXTURE_KEYS, UnfusedBounce, compile_scene
+    from ptx_torch.integrate.trace import compile_scene
     from ptx_torch.ops.fasthit_kernel import HitKernel
     from ptx_torch.scenes.builders import baseline_config4
+    from ptx_torch.shade.bounce import TEXTURE_KEYS, UnfusedBounce
 
     from ptx_torch.scenes.spec import SceneSpec
 

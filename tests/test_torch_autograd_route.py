@@ -36,7 +36,7 @@ from ptx.scenes.builders import make_world as jax_make_world
 from ptx.scenes.builders import stress_spheres as jax_stress_spheres
 from ptx_torch.convert import grads_to_numpy, params_from_jax, scene_from_jax
 from ptx_torch.core import rng
-from ptx_torch.geom.fasthit import GEO_KEYS, MegaHit
+from ptx_torch.geom.fasthit import GEO_KEYS
 from ptx_torch.integrate import trace
 from ptx_torch.integrate.camera import Camera, sample_rays
 from ptx_torch.ops import fasthit_kernel, megasweep
@@ -46,7 +46,7 @@ from ptx_torch.parallel.render import make_train_step
 torch.set_num_threads(1)
 W, H, SPP, DEPTH = 8, 6, 2, 5
 SCENES = {"demo": (jax_make_world, HitKernel), "spheres20": (lambda: jax_stress_spheres(20),
-                                                             MegaHit)}
+                                                             megasweep.MegaHit)}
 
 
 def _leaves(params):

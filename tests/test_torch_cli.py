@@ -24,9 +24,10 @@ import torch
 from ptx_torch.geom import fasthit
 from ptx_torch.geom.tape import Intersection, Plane, Sphere, Union
 from ptx_torch.integrate import trace
-from ptx_torch.ops import bounce_kernel
+from ptx_torch.ops import bounce_kernel, megasweep
 from ptx_torch.ops.replay_bwd import RowFedReplayBwd
 from ptx_torch.scenes import builders
+from ptx_torch.shade import bounce
 from ptx_torch.shade import textures as tx
 from ptx_torch.shade.materials import Material
 
@@ -129,11 +130,11 @@ def test_cuda_compile_rejects_ineligible_scene(world):
     textured slot."""
     scene = trace.compile_scene(world(), "cpu")
     assert scene.hit_fn is scene.plain_hit_fn
-    assert not isinstance(scene.hit_fn, (fasthit.SweepHit, fasthit.UnionSweepHit,
+    assert not isinstance(scene.hit_fn, (megasweep.SweepHit, fasthit.UnionSweepHit,
                                          fasthit.BlockedHit))
-    assert isinstance(scene.bounce_fn, trace.UnfusedBounce) and scene.tile_hint
+    assert isinstance(scene.bounce_fn, bounce.UnfusedBounce) and scene.tile_hint
     if world is _textured_world:
-        assert scene.bounce_bwd_fn.func is trace.replay_vjp
+        assert isinstance(scene.bounce_bwd_fn, bounce.ReplayVJP)
     else:
         assert isinstance(scene.bounce_bwd_fn, RowFedReplayBwd)
 

@@ -27,6 +27,7 @@ from ptx_torch.ops.emission_kernel import EmissionKernel
 from ptx_torch.ops.fasthit_kernel import HitKernel
 from ptx_torch.ops.bounce_kernel import BounceKernel
 from ptx_torch.scenes import builders
+from ptx_torch.shade import bounce
 
 torch.set_num_threads(1)
 
@@ -88,12 +89,12 @@ def test_routing_follows_the_jax_package(monkeypatch):
         assert isinstance(scene.hit_fn, HitKernel)
         assert scene.emission_fn is None          # every dynamic emitter is terminal
         if name == "config4":
-            assert isinstance(scene.bounce_fn, trace.UnfusedBounce)
-            assert scene.bounce_bwd_fn.func is trace.replay_vjp
-            assert scene.diff_keys == trace.DIFF_KEYS + trace.TEXTURE_KEYS
+            assert isinstance(scene.bounce_fn, bounce.UnfusedBounce)
+            assert isinstance(scene.bounce_bwd_fn, bounce.ReplayVJP)
+            assert scene.diff_keys == bounce.DIFF_KEYS + bounce.TEXTURE_KEYS
         else:
             assert isinstance(scene.bounce_fn, BounceKernel)
-            assert scene.diff_keys == trace.DIFF_KEYS
+            assert scene.diff_keys == bounce.DIFF_KEYS
     monkeypatch.setenv("PTX_EMK", "1")
     scene = trace.compile_scene(builders.make_world(), "cpu")
     assert isinstance(scene.emission_fn, EmissionKernel)

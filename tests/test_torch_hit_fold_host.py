@@ -1,7 +1,7 @@
 """The CSG fold of K1 and K4 (``ptx_torch/csrc/hit_fold.cuh``, the exact
 source the kernels compile) built for the host with ``g++
 -ffp-contract=off`` and held against the plain fold of
-``ptx_torch/geom/fasthit.py`` (``compile_fast_hit``, the dense hit) under
+``ptx_torch/geom/fasthit.py`` (``DenseHit``, the dense hit) under
 K1's gate on the card: the decisions (event, hit, entering) equal except
 at near-ties that a float64 recompute adjudicates, ``t`` and the normal
 within ``rtol 1e-5, atol 5e-6``.  Both round each operation once in the
@@ -201,7 +201,7 @@ def _near_tie(plan, params, o, d, lanes, evt_a, evt_b):
 def _check(lib, plan, params, seed, name):
     o, d = _rays(seed)
     got = _host_fold(lib, plan, params, o, d)
-    want = fasthit.compile_fast_hit(plan, candidate_block=0)(
+    want = trace.compile_fast_hit(plan, candidate_block=0)(
         params, torch.from_numpy(o), torch.from_numpy(d))
     differ = torch.zeros(B, dtype=torch.bool)
     for k in ("_evt", "hit", "entering", "mat_id"):

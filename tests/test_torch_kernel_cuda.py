@@ -21,7 +21,7 @@ element passes within ``rtol 1e-5, atol 1e-6`` or within twice the plain
 value's error against a float64 recompute plus 1e-4 relative (near-grazing
 lanes are ill-conditioned).  K3 and K8 add with atomics in a varying
 order: ``1e-5`` of each texel's sum of |ct|, or, for K3 and K8's
-degenerate cases, ``chip_smoke._hist_bound_ok``: ``min(2·n·2⁻²⁴,
+degenerate cases, ``imagegrad._hist_bound_ok``: ``min(2·n·2⁻²⁴,
 HIST_REL)·Σ|ct|`` of the float64 sum (n the texel's lanes with a nonzero
 ct), the one limit the smoke run holds them to.  K4 must equal the dense hit
 as K1 does; K7 its plain lanes, with bins equal except where a float64
@@ -56,13 +56,13 @@ import pytest
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import _hist_bound_ok  # noqa: E402
-
 from ptx_torch.core import rng
 from ptx_torch.integrate import trace
 from ptx_torch.integrate.camera import Camera, sample_rays
 from ptx_torch.ops import bounce_kernel
+from ptx_torch.ops.imagegrad import _hist_bound_ok
 from ptx_torch.scenes.builders import make_world
+from ptx_torch.shade.bounce import UnfusedBounce
 
 _DECISIONS = ("evt", "hit", "entering", "mat_id", "take_transmit",
               "scatter_alive", "alive2")
@@ -350,7 +350,7 @@ def test_config4_compiles_on_cuda_with_k4(config4_cuda):
     from ptx_torch.ops.fasthit_kernel import HitKernel
 
     assert isinstance(config4_cuda.hit_fn, HitKernel)
-    assert isinstance(config4_cuda.bounce_fn, trace.UnfusedBounce)
+    assert isinstance(config4_cuda.bounce_fn, UnfusedBounce)
 
 
 @pytest.mark.cuda
@@ -555,7 +555,7 @@ def test_k6_matches_its_plain_version(large_cuda):
     scene = large_cuda
     carry, dec, cts = _k2_inputs(scene)
     kern = scene.bounce_bwd_fn
-    assert isinstance(kern, RowFedReplayBwd) and kern.takes_packed
+    assert isinstance(kern, RowFedReplayBwd)
     packed = kern.pack(scene.params).detach()
     launches = RowFedReplayBwd.LAUNCHES
     got = kern.launch(packed, *carry[:3], dec, *cts)
@@ -919,7 +919,7 @@ def test_autograd_route_on_k4_with_and_without_remat(cuda_scene):
     bounce but the last with it; under deterministic algorithms the
     gradients with ``remat`` equal those without bit for bit, but the sky
     image's: that one is K3's histograms, whose inputs must be equal bit
-    for bit and each output within ``chip_smoke._hist_bound_ok`` (K3's
+    for bit and each output within ``imagegrad._hist_bound_ok`` (K3's
     float atomics add in an order that varies with the launches around
     them); the manual route's gradients (K1, K2) within 1e-4 of each
     tensor's largest entry.  The scene's sky bank is off, so that the sky's

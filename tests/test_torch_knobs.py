@@ -19,8 +19,6 @@ pallas=)``, ``PTX_PALLAS``, ``PTX_FUSED``, ``PTX_SKYSEL`` and
   (``tests/test_torch_grad.py``).
 """
 
-import functools
-
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -33,13 +31,14 @@ from ptx.scenes.builders import baseline_config1 as jax_config1
 from ptx.scenes.builders import make_world as jax_make_world
 from ptx_torch.convert import grads_to_numpy, params_from_jax, scene_from_jax
 from ptx_torch.core import rng
-from ptx_torch.geom.fasthit import MegaHit, SweepHit
 from ptx_torch.integrate import trace
 from ptx_torch.integrate.camera import Camera, sample_rays
 from ptx_torch.ops.bounce_kernel import BounceBwdKernel, BounceKernel
 from ptx_torch.ops.fasthit_kernel import HitKernel
+from ptx_torch.ops.megasweep import MegaHit, SweepHit
 from ptx_torch.ops.replay_bwd import RowFedReplayBwd
 from ptx_torch.scenes.builders import make_world, stress_spheres
+from ptx_torch.shade.bounce import ReplayVJP
 
 torch.set_num_threads(1)
 W, H, SPP, DEPTH = 8, 6, 2, 3
@@ -53,8 +52,7 @@ def clean_env(monkeypatch):
 
 
 def _route(scene):
-    replay = isinstance(scene.bounce_bwd_fn, functools.partial) and \
-        scene.bounce_bwd_fn.func is trace.replay_vjp
+    replay = isinstance(scene.bounce_bwd_fn, ReplayVJP)
     return (type(scene.hit_fn).__name__, type(scene.bounce_fn).__name__,
             "replay_vjp" if replay else type(scene.bounce_bwd_fn).__name__,
             scene.emission_fn is not None, scene.tile_hint)
@@ -72,7 +70,7 @@ def test_routes_on_the_demo(monkeypatch):
     monkeypatch.setenv("PTX_FUSED", "1")
     monkeypatch.setenv("PTX_PALLAS", "0")          # the plain route, asked for
     s = trace.compile_scene(make_world(), "cpu")
-    assert _route(s) == ("function", "UnfusedBounce", "replay_vjp", False, False)
+    assert _route(s) == ("DenseHit", "UnfusedBounce", "replay_vjp", False, False)
     assert s.hit_fn is s.plain_hit_fn
     s = trace.compile_scene(make_world(), "cpu", fast=False)
     assert (s.hit_fn, s.hit_replay_fn, s.bounce_fn, s.bounce_bwd_fn, s.emission_fn) == \

@@ -32,6 +32,7 @@ from ptx_torch.ops import megasweep
 from ptx_torch.ops.replay_bwd import RowFedReplayBwd
 from ptx_torch.parallel.render import make_train_step
 from ptx_torch.scenes import builders
+from ptx_torch.shade.bounce import UnfusedBounce
 from ptx_torch.shade.materials import Material
 
 from test_torch_megasweep import pair_for
@@ -136,16 +137,16 @@ def test_routing_takes_the_sweep_above_24_leaves():
     fold; a non-union tape above 64 leaves takes the candidate-blocked hit,
     with the unfused bounce and K6's wrapper."""
     sc = trace.compile_scene(builders.stress_spheres(25), "cpu")
-    assert isinstance(sc.plain_hit_fn, fasthit.SweepHit) and sc.tile_hint
-    assert isinstance(sc.hit_fn, fasthit.MegaHit)
-    assert isinstance(sc.bounce_fn, fasthit.MegaBounce)
+    assert isinstance(sc.plain_hit_fn, megasweep.SweepHit) and sc.tile_hint
+    assert isinstance(sc.hit_fn, megasweep.MegaHit)
+    assert isinstance(sc.bounce_fn, megasweep.MegaBounce)
     assert isinstance(sc.bounce_bwd_fn, RowFedReplayBwd)
     small = trace.compile_scene(builders.stress_spheres(10), "cpu")
-    assert not isinstance(small.plain_hit_fn, fasthit.SweepHit) and not small.tile_hint
+    assert not isinstance(small.plain_hit_fn, megasweep.SweepHit) and not small.tile_hint
     m = Material(reflect=0.5, scatter=1.0)
     big = Intersection(*[Sphere((0.01 * i, 0.0, -4.0), 1.0, m) for i in range(65)])
     sc = trace.compile_scene(big, "cpu")
     assert isinstance(sc.plain_hit_fn, fasthit.BlockedHit) and sc.hit_fn is sc.plain_hit_fn
-    assert sc.plain_hit_fn.block == fasthit.DEFAULT_CANDIDATE_BLOCK
-    assert isinstance(sc.bounce_fn, trace.UnfusedBounce)
+    assert sc.plain_hit_fn.block == trace.DEFAULT_CANDIDATE_BLOCK
+    assert isinstance(sc.bounce_fn, UnfusedBounce)
     assert isinstance(sc.bounce_bwd_fn, RowFedReplayBwd)

@@ -155,9 +155,9 @@ def port_sweep(ts):
     """The port's sweep on ``ts`` (the ellipsoid scene has 23 leaves, below
     the sweep's routing threshold: its sweep is built directly, as the JAX
     side's ``sweep=True``)."""
-    if isinstance(ts.plain_hit_fn, fasthit.SweepHit):
+    if isinstance(ts.plain_hit_fn, megasweep.SweepHit):
         return ts.plain_hit_fn
-    return fasthit.SweepHit(ts.plan, fasthit.collect_leaves(ts.plan), ts.params)
+    return megasweep.SweepHit(ts.plan, fasthit.collect_leaves(ts.plan), ts.params)
 
 
 def test_sweep_hit_matches_the_jax_sweep(pair):

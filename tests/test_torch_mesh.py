@@ -7,7 +7,7 @@
   train step and adaptive render, bit for bit;
 - gloo worlds of 2 ranks (2×1 and 1×2 meshes) and of 4 (2×2, where a
   sample group is not the world): each rank's frame, moments, one train
-  step's params and loss, and ``render_adaptive(mesh=)`` equal, bit for
+  step's params and loss, and ``render_adaptive_sharded`` equal, bit for
   bit, the port's per-(tile, sample) band renders and gradients of one
   process combined in the JAX order: each band's sample mean, the loss's
   cotangent on every band of a tile, the gradients averaged over tiles,
@@ -69,8 +69,8 @@ def workload(scene, mesh):
     step = prender.make_train_step(scene, cam, mesh, spp=SPP, depth=DEPTH, learning_rate=LR)
     new, loss = step(params, target(), rng.PRNGKey(STEP_SEED))
     base = []
-    a_img, a_count, _ = adaptive.render_adaptive(
-        scene, cam, rng.PRNGKey(ADAPT_SEED), **ADAPT, params=params, mesh=mesh,
+    a_img, a_count, _ = prender.render_adaptive_sharded(
+        scene, cam, mesh, rng.PRNGKey(ADAPT_SEED), **ADAPT, params=params,
         on_round=lambda s1, s2, c, r: base.extend([s1.clone(), s2.clone()]) if r == 0 else None)
     out = (img, s1, s2, loss, flat(new), a_img, a_count, *base)
     return dict(zip(OUTPUTS, (x.numpy() for x in out)))

@@ -38,6 +38,7 @@ from ptx_torch.core.constants import EPS
 from ptx_torch.geom import spans
 from ptx_torch.integrate import trace
 from ptx_torch.scenes import builders
+from ptx_torch.shade import bounce
 from ptx_torch.shade.materials import Material
 from ptx_torch.utils import profiling
 
@@ -146,7 +147,7 @@ def test_select_scatter_dir_on_lcg_streams_matches_jax():
     u, d, n, sc = (np.stack(x) for x in zip(*rows))
     want, ok_j, raw_j = (np.asarray(x) for x in jtr.select_scatter_dir(
         jnp.asarray(u), jnp.asarray(d), jnp.asarray(n), jnp.asarray(sc), return_raw=True))
-    got, ok_t, raw_t = (x.numpy() for x in trace.select_scatter_dir(
+    got, ok_t, raw_t = (x.numpy() for x in bounce.select_scatter_dir(
         *(torch.from_numpy(x) for x in (u, d, n, sc)), return_raw=True))
     assert ok_j.sum() >= 30
     np.testing.assert_array_equal(ok_t, ok_j)
@@ -161,7 +162,7 @@ def test_rejection_sampler_draws_as_jax_does():
     sc = g.uniform(0.0, 1.0, 512).astype(np.float32)
     sc[:16] = 0.0                                   # specular lanes
     key, jkey = rng.PRNGKey(11), jax.random.PRNGKey(11)
-    got, ok_t, raw_t = (x.numpy() for x in trace.sample_scatter_dir_rejection(
+    got, ok_t, raw_t = (x.numpy() for x in bounce.sample_scatter_dir_rejection(
         key, *(torch.from_numpy(x) for x in (d, n, sc)), return_raw=True))
     want, ok_j, raw_j = (np.asarray(x) for x in jtr.sample_scatter_dir_rejection(
         jkey, jnp.asarray(d), jnp.asarray(n), jnp.asarray(sc), return_raw=True))
@@ -189,9 +190,9 @@ def test_rejection_sampler_matches_the_exact_sampler(case):
     d = torch.tensor(d, dtype=torch.float32).expand(N, 3)
     n = torch.tensor(np.asarray(n) / np.linalg.norm(n), dtype=torch.float32).expand(N, 3)
     s = torch.full((N,), sc)
-    da, oka, _ = trace.sample_scatter_dir(d, n, s, rng.uniform(rng.PRNGKey(100 + case),
+    da, oka, _ = bounce.sample_scatter_dir(d, n, s, rng.uniform(rng.PRNGKey(100 + case),
                                                                (N, 3), "cpu"))
-    db, okb = trace.sample_scatter_dir_rejection(rng.PRNGKey(200 + case), d, n, s)
+    db, okb = bounce.sample_scatter_dir_rejection(rng.PRNGKey(200 + case), d, n, s)
     assert bool(oka.all()) and float(okb.float().mean()) > 0.99
     da, db = da[oka].numpy(), db[okb].numpy()
     np.testing.assert_allclose(da.mean(0), db.mean(0), atol=0.02)
@@ -201,7 +202,7 @@ def test_rejection_sampler_matches_the_exact_sampler(case):
 
 def test_rejection_sampler_abandons_an_empty_cap():
     d = torch.tensor([0.0, 0.0, 1.0]).expand(64, 3)
-    _, ok = trace.sample_scatter_dir_rejection(rng.PRNGKey(1), d, d, torch.full((64,), 0.4))
+    _, ok = bounce.sample_scatter_dir_rejection(rng.PRNGKey(1), d, d, torch.full((64,), 0.4))
     assert not bool(ok.any())
 
 

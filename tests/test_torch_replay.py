@@ -44,6 +44,7 @@ from ptx_torch.geom import hitreplay
 from ptx_torch.geom.fasthit import collect_leaves
 from ptx_torch.integrate import trace as ttr
 from ptx_torch.ops import bounce_kernel as bk
+from ptx_torch.shade.bounce import DIFF_KEYS
 
 torch.set_num_threads(1)
 
@@ -165,7 +166,7 @@ def test_bounce_bwd_reference_matches_jax_vjp(pair, seed):
         _close(g.numpy(), w, tr.numpy(), name)
         # filler lanes pass their cotangents through, exactly
         np.testing.assert_array_equal(g.numpy()[-N_FILL:], cts[("d_o", "d_d", "d_thr").index(name)][-N_FILL:])
-    for k in ttr.DIFF_KEYS:
+    for k in DIFF_KEYS:
         _close(got[3][k].numpy(), np.asarray(jp[k]), truth[3][k].numpy(), k)
     assert np.abs(got[3]["sphere_radius"].numpy()).sum() > 0
     assert np.abs(got[3]["ior"].numpy()).sum() > 0
@@ -190,7 +191,7 @@ def test_k2_lanes_reference_maps_to_bounce_bwd_reference(pair):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
     got = kern.params_grad(packed, leaves, bk.fold_packed(acc, kern.leaf_mat,
                                                           kern.n_materials))
-    for k in ttr.DIFF_KEYS:
+    for k in DIFF_KEYS:
         torch.testing.assert_close(got[k], want[3][k], rtol=1e-4, atol=1e-5)
     assert float(acc_abs.sum()) > 0
 
@@ -221,7 +222,7 @@ def test_k2_call_on_the_cpu_gives_the_packed_cotangent(pair, seed):
     for name, g, w, tr in zip(("d_o", "d_d", "d_thr"), (d_o, d_d, d_thr), want[:3], truth[:3]):
         _close(g.numpy(), w.numpy(), tr.numpy(), name)
     got = kern.params_grad(packed, leaves, d_packed)
-    for k in ttr.DIFF_KEYS:
+    for k in DIFF_KEYS:
         torch.testing.assert_close(got[k], want[3][k], rtol=1e-4, atol=1e-5)
 
 

@@ -123,7 +123,7 @@ def test_k6_call_on_the_cpu_gives_the_packed_cotangent(name):
     vector's L·26 + M·8 words."""
     _, ts = pair_for(name)
     kern = ts.bounce_bwd_fn
-    assert kern.takes_packed
+    assert isinstance(kern, RowFedReplayBwd)
     o, d, thr, dec, cts = _inputs(ts, seed=5)
     packed = kern.pack(ts.params).detach()
     assert packed.shape == (len(kern.leaves) * 26 + kern.n_materials * 8,)

@@ -1,5 +1,5 @@
 """The port's span algebra (``ptx_torch.geom.spans``, ``primitives``, the
-tape's ``span_evaluator``) and ``trace.first_hit`` against the JAX
+tape's ``span_evaluator``) and ``spans.first_hit`` against the JAX
 package's, on the CPU.
 
 - union (n-ary), intersection and difference on seeded span lists whose
@@ -150,7 +150,7 @@ def test_spans_fn_and_first_hit_match_jax(pair):
             np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5, err_msg=name)
         else:
             np.testing.assert_array_equal(g, w, err_msg=name)
-    got = trace.first_hit(tsl)
+    got = spans.first_hit(tsl)
     want = jax.tree.map(np.asarray, jtr.first_hit(jsl))
     for k in ("hit", "entering", "mat_id"):
         np.testing.assert_array_equal(got[k].numpy()[~unstable], want[k][~unstable], err_msg=k)
@@ -165,7 +165,7 @@ def test_first_hit_of_spans_agrees_with_the_fast_hit(pair):
     _, ts = pair
     o, d = (torch.from_numpy(x) for x in _rays(seed=1))
     fast = {k: v.numpy() for k, v in ts.plain_hit_fn(ts.params, o, d).items()}
-    slow = {k: v.numpy() for k, v in trace.first_hit(ts.spans_fn(ts.params, o, d)).items()}
+    slow = {k: v.numpy() for k, v in spans.first_hit(ts.spans_fn(ts.params, o, d)).items()}
     agree = fast["hit"] == slow["hit"]
     assert agree.mean() > 0.98
     both = fast["hit"] & slow["hit"]
@@ -194,7 +194,7 @@ def test_coincident_boundary_payload_follows_each_path():
     jo, jd, to, td = jnp.asarray(o), jnp.asarray(d), torch.from_numpy(o), torch.from_numpy(d)
     j_spans = np.asarray(jtr.first_hit(js.spans_fn(js.params, jo, jd))["mat_id"])
     j_fast = np.asarray(js.hit_fn(js.params, jo, jd)["mat_id"])
-    t_spans = trace.first_hit(ts.spans_fn(ts.params, to, td))["mat_id"].numpy()
+    t_spans = spans.first_hit(ts.spans_fn(ts.params, to, td))["mat_id"].numpy()
     t_fast = ts.plain_hit_fn(ts.params, to, td)["mat_id"].numpy()
     np.testing.assert_array_equal(t_spans, j_spans)
     np.testing.assert_array_equal(t_fast, j_fast)

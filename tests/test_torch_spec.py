@@ -24,8 +24,8 @@ from ptx.io import hdr as jhdr
 from ptx.scenes.spec import SceneSpec as JaxSceneSpec
 from ptx_torch import io
 from ptx_torch.convert import params_from_jax
-from ptx_torch.geom.fasthit import MegaHit
 from ptx_torch.integrate import trace
+from ptx_torch.ops.megasweep import MegaHit
 from ptx_torch.scenes.spec import SceneSpec, parse_transform
 
 torch.set_num_threads(1)

@@ -52,6 +52,7 @@ from ptx_torch.integrate.camera import Camera, sample_rays
 from ptx_torch.ops import megasweep, sweep_kernel
 from ptx_torch.ops.replay_bwd import RowFedReplayBwd
 from ptx_torch.scenes import builders
+from ptx_torch.shade.bounce import UnfusedBounce
 
 from test_torch_large_scenes import _close_grads
 from test_torch_megasweep import winner_tied
@@ -202,7 +203,7 @@ def sweep_case(request):
     name = request.param
     js, ts = _pair(name)
     o, d = _scene_rays(name, ts)
-    got = {m: fasthit.compile_fast_hit(ts.plan, sweep=True, sweep_mode=m)(ts.params, o, d)
+    got = {m: trace.compile_fast_hit(ts.plan, sweep=True, sweep_mode=m)(ts.params, o, d)
            for m in MODES}
     return name, js, ts, o, d, got
 
@@ -225,7 +226,7 @@ def test_fixpoint_takes_chain_hops():
     for bit; test_sweep_modes_match_jax holds them against the JAX sweep."""
     _, ts = _pair("chain")
     o, d = _scene_rays("chain", ts)
-    hits = {m: fasthit.compile_fast_hit(ts.plan, sweep=True, sweep_mode=m) for m in MODES}
+    hits = {m: trace.compile_fast_hit(ts.plan, sweep=True, sweep_mode=m) for m in MODES}
     got = {m: h(ts.params, o, d) for m, h in hits.items()}
     assert hits["fixpoint"].last_passes > 1
     assert bool(got["fixpoint"]["hit"].all())
@@ -242,7 +243,7 @@ def test_bitten_union_is_past_the_slot_algebra():
     leaves = fasthit.collect_leaves(ts.plan)
     assert len(leaves) == 57
     assert not megasweep.mega_eligible(ts.plan, leaves)
-    hit = fasthit.compile_fast_hit(ts.plan, ts.params)
+    hit = trace.compile_fast_hit(ts.plan, ts.params)
     assert isinstance(hit, fasthit.UnionSweepHit) and hit.mode == "fixpoint"
     assert [rows.shape for _, _, rows in hit.classes] == [(10, 5)]
     two = scene_from_jax(JUnion(*(JDifference(JSphere((i, 0.0, -4.0), 0.4, _GROUND),
@@ -257,7 +258,7 @@ def test_bitten_union_is_past_the_slot_algebra():
 def test_blocked_hit_matches_jax(name):
     js, ts = _pair(name)
     o, d = _scene_rays(name, ts)
-    got = fasthit.compile_fast_hit(ts.plan, candidate_block=32)
+    got = trace.compile_fast_hit(ts.plan, candidate_block=32)
     assert isinstance(got, fasthit.BlockedHit)
     want = jax.jit(jfast.compile_fast_hit(js.plan, candidate_block=32))(
         js.params, jnp.asarray(o.numpy()), jnp.asarray(d.numpy()))
@@ -269,8 +270,8 @@ def test_blocked_equals_dense_in_the_port():
     last block) and the dense fold pick the same event on every lane."""
     ts = trace.compile_scene(builders.stress_spheres(20), "cpu")
     o, d = _scene_rays("spheres20", ts)
-    a = fasthit.compile_fast_hit(ts.plan, candidate_block=8)(ts.params, o, d)
-    b = fasthit.compile_fast_hit(ts.plan, candidate_block=0)(ts.params, o, d)
+    a = trace.compile_fast_hit(ts.plan, candidate_block=8)(ts.params, o, d)
+    b = trace.compile_fast_hit(ts.plan, candidate_block=0)(ts.params, o, d)
     assert a["hit"].float().mean() > 0.5
     assert torch.equal(a["_evt"], b["_evt"]) and torch.equal(a["hit"], b["hit"])
     assert torch.equal(a["entering"], b["entering"]) and torch.equal(a["mat_id"], b["mat_id"])
@@ -284,7 +285,7 @@ def test_trace_rays_loss_and_gradients_match_jax(name):
     blocked hit (carved), each with the unfused bounce and K6's CPU path."""
     js, ts = _pair(name)
     hit = {"bitten57": fasthit.UnionSweepHit, "carved72": fasthit.BlockedHit}[name]
-    assert isinstance(ts.hit_fn, hit) and isinstance(ts.bounce_fn, trace.UnfusedBounce)
+    assert isinstance(ts.hit_fn, hit) and isinstance(ts.bounce_fn, UnfusedBounce)
     assert isinstance(ts.bounce_bwd_fn, RowFedReplayBwd)
     W, H, DEPTH = 16, 8, 4
     kj = jax.random.PRNGKey(0)
@@ -323,7 +324,7 @@ def test_kernel_mode_scene_calls_k9_once_per_bounce(monkeypatch):
 def test_mode_resolution(monkeypatch):
     eligible = trace.compile_scene(builders.stress_spheres(25), "cpu").plan
     bitten = trace.compile_scene(scene_from_jax(bitten_union(10)), "cpu").plan
-    mode = lambda plan, **kw: fasthit.resolve_sweep_mode(plan, fasthit.collect_leaves(plan),
+    mode = lambda plan, **kw: trace.resolve_sweep_mode(plan, fasthit.collect_leaves(plan),
                                                          **kw)
     for v in ("PTX_SWEEP_MODE", "PTX_SWEEP_KERNEL"):
         monkeypatch.delenv(v, raising=False)
@@ -344,8 +345,8 @@ def test_mode_resolution(monkeypatch):
         mode(eligible, sweep_mode="bitonic")
     with pytest.raises(ValueError, match="sweep_kernel"):
         mode(eligible, sweep_kernel="interpret")
-    for m, cls in (("mega", fasthit.SweepHit), ("kernel", fasthit.UnionSweepHit)):
-        assert isinstance(fasthit.compile_fast_hit(eligible, sweep_mode=m), cls)
+    for m, cls in (("mega", megasweep.SweepHit), ("kernel", fasthit.UnionSweepHit)):
+        assert isinstance(trace.compile_fast_hit(eligible, sweep_mode=m), cls)
 
 
 def test_megab_knob_routes_the_bounce(monkeypatch):
@@ -355,15 +356,15 @@ def test_megab_knob_routes_the_bounce(monkeypatch):
         monkeypatch.delenv(v, raising=False)
     world = lambda: builders.stress_spheres(25)
     sc = trace.compile_scene(world(), "cpu")
-    assert isinstance(sc.bounce_fn, fasthit.MegaBounce)
+    assert isinstance(sc.bounce_fn, megasweep.MegaBounce)
     monkeypatch.setenv("PTX_MEGAB", "0")
     sc = trace.compile_scene(world(), "cpu")
-    assert isinstance(sc.bounce_fn, trace.UnfusedBounce) and isinstance(sc.hit_fn, fasthit.MegaHit)
+    assert isinstance(sc.bounce_fn, UnfusedBounce) and isinstance(sc.hit_fn, megasweep.MegaHit)
     assert isinstance(sc.bounce_bwd_fn, RowFedReplayBwd)
     monkeypatch.setenv("PTX_MEGAB", "1")
     monkeypatch.setenv("PTX_SWEEP_MODE", "kernel")
     sc = trace.compile_scene(world(), "cpu")
-    assert isinstance(sc.bounce_fn, trace.UnfusedBounce)
+    assert isinstance(sc.bounce_fn, UnfusedBounce)
     assert isinstance(sc.hit_fn, fasthit.UnionSweepHit) and sc.hit_fn.mode == "kernel"
     assert sc.bounce_fn.pack(sc.params) is None
     assert isinstance(sc.bounce_bwd_fn, RowFedReplayBwd)
